@@ -1,8 +1,9 @@
 """Carry the TPU package's numbers across to this port.
 
-These helpers take objects of ``myfm_tpu`` (a ``GibbsState``, a
-``CategoricalState``, ``FM`` samples, a ``Predictor``, a
-``CategoricalPlan``) by their attributes alone, read every array with
+These helpers take objects of ``myfm_tpu`` (a ``GibbsState`` with its
+residual e, a ``CategoricalState``, ``FM`` samples, a ``Predictor``, a
+``CategoricalPlan``, a row-space ``DesignPlan``) by their attributes
+alone, read every array with
 ``np.asarray``, and build the port's counterpart on a torch device — so
 both packages can be run on the same numbers.  Nothing here imports the
 TPU package or JAX.
@@ -16,6 +17,15 @@ import numpy as np
 import torch
 
 from .containers import FM
+from .design import (
+    BlockPlan,
+    ColorPlan,
+    ColorStack,
+    DenseColor,
+    DenseStack,
+    DesignPlan,
+    TablePlan,
+)
 from .design_categorical import CategoricalPlan, CategoricalTable
 from .ops.categorical import CategoricalState
 from .ops.gibbs import GibbsState
@@ -29,7 +39,8 @@ def _tensor(a, device, dtype=None):
 
 
 def state_from_numpy(state, device) -> GibbsState:
-    """The port's GibbsState from any object with GibbsState's fields."""
+    """The port's GibbsState from any object with GibbsState's fields
+    (the residual e included)."""
     return GibbsState(**{
         f.name: _tensor(getattr(state, f.name, None), device)
         for f in dataclasses.fields(GibbsState)
@@ -94,3 +105,33 @@ def plan_from_numpy(plan, device) -> CategoricalPlan:
         n_features=plan.n_features,
         n_groups=plan.n_groups,
     )
+
+
+# the plan class of each nested field of a row-space DesignPlan
+_PLAN_FIELDS = {
+    "main": TablePlan, "blocks": BlockPlan, "colors": ColorPlan,
+    "color_stack": ColorStack, "dense_colors": DenseColor,
+    "dense_stack": DenseStack,
+}
+
+
+def _plan_node(cls, obj, device):
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(obj, f.name)
+        sub = _PLAN_FIELDS.get(f.name)
+        if v is None or isinstance(v, int):
+            kw[f.name] = v
+        elif sub is not None and isinstance(v, (tuple, list)):
+            kw[f.name] = tuple(_plan_node(sub, x, device) for x in v)
+        elif sub is not None:
+            kw[f.name] = _plan_node(sub, v, device)
+        else:
+            kw[f.name] = _tensor(v, device)
+    return cls(**kw)
+
+
+def design_plan_from_numpy(plan, device) -> DesignPlan:
+    """The port's row-space DesignPlan from a TPU-package DesignPlan
+    (every array read with ``np.asarray``, dtypes kept)."""
+    return _plan_node(DesignPlan, plan, device)

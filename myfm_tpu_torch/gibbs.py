@@ -1,11 +1,12 @@
-"""Gibbs-sampler regressor on the categorical fast path.
+"""Gibbs-sampler regressor on the categorical fast path and the joint
+engine.
 
 PyTorch counterpart of ``myfm_tpu/gibbs.py`` (``MyFMGibbsRegressor``,
 ``_gibbs_config``, ``_encode_ordered_targets`` and ``_train_core``).
-The "auto" / "categorical" engine resolution is the TPU package's,
-unchanged; wherever it would pick the joint or the colored engine, this
-port raises ``NotImplementedError``, since those engines are a later
-slice.
+The "auto" / "categorical" / "joint" engine resolution is the TPU
+package's, unchanged; wherever it lands on the colored engine, this
+port raises ``NotImplementedError``, since that engine is a later
+slice.  There is no design cache: every fit compiles its plan.
 """
 
 from __future__ import annotations
@@ -98,10 +99,6 @@ def _joint_candidate(est, rank, config) -> bool:
     )
 
 
-def _later_engine():
-    return NotImplementedError("joint/colored engine: later slice")
-
-
 class MyFMGibbsBase(MyFMBase):
     @property
     def w0_samples(self) -> Optional[np.ndarray]:
@@ -177,6 +174,7 @@ class MyFMGibbsBase(MyFMBase):
                 # the entity+attribute extension needs the linear terms
                 allow_side=bool(config.fit_linear),
             )
+        use_joint = self.sweep_strategy == "joint"
         if cat_plan is None:
             if self.sweep_strategy == "categorical":
                 raise ValueError(
@@ -185,13 +183,52 @@ class MyFMGibbsBase(MyFMBase):
                     "block of [one-hot | per-entity side-feature] "
                     "column groups within the entity+attribute gates."
                 )
-            raise _later_engine()
-        cfg = _gibbs_config(config, self.sweep_strategy)
-        from .trainer import CategoricalGibbsTrainer
+            from .design import (
+                compile_design,
+                joint_auto_candidate,
+                joint_auto_eligible,
+            )
 
-        trainer = CategoricalGibbsTrainer(
-            cat_plan, y, cfg, rank, init_stdev, random_seed, self.dtype,
+            # "auto" prefers the merged joint sweep when the
+            # rank/dtype/grouping and dense-machinery gates allow it
+            want_joint = use_joint or (
+                self.sweep_strategy == "auto"
+                and joint_auto_candidate(
+                    rank, bool(config.fit_linear), self.dtype,
+                    config.group_index,
+                )
+            )
+            plan = compile_design(
+                X,
+                X_rel,
+                grouping=np.asarray(config.group_index, dtype=np.int32),
+                dtype=self.dtype,
+                strategy=(
+                    "auto" if self.sweep_strategy in ("joint", "colored")
+                    else self.sweep_strategy
+                ),
+                max_unrolled_colors=self.max_unrolled_colors,
+                joint_dense=want_joint,
+                joint_rank=rank,
+                device=self.device,
+            )
+            use_joint = use_joint or (
+                want_joint and joint_auto_eligible(plan, rank, self.dtype)
+            )
+        cfg = _gibbs_config(
+            config, "joint" if use_joint else self.sweep_strategy
         )
+        from .trainer import CategoricalGibbsTrainer, GibbsTrainer
+
+        if cat_plan is not None:
+            trainer = CategoricalGibbsTrainer(
+                cat_plan, y, cfg, rank, init_stdev, random_seed,
+                self.dtype,
+            )
+        else:
+            trainer = GibbsTrainer(
+                plan, y, cfg, rank, init_stdev, random_seed, self.dtype
+            )
         return trainer.run(config.n_iter, config.n_kept_samples, callback)
 
     def get_hyper_trace(self):

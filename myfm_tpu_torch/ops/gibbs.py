@@ -1,8 +1,12 @@
-"""Gibbs hyperparameter conditionals and chain state.
+"""Gibbs hyperparameter conditionals, chain state and the row-space sweep.
 
-PyTorch counterpart of the subset of ``myfm_tpu/ops/gibbs.py`` that the
-categorical fast path uses: ``GibbsConfig``, ``GibbsState``,
-``_draw_normal``, ``draw_lambda``, ``draw_mu`` and ``init_state``.
+PyTorch counterpart of the parts of ``myfm_tpu/ops/gibbs.py`` that the
+categorical fast path and the joint engine use: ``GibbsConfig``,
+``GibbsState``, ``_draw_normal``, ``draw_alpha``, ``draw_w0``,
+``draw_lambda``, ``draw_mu``, ``init_state``, the regression branch of
+``refresh_e`` and ``gibbs_sweep`` with its merged-joint branch.  The
+colored engine (``sweep_w``, ``sweep_V``, ``sweep_V_joint``) is not
+ported yet: a sweep that needs it raises ``NotImplementedError``.
 
 Every draw is a deterministic transform of standard variates that the
 caller passes in (a standard-gamma variate, a standard normal); the
@@ -20,13 +24,16 @@ from typing import Optional, Tuple
 import torch
 
 TASK_REGRESSION = "regression"
+_COLORED = "colored engine: later slice"
 
 
 @dataclasses.dataclass(frozen=True)
 class GibbsConfig:
     """Static learning configuration (fields as in
-    ``myfm_tpu.ops.gibbs.GibbsConfig``; the multi-device and joint-engine
-    knobs are not part of this port yet)."""
+    ``myfm_tpu.ops.gibbs.GibbsConfig``; the multi-device knobs are not
+    part of this port yet).  ``joint_unroll``, the TPU package's
+    ``lax.scan`` unroll factor, has no counterpart: the tail runs as one
+    kernel or as a plain Python loop."""
 
     task: str = TASK_REGRESSION
     alpha_0: float = 1.0
@@ -41,6 +48,12 @@ class GibbsConfig:
     n_class: int = 0
     n_classes: Tuple[int, ...] = ()
     joint_rows: bool = False
+    # run the joint sweep's stacked color tail through the CUDA kernel
+    # (ops/joint_tail.py) instead of its plain loop — the counterpart of
+    # joint_pallas_tail.  None = auto: the trainer resolves it to the
+    # kernel when the plan is on CUDA and D = rank + 2 <= 34
+    # (trainer._resolve_joint_tail); True requires CUDA tensors.
+    joint_tail_kernel: Optional[bool] = None
     # Gram arithmetic mode.  None = auto, which resolves to IEEE fp32
     # (False) in this port (trainer._resolve_gram_fast_matmul); the
     # split / bf16 modes of the TPU package are not ported yet.
@@ -80,6 +93,23 @@ def _draw_normal(quad, lin, noise):
 def _segment_sum(x: torch.Tensor, index: torch.Tensor, n: int):
     out = torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device)
     return out.index_add_(0, index, x)
+
+
+def draw_alpha(e, cfg: GibbsConfig, g: torch.Tensor):
+    """α | e ~ Gamma((α₀+n)/2, rate=(β₀+Σe²)/2) given the standard-gamma
+    variate ``g`` of shape (α₀+n)/2."""
+    rate = (cfg.beta_0 + (e * e).sum()) / 2.0
+    return g / rate
+
+
+def draw_w0(e, w0, alpha, cfg: GibbsConfig, n_rows: int,
+            noise: torch.Tensor):
+    """w0 | e ~ N(·) with prior precision reg₀, given a standard normal;
+    returns (w0_new, e shifted by w0_new − w0)."""
+    quad = alpha * n_rows + cfg.reg_0
+    lin = alpha * (n_rows * w0 - e.sum())
+    w0_new = _draw_normal(quad, lin, noise)
+    return w0_new, e + (w0_new - w0)
 
 
 def lambda_gamma_shape(weight_ndim: int, group_counts: torch.Tensor,
@@ -155,3 +185,109 @@ def init_state(plan, rank: int, init_stdev: float,
         mu_V=torch.zeros((G, rank), dtype=dtype, device=device),
         lambda_V=torch.full((G, rank), 1e-5, dtype=dtype, device=device),
     )
+
+
+@dataclasses.dataclass
+class GibbsVariates:
+    """Every standard variate one row-space sweep consumes (the TPU
+    package draws them from the splits of its key: gibbs.py:926-928)."""
+
+    gamma_alpha: torch.Tensor  # scalar, Gamma((α₀+n)/2, 1)
+    normal_w0: torch.Tensor  # scalar
+    gamma_lambda_w: torch.Tensor  # [G]
+    normal_mu_w: torch.Tensor  # [G]
+    gamma_lambda_V: torch.Tensor  # [G, 1] (one variate per group)
+    normal_mu_V: torch.Tensor  # [G, R]
+    noise: torch.Tensor  # [F, R+1], the joint draws' ξ
+
+
+def draw_gibbs_variates(plan, cfg: GibbsConfig, rank: int,
+                        generator: torch.Generator, dtype: torch.dtype,
+                        device) -> GibbsVariates:
+    """Draw one sweep's standard variates from ``generator``."""
+    G = plan.n_groups
+    counts = plan.group_counts
+
+    def normal(shape):
+        return std_normal(shape, generator, dtype, device)
+
+    shape_alpha = torch.full(
+        (), (cfg.alpha_0 + plan.n_rows) / 2.0, dtype=dtype, device=device
+    )
+    return GibbsVariates(
+        gamma_alpha=std_gamma(shape_alpha, generator),
+        normal_w0=normal(()),
+        gamma_lambda_w=std_gamma(lambda_gamma_shape(1, counts, cfg),
+                                 generator),
+        normal_mu_w=normal((G,)),
+        gamma_lambda_V=std_gamma(lambda_gamma_shape(2, counts, cfg),
+                                 generator),
+        normal_mu_V=normal((G, rank)),
+        noise=normal((plan.n_features, rank + 1)),
+    )
+
+
+def require_joint(cfg: GibbsConfig):
+    """The port's row-space sweep is the merged joint engine on the
+    regression task; anything else is a later slice."""
+    if not (cfg.joint_rows and cfg.fit_linear):
+        raise NotImplementedError(_COLORED)
+    if cfg.task != TASK_REGRESSION:
+        raise NotImplementedError(
+            f"task {cfg.task!r} on the joint engine (probit tasks): later "
+            "slice"
+        )
+
+
+def refresh_e(plan, w0, w, V, y, cfg: GibbsConfig) -> torch.Tensor:
+    """Recompute the residual e = score − y from scratch (regression)."""
+    from .forward import predict_score
+
+    require_joint(cfg)
+    return predict_score(plan, w0, w, V) - y
+
+
+def draw_hypers(plan, state: GibbsState, variates: GibbsVariates,
+                cfg: GibbsConfig) -> GibbsState:
+    """The sweep's first half, α → w0 → (λ_w, μ_w) → (λ_V, μ_V): the
+    state with its hyperparameters (and w0, e) drawn, weights as given."""
+    v = variates
+    n = plan.n_rows
+    gi, gc = plan.group_index, plan.group_counts
+    alpha = draw_alpha(state.e, cfg, v.gamma_alpha)
+    e = state.e
+    w0 = state.w0
+    if cfg.fit_w0:
+        w0, e = draw_w0(e, w0, alpha, cfg, n, v.normal_w0)
+    lambda_w = draw_lambda(state.w, state.mu_w, gi, gc, cfg, v.gamma_lambda_w)
+    mu_w = draw_mu(state.w, lambda_w, gi, gc, cfg, v.normal_mu_w)
+    lambda_V = draw_lambda(state.V, state.mu_V, gi, gc, cfg,
+                           v.gamma_lambda_V)
+    mu_V = draw_mu(state.V, lambda_V, gi, gc, cfg, v.normal_mu_V)
+    return dataclasses.replace(
+        state, w0=w0, e=e, alpha=alpha, mu_w=mu_w, lambda_w=lambda_w,
+        mu_V=mu_V, lambda_V=lambda_V,
+    )
+
+
+def gibbs_sweep(plan, state: GibbsState, y: torch.Tensor,
+                variates: GibbsVariates, cfg: GibbsConfig) -> GibbsState:
+    """One full Gibbs iteration (α → w0 → λ_w, μ_w → λ_V, μ_V → the
+    merged joint (w, V) pass → residual refresh), applying the given
+    standard ``variates``.  The input state is not modified.
+
+    Both float32 fixes of the TPU package are kept: q is rebuilt from V
+    at every sweep, and e is re-forwarded at its end, so the drift of
+    the incrementally maintained caches cannot feed back into the
+    draws."""
+    from .joint import sweep_joint_u
+
+    require_joint(cfg)
+    h = draw_hypers(plan, state, variates, cfg)
+    w, V, _, _ = sweep_joint_u(
+        plan, h.e, h.w, h.V, h.alpha, h.lambda_w, h.mu_w, h.lambda_V,
+        h.mu_V, variates.noise, q=None,
+        tail_kernel=bool(cfg.joint_tail_kernel),
+    )
+    e = refresh_e(plan, h.w0, w, V, y, cfg)
+    return dataclasses.replace(h, w=w, V=V, e=e)

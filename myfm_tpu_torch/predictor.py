@@ -1,8 +1,9 @@
 """Posterior-predictive averaging over kept Gibbs samples.
 
-PyTorch counterpart of ``myfm_tpu/predictor.py`` ``Predictor``, entity-
-space fast path only: samples are stacked on the device in
-memory-bounded chunks and scored with ops/forward_categorical.
+PyTorch counterpart of ``myfm_tpu/predictor.py`` ``Predictor``: samples
+are stacked on the device in memory-bounded chunks and scored with
+ops/forward_categorical when every table is one-hot, else with the
+row-space forward (ops/forward.py) over a compiled design.
 ``n_workers`` is accepted for API parity and ignored.
 """
 
@@ -15,7 +16,9 @@ import torch
 from scipy import sparse as sps
 
 from .containers import FM
+from .design import compile_design
 from .design_categorical import torch_dtype
+from .ops.forward import predict_score
 from .ops.forward_categorical import (
     compile_categorical_inference,
     scores_samples_reduce,
@@ -78,10 +81,7 @@ class Predictor:
             X, X_rel, self.dtype, self.device
         )
         if fast is None:
-            raise NotImplementedError(
-                "serving a design that is not all one-hot (row-space "
-                "scorer): later slice"
-            )
+            return self._predict_rows(X, X_rel)
         mode = "probit_sum" if self.task == TASK_CLASSIFICATION else "sum"
         total = np.zeros(fast.n_rows, dtype=np.float64)
         for part, w0s, ws, vs in self._sample_chunks():
@@ -90,4 +90,21 @@ class Predictor:
                 row_chunk=serving_row_chunk(len(part), self.rank),
             )
             total += out.double().cpu().numpy()
+        return total / len(self.samples)
+
+    def _predict_rows(self, X, X_rel) -> np.ndarray:
+        """Row-space scorer: the design compiled for inference, each kept
+        sample scored with predict_score and summed per sample chunk."""
+        if self.task == TASK_CLASSIFICATION:
+            raise NotImplementedError(
+                "classification on the row-space scorer: later slice"
+            )
+        plan = compile_design(X, X_rel, dtype=self.dtype, for_training=False,
+                              device=self.device)
+        total = np.zeros(plan.n_rows, dtype=np.float64)
+        for part, w0s, ws, vs in self._sample_chunks():
+            acc = torch.zeros(plan.n_rows, dtype=ws.dtype, device=ws.device)
+            for k in range(len(part)):
+                acc += predict_score(plan, w0s[k], ws[k], vs[k])
+            total += acc.double().cpu().numpy()
         return total / len(self.samples)

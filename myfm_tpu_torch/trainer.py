@@ -1,7 +1,9 @@
-"""Training loop driving the categorical Gibbs sweep.
+"""Training loops driving the categorical and the joint Gibbs sweeps.
 
 PyTorch counterpart of ``myfm_tpu/trainer.py`` (``run_mcmc_loop``,
-``CategoricalGibbsTrainer``, ``LazyFMView``, ``callback_allows_async``):
+``GibbsTrainer``, ``CategoricalGibbsTrainer``, ``LazyFMView``,
+``callback_allows_async``, and ``_resolve_joint_tail`` in place of
+``_resolve_joint_pallas_tail``):
 runs ``n_iter`` sweeps, keeps the last ``n_kept_samples`` weight samples
 on the host, records the hyperparameter trace every iteration, and
 invokes the callback with early-stop support.
@@ -27,11 +29,15 @@ from .ops.categorical import (
     init_categorical_state,
     make_y_tiles,
 )
+from .ops.forward import predict_score
 from .ops.gibbs import (
     TASK_REGRESSION,
     GibbsConfig,
     GibbsState,
+    draw_gibbs_variates,
+    gibbs_sweep,
     init_state,
+    require_joint,
 )
 from .predictor import Predictor
 
@@ -157,6 +163,100 @@ def _resolve_gram_fast_matmul(cfg: GibbsConfig) -> GibbsConfig:
             "Gram modes): later slice"
         )
     return cfg
+
+
+# The TPU package's gate on its tail kernel (trainer.py
+# _resolve_joint_pallas_tail): beyond D = 34 (rank 32) the plain loop.
+JOINT_TAIL_MAX_D = 34
+
+
+def _resolve_joint_tail(cfg: GibbsConfig, plan, rank: int) -> GibbsConfig:
+    """Resolve ``joint_tail_kernel``:
+
+    - None (auto): the CUDA kernel when the plan lives on a CUDA device
+      and D = rank + 2 <= JOINT_TAIL_MAX_D; otherwise the plain loop;
+    - True: the kernel; raises for a plan on the CPU;
+    - False: the plain loop.
+
+    Nothing self-checks and silently falls back: the card tests and
+    chip_smoke.py hold the kernel against its plain version."""
+    if cfg.joint_tail_kernel is None:
+        use = (plan.device.type == "cuda"
+               and rank + 2 <= JOINT_TAIL_MAX_D)
+        return dataclasses.replace(cfg, joint_tail_kernel=use)
+    if cfg.joint_tail_kernel is True and plan.device.type != "cuda":
+        raise ValueError(
+            "joint_tail_kernel=True launches a CUDA kernel but the plan is "
+            f"on {plan.device}; use joint_tail_kernel=False (the plain "
+            "loop) there."
+        )
+    return cfg
+
+
+class GibbsTrainer:
+    """Gibbs trainer on a compiled row-space design (design.DesignPlan).
+    This port runs the merged joint engine; a config that resolves to
+    the colored engine raises.  Runs on the plan's device; one
+    ``torch.Generator`` seeded with ``random_seed`` drives the chain."""
+
+    def __init__(
+        self,
+        plan,  # DesignPlan
+        y: np.ndarray,
+        cfg: GibbsConfig,
+        rank: int,
+        init_stdev: float,
+        random_seed: int,
+        dtype=np.float32,
+    ):
+        require_joint(cfg)
+        self.plan = plan
+        self.cfg = _resolve_joint_tail(cfg, plan, rank)
+        self.rank = rank
+        self.init_stdev = init_stdev
+        self.random_seed = random_seed
+        self.dtype = np.dtype(dtype)
+        self.device = plan.device
+        self._tdtype = torch_dtype(self.dtype)
+        self.y = torch.as_tensor(
+            np.asarray(y).astype(self.dtype), device=self.device
+        )
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(random_seed)
+
+    @property
+    def n_features(self) -> int:
+        return self.plan.n_features
+
+    @property
+    def engine_name(self) -> str:
+        return "joint" if self.cfg.joint_rows else "colored"
+
+    def _sweep_call(self, state: GibbsState) -> GibbsState:
+        variates = draw_gibbs_variates(
+            self.plan, self.cfg, self.rank, self.generator, self._tdtype,
+            self.device,
+        )
+        return gibbs_sweep(self.plan, state, self.y, variates, self.cfg)
+
+    def _initialize(self) -> GibbsState:
+        state = init_state(
+            self.plan, self.rank, self.init_stdev, self.generator,
+            self.cfg, self._tdtype, self.device,
+        )
+        # e = score − y (the TPU package's init_e)
+        e = predict_score(self.plan, state.w0, state.w, state.V) - self.y
+        return dataclasses.replace(state, e=e)
+
+    def run(
+        self,
+        n_iter: int,
+        n_kept_samples: int,
+        callback: Optional[
+            Callable[[int, FM, FMHyperParameters, LearningHistory], bool]
+        ] = None,
+    ) -> Tuple[Predictor, LearningHistory]:
+        return run_mcmc_loop(self, n_iter, n_kept_samples, callback)
 
 
 class CategoricalGibbsTrainer:

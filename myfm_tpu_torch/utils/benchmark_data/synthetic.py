@@ -10,9 +10,11 @@ three years.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from .loader_base import train_test_split_with_kfold
 
 _PRESETS = {
     # "tiny" is for smoke tests: same schema, seconds to fit
@@ -89,3 +91,11 @@ class SyntheticMovieLensManager:
         if self._arrays is None:
             self._arrays = self._generate()
         return self._arrays
+
+    def load_rating_kfold_split(
+        self, K: int, fold: int, random_state: Optional[int] = 0
+    ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+        """(train, test) columns of fold ``fold`` of a shuffled K-fold."""
+        return train_test_split_with_kfold(
+            self.load_rating_all(), K, fold, random_state
+        )

@@ -36,6 +36,7 @@ def test_import_leaves_jax_and_pandas_out():
     code = (
         "import sys, myfm_tpu_torch, myfm_tpu_torch.convert, "
         "myfm_tpu_torch.trainer, myfm_tpu_torch.ops.gram, "
+        "myfm_tpu_torch.ops.joint_tail, myfm_tpu_torch.utils.ml_features, "
         "myfm_tpu_torch.utils.benchmark_data\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'myfm_tpu.', 'pandas')) or m == 'myfm_tpu']\n"
@@ -92,16 +93,17 @@ def test_long_chain_small_design_raises_where_jax_picks_joint(
     tiny_timesvdpp,
 ):
     """JAX resolves this design at n_iter=200 to the joint engine
-    (tests/test_engine_resolution.py); the port shares the gate and
-    refuses the engine it does not have."""
+    (tests/test_engine_resolution.py); the port shares the gate and,
+    since it has the joint engine now, resolves alike (the fit stops
+    after its first sweep)."""
     X, blocks, grouping, y = tiny_timesvdpp
     assert joint_auto_candidate(4, True, np.float64, grouping)
     assert jax_candidate(4, True, np.float64, grouping)
     fm = MyFMGibbsRegressor(rank=4, random_seed=3, dtype=np.float64,
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="joint/colored"):
-        fm.fit(X, y, X_rel=blocks, n_iter=200, n_kept_samples=1,
-               grouping=grouping)
+    fm.fit(X, y, X_rel=blocks, n_iter=200, n_kept_samples=1,
+           grouping=grouping, callback=lambda *a: (True, None))
+    assert fm.history_.engine == "joint"
 
 
 def test_short_chain_side_features_raise(tiny_timesvdpp):
@@ -117,7 +119,6 @@ def test_short_chain_side_features_raise(tiny_timesvdpp):
 
 
 @pytest.mark.parametrize("strategy,error", [
-    ("joint", NotImplementedError),
     ("colored", NotImplementedError),
     ("serial", NotImplementedError),
 ])

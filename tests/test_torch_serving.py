@@ -78,7 +78,10 @@ def test_non_categorical_design_raises():
     X[0, 1] = 0.5  # row 0 is no longer one-hot
     from myfm_tpu_torch import FM, Predictor
 
-    pred = Predictor(2, F, "regression", np.float64, "cpu")
+    # regression on such a design is served by the row-space scorer
+    # (tests/test_torch_joint_estimator.py); classification there is a
+    # later slice
+    pred = Predictor(2, F, "classification", np.float64, "cpu")
     pred.samples.append(FM(0.0, np.zeros(F), np.zeros((F, 2))))
     with pytest.raises(NotImplementedError, match="later slice"):
         pred.predict(X.tocsr(), blocks)
