@@ -3,9 +3,8 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-It drives the port's two paths through ``MyFMGibbsRegressor.fit`` then
-``predict`` and holds every CUDA kernel of each against its plain
-PyTorch version:
+It drives the port's three paths through ``fit`` then ``predict`` and
+holds every CUDA kernel of each against its plain PyTorch version:
 
 * the categorical fast path, on the ML-10M-shaped all-categorical design
   (one-hot date main table, one-hot user and item RelationBlocks,
@@ -13,7 +12,12 @@ PyTorch version:
 * the joint engine, on synthetic ML-100k (fold 0 of 10) with the
   timeSVD++-flipped features (one-hot date main table; user and item
   blocks of one-hot ids plus N-hot implicit columns), rank 10, 200
-  sweeps, which "auto" resolves to the joint engine.
+  sweeps, which "auto" resolves to the joint engine;
+* variational inference (``VariationalFMRegressor``) on the same ML-100k
+  design at rank 10, 20 sweeps, which "auto" resolves to the fast path
+  with entity+attribute tables (kernel 2 and kernel 1's VI layout), and
+  on the ML-10M-shaped design at rank 32, 3 sweeps (kernel 1's VI
+  layout).
 
 Phases, one line each:
 
@@ -35,6 +39,34 @@ Phases, one line each:
   jfit      the estimator through "auto"; must resolve to "joint" and
             launch the tail kernel
   jpredict  held-out RMSE through row-space serving, below std(y_test)
+  vdata     the same ML-100k design's VI plan, with entity+attribute
+            tables: (B, K, T, S) per table, (C, Pf) per side table
+  vkernel   fused_tile_gram (each EA table, all its tiles) and
+            fused_tile_gram_cross in its VI layout (each one-hot table's
+            first chunk), kernel vs plain on the initial state's operands,
+            fp32 + fp64
+  vsweep    one categorical_vi_sweep through the kernels vs one through
+            the plain versions, same state
+  vsections where one VI sweep's time goes, section by section, and the
+            device operations of one entity+attribute color step
+  vfit      VariationalFMRegressor(rank=10) through "auto"; must resolve
+            to "fastpath", launch both kernels, and keep the ELBO from
+            decreasing
+  vpredict  held-out RMSE of the VI fit, below std(y_test)
+  v10m      the ML-10M-shaped design through VariationalFMRegressor
+            (rank 32, 3 sweeps) -> predict; kernel 1's VI layout vs plain
+            at each table's first chunk first
+
+The kernels line gives, for every kernel, its launches in its path's
+fit, its largest fp32 error against the plain version, its fp32 time,
+the plain version's time, the least time the card could take for the
+same work (the larger of the bytes it must move over 3.35 TB/s and its
+fp32 operations over 67 TFLOP/s, the H100 SXM's published peaks) and
+which of the two bounds it, and the time of the one PyTorch call that
+computes the same function where there is one (the torch.bmm of the
+slot-masked operand for the Gram kernels; none for the joint tail, a
+chain of ~1k dependent colors).  Times are summed over the tables (or
+block tails) of the path, at their first chunk.
 
 The last line is {"ok": true, "device": {...}}, printed only when
 every phase passed; any failure exits non-zero.  Without a CUDA card,
@@ -83,6 +115,32 @@ JTAIL_TOL = {"float32": 1e-3, "float64": 1e-10}
 JSWEEP_TOL = 1e-3
 TAIL_REPLACES = "myfm_tpu/ops/pallas_joint_tail.py:368"
 TAIL_SOURCE = "myfm_tpu_torch/csrc/joint_tail.cu"
+META_REPLACES = "myfm_tpu/ops/pallas_gram.py:384"
+
+# the H100 SXM's published peaks (NVIDIA's data sheet, 700 W): device
+# memory rate and float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+
+V_RANK = 10
+V_N_ITER = 20
+V10M_RANK = 32
+V10M_N_ITER = 3
+# |kernel − plain| over max|plain| of each VI Gram chunk (the same sums
+# over up to ~10^4 rows per carried chain in another order)
+VKERNEL_TOL = {"float32": 1e-5, "float64": 1e-10}
+# one fp32 VI sweep, kernels vs plain, every other op deterministic: max
+# |Δ| of the posterior means and variances and of the residual e, over
+# the field's scale (max |plain|, at least 1), and the ELBO's relative
+# difference.  The ~1e-7 Gram differences above flow through ~1k
+# sequential fp32 color updates of each entity+attribute table (measured
+# on an H100: |Δe| 2.4e-3 on residuals of scale ~4)
+VSWEEP_TOL = 1e-3
+VSWEEP_ELBO_TOL = 1e-4
+# the largest ELBO decrease allowed between two fp32 sweeps, relative to
+# the ELBO's magnitude (every CAVI update is an exact coordinate
+# maximiser; fp32 sums over ~10^5 rows round at ~1e-7 relative)
+ELBO_DROP_TOL = 1e-5
 
 
 def fail(message):
@@ -126,6 +184,71 @@ def cuda_ms(torch, fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def bound(nbytes, flops):
+    """(ms, "bytes" | "operations"): the least time the card could take
+    to move ``nbytes`` and do ``flops`` fp32 operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def cast(torch, ops, dtype):
+    """The operands with every float tensor (also inside lists) in
+    ``dtype``; index tensors are kept."""
+    def one(t):
+        return t.to(dtype) if t.is_floating_point() else t
+
+    return [[one(g) for g in o] if isinstance(o, list) else one(o)
+            for o in ops]
+
+
+def compare_gram(torch, kernel, plain, rows_of, ops, S, kw, rows, tol,
+                 label):
+    """One Gram kernel vs its plain version on ``ops`` in fp32 and fp64
+    (max error over max |plain|), then fp32 times: the kernel, the plain
+    version, the one-call yardstick (torch.bmm of the prebuilt
+    slot-masked operand) and the bound of the kernel's work on this
+    chunk's rows (its inputs read once, its outputs written once; per
+    valid row the rectangle's unique entries, two operations each, and
+    ~4 D to build the row)."""
+    from myfm_tpu_torch.ops.gram import masked_rows
+
+    row = {}
+    for dtype in (torch.float32, torch.float64):
+        o = cast(torch, ops, dtype)
+        out, carry = kernel(*o, S, **kw)
+        ref, ref_carry = plain(*o, S, **kw)
+        torch.cuda.synchronize()
+        err = max(float((out - ref).abs().max()),
+                  float((carry - ref_carry).abs().max()))
+        scale = max(float(ref.abs().max()), 1.0)
+        name = str(dtype).split(".")[1]
+        row[f"err_{name}"] = err
+        row[f"rel_{name}"] = err / scale
+        if not np.isfinite(err) or err > tol[name] * scale:
+            fail(f"{label} {name}: max abs err {err:.3e} > "
+                 f"{tol[name]:.0e} x {scale:.3e}")
+        if dtype != torch.float32:
+            continue
+        row["ms"] = cuda_ms(torch, lambda: kernel(*o, S, **kw), 10)
+        row["plain_ms"] = cuda_ms(torch, lambda: plain(*o, S, **kw), 3)
+        z, m = rows_of(o, S)
+        mz = masked_rows(z, m, rows).transpose(1, 2)
+        row["library_ms"] = cuda_ms(torch, lambda: torch.bmm(mz, z), 10)
+        D = z.shape[2]
+        n_valid = int((m.sum(dim=2) > 0).sum())
+        pairs = rows * (rows + 1) // 2 + rows * (D - rows)
+        flat = [t for x in o for t in (x if isinstance(x, list) else [x])]
+        moved = nbytes(*flat) + nbytes(out, carry) + carry.numel() * 4
+        row["bound_ms"], row["bound_by"] = bound(
+            moved, n_valid * (2 * pairs + 4 * D))
+    return row
 
 
 def build_design(seed):
@@ -186,30 +309,12 @@ def kernel_phase(torch, plan, state, y_tiles):
         S = t.tile_entities
         row = dict(table=ti, K=ops[0].shape[0], T=t.tile_rows, S=S,
                    n_cross=len(ops[1]))
-        for dtype in (torch.float32, torch.float64):
-            o = [ops[0].to(dtype), [g.to(dtype) for g in ops[1]],
-                 ops[2].to(dtype), *ops[3:]]
-            out, carry = gram.fused_tile_gram_cross(*o, S)
-            ref, ref_carry = gram.fused_tile_gram_cross_reference(*o, S)
-            torch.cuda.synchronize()
-            err = max(float((out - ref).abs().max()),
-                      float((carry - ref_carry).abs().max()))
-            scale = max(float(ref.abs().max()), 1.0)
-            name = str(dtype).split(".")[1]
-            row[f"err_{name}"] = err
-            row[f"rel_{name}"] = err / scale
-            if not np.isfinite(err) or err > KERNEL_TOL[name] * scale:
-                fail(f"kernel vs plain, table {ti} {name}: max abs err "
-                     f"{err:.3e} > {KERNEL_TOL[name]:.0e} x {scale:.3e}")
-            if dtype == torch.float32:
-                row["ms"] = cuda_ms(
-                    torch, lambda: gram.fused_tile_gram_cross(*o, S), 10
-                )
-                row["plain_ms"] = cuda_ms(
-                    torch,
-                    lambda: gram.fused_tile_gram_cross_reference(*o, S),
-                    3,
-                )
+        row.update(compare_gram(
+            torch, gram.fused_tile_gram_cross,
+            gram.fused_tile_gram_cross_reference,
+            lambda o, S: gram.cross_rows(o[0], o[1], o[2], S), list(ops), S,
+            {}, RANK + 2, KERNEL_TOL, f"kernel vs plain, table {ti}",
+        ))
         rows.append(row)
     return rows
 
@@ -340,6 +445,19 @@ def jkernel_phase(torch, plan, trainer, state):
                     torch, lambda: joint_tail_pass_reference(*o, alpha, D),
                     1,
                 )
+                # the work this tail's data needs: per touched row its
+                # Gram statistics and its rank-two update (~6 D² ops), per
+                # live slot an (R+1)-dim Cholesky and two solves
+                Pf = row["Pf"]
+                segb = o[4].long()
+                touched = int((segb < Pf).sum())
+                live = int((torch.nn.functional.one_hot(segb, Pf + 1)
+                            [..., :Pf].sum(dim=1) > 0).sum())
+                r1 = J_RANK + 1
+                row["bound_ms"], row["bound_by"] = bound(
+                    nbytes(*o) + nbytes(*out),
+                    touched * 6 * D * D + live * (r1**3 // 3 + 4 * r1 * r1),
+                )
         rows.append(row)
     if not rows:
         fail("jkernel: no block of the plan has a tail stack")
@@ -378,6 +496,191 @@ def jsweep_phase(torch, plan, trainer, state):
         if res[f"d{f}"] > JSWEEP_TOL:
             fail(f"jsweep: max |Δ{f}| {res[f'd{f}']:.3e} > {JSWEEP_TOL:.0e}")
     return res
+
+
+def vi_layout_rows(torch, plan, state, y_tiles, rank, tables):
+    """fused_tile_gram_cross in its VI layout vs plain at the first chunk
+    of each one-hot table in ``tables``, on the state's operands."""
+    from myfm_tpu_torch.ops import gram
+    from myfm_tpu_torch.ops.categorical_vi import (
+        vi_eff_tables,
+        vi_gram_operands,
+    )
+
+    c = state.core
+    eff = (vi_eff_tables(plan, c.w, c.w_var, c.V, c.V_var)
+           if plan.has_side else None)
+    out = []
+    for ti in tables:
+        t = plan.tables[ti]
+        ops = next(vi_gram_operands(plan, ti, c.w, c.w_var, c.V, c.V_var,
+                                    y_tiles[ti], eff))
+        row = dict(kernel="fused_tile_gram_cross[vi]", table=ti,
+                   K=ops[0].shape[0], T=t.tile_rows, S=t.tile_entities,
+                   n_cross=len(ops[1]))
+        kw = dict(q_lo=2, n_extra=2 * rank, out_rows=2 + rank)
+        row.update(compare_gram(
+            torch, gram.fused_tile_gram_cross,
+            gram.fused_tile_gram_cross_reference,
+            lambda o, S: gram.cross_rows(o[0], o[1], o[2], S, 2, 2 * rank),
+            list(ops), t.tile_entities, kw, 2 + rank, VKERNEL_TOL,
+            f"VI-layout kernel vs plain, table {ti}",
+        ))
+        out.append(row)
+    return out
+
+
+def vkernel_phase(torch, plan, trainer, state):
+    """fused_tile_gram vs plain on each entity+attribute table's
+    operands and fused_tile_gram_cross (VI layout) vs plain on each
+    one-hot table's first chunk, all from the initial state."""
+    from myfm_tpu_torch.ops import gram
+    from myfm_tpu_torch.ops.categorical_vi import (
+        vi_eff_tables,
+        vi_ea_gram_operands,
+    )
+
+    c = state.core
+    eff = vi_eff_tables(plan, c.w, c.w_var, c.V, c.V_var)
+    rows = []
+    for ti, si in enumerate(plan.side):
+        if si is None:
+            continue
+        t = plan.tables[ti]
+        ops = next(vi_ea_gram_operands(plan, ti, c.w, c.w_var, c.V, c.V_var,
+                                       c.w0, trainer.y_tiles[ti], eff))
+        row = dict(kernel="fused_tile_gram", table=ti, K=ops[0].shape[0],
+                   T=t.tile_rows, S=t.tile_entities, D=3 * V_RANK + 2)
+        row.update(compare_gram(
+            torch, gram.fused_tile_gram, gram.fused_tile_gram_reference,
+            lambda o, S: gram.meta_rows(o[0], o[1], o[2], o[3], S),
+            list(ops), t.tile_entities, dict(out_rows=2 + V_RANK),
+            2 + V_RANK, VKERNEL_TOL, f"fused_tile_gram vs plain, table {ti}",
+        ))
+        rows.append(row)
+    onehot = [ti for ti, si in enumerate(plan.side) if si is None]
+    rows += vi_layout_rows(torch, plan, state, trainer.y_tiles, V_RANK,
+                           onehot)
+    return rows
+
+
+def vsweep_phase(torch, plan, plan64, trainer, state):
+    """One VI sweep through both kernels vs one through their plain
+    versions, from the same state; CAVI draws nothing, and every other
+    op runs deterministically, so the difference is the kernels'.  Both
+    fp32 sweeps are also held against a float64 plain sweep from the same
+    state (on ``plan64``, the design compiled in float64), which tells
+    the kernels' share from fp32's own rounding along the color scans."""
+    import dataclasses
+
+    from myfm_tpu_torch.ops.categorical import make_y_tiles
+    from myfm_tpu_torch.ops.categorical_vi import categorical_vi_sweep
+
+    res = {}
+    outs = []
+    y64 = trainer.y.double()
+    st64 = dataclasses.replace(state, core=type(state.core)(**{
+        f.name: getattr(state.core, f.name).double()
+        for f in dataclasses.fields(state.core)}))
+    with deterministic(torch):
+        for plain in (False, True):
+            t0 = time.perf_counter()
+            outs.append(categorical_vi_sweep(
+                plan, state, trainer.y, trainer.y_tiles, trainer.cfg,
+                plain=plain))
+            torch.cuda.synchronize()
+            res["plain_s" if plain else "kernel_s"] = (
+                time.perf_counter() - t0)
+        exact = categorical_vi_sweep(plan64, st64, y64,
+                                     make_y_tiles(plan64, y64), trainer.cfg,
+                                     plain=True).core
+    a, b = (o.core for o in outs)
+    for f in ("w", "w_var", "V", "V_var", "e", "elbo"):
+        x, z, x64 = getattr(a, f), getattr(b, f), getattr(exact, f)
+        if not (bool(torch.isfinite(x).all())
+                and bool(torch.isfinite(z).all())):
+            fail(f"vsweep: non-finite {f}")
+        scale = max(float(z.abs().max()), 1.0)
+        res[f"d{f}"] = float((x - z).abs().max()) / scale
+        res[f"{f}_kernel_vs_f64"] = float(
+            (x.double() - x64).abs().max()) / scale
+        res[f"{f}_plain_vs_f64"] = float(
+            (z.double() - x64).abs().max()) / scale
+        tol = VSWEEP_ELBO_TOL if f == "elbo" else VSWEEP_TOL
+        if not res[f"d{f}"] <= tol:
+            fail(f"vsweep: max |Δ{f}| {res[f'd{f}']:.3e} of scale > "
+                 f"{tol:.0e}")
+    return res
+
+
+VI_SECTIONS = (
+    "vi_table_gram", "_vi_entity_updates", "vi_ea_table_gram",
+    "_vi_dense_color_step", "vi_eff_tables", "vi_refresh_rows",
+)
+
+
+def vsections_phase(torch, plan, trainer, state):
+    """Where one VI sweep's time goes: the module functions of
+    ops/categorical_vi.py wrapped with a synchronize before and after
+    (the sweep is launch-bound, so host time is its cost), and the device
+    operations one color step launches, counted by torch.profiler on the
+    first color (that call is left out of the timings and of the sweep's
+    total)."""
+    from myfm_tpu_torch.ops import categorical_vi as cvi
+
+    spent = dict.fromkeys(VI_SECTIONS, 0.0)
+    calls = dict.fromkeys(VI_SECTIONS, 0)
+    probe = {}
+    saved = {n: getattr(cvi, n) for n in VI_SECTIONS}
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            if name == "_vi_dense_color_step" and not probe:
+                act = [torch.profiler.ProfilerActivity.CPU,
+                       torch.profiler.ProfilerActivity.CUDA]
+                t0 = time.perf_counter()
+                with torch.profiler.profile(activities=act) as prof:
+                    out = fn(*args, **kwargs)
+                    torch.cuda.synchronize()
+                probe["s"] = time.perf_counter() - t0
+                probe["launches"] = sum(
+                    1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+                return out
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            calls[name] += 1
+            return out
+        return timed
+
+    try:
+        for n in VI_SECTIONS:
+            setattr(cvi, n, wrap(n, saved[n]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cvi.categorical_vi_sweep(plan, state, trainer.y, trainer.y_tiles,
+                                 trainer.cfg)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for n in VI_SECTIONS:
+            setattr(cvi, n, saved[n])
+    res = {n: dict(ms=spent[n] * 1e3, calls=calls[n]) for n in VI_SECTIONS}
+    total -= probe["s"]
+    res["other_ms"] = (total - sum(spent.values())) * 1e3
+    res["sweep_ms_with_syncs"] = total * 1e3
+    res["device_ops_per_color"] = probe.get("launches")
+    return res
+
+
+def fit_rates(stamps, t_fit):
+    """(time to first sweep, sweeps/s after it) from the callback's
+    per-sweep host stamps."""
+    ttfs = stamps[0] - t_fit
+    return ttfs, (len(stamps) - 1) / (stamps[-1] - stamps[0])
 
 
 def main():
@@ -567,28 +870,173 @@ def main():
         fail(f"jpredict: rmse {jrmse} vs std(y_test) {jstd}")
     say("jpredict", f"{jy_te.size} held-out rows, {len(jfm.predictor_.samples)}"
                     f" samples in {t_pred:.2f} s, RMSE {jrmse:.4f} < "
-                    f"std(y_test) {jstd:.4f}; whole run "
+                    f"std(y_test) {jstd:.4f}; so far "
                     f"{time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_tile_gram_cross",
-        "route": "cuda",
-        "source": GRAM_SOURCE,
-        "replaces": GRAM_REPLACES,
-        "launches": launches,
-        "max_abs_err": max(r["err_float32"] for r in krows),
-        "ms": sum(r["ms"] for r in krows),
-        "plain_ms": sum(r["plain_ms"] for r in krows),
-    }, {
-        "name": "joint_tail_pass",
-        "route": "cuda",
-        "source": TAIL_SOURCE,
-        "replaces": TAIL_REPLACES,
-        "launches": jlaunches,
-        "max_abs_err": max(r["err_float32"] for r in jrows),
-        "ms": sum(r["ms"] for r in jrows),
-        "plain_ms": sum(r["plain_ms"] for r in jrows),
-    }]}))
+    # ---- VI: the same ML-100k design, entity+attribute fast path ----
+    del jfm
+    torch.cuda.empty_cache()
+    from myfm_tpu_torch import VariationalFMRegressor
+    from myfm_tpu_torch.ops.variational import VariationalConfig
+    from myfm_tpu_torch.vi_trainer import CategoricalVITrainer
+
+    vgroup = np.asarray(jgroup, np.int32)
+    t0 = time.perf_counter()
+    # "auto" tries the one-hot plan first; this design needs the EA one
+    # (both tiled for the VI Gram's 3R+2 columns)
+    if try_compile_categorical(jX_tr, jb_tr, vgroup, None, np.float32,
+                               "cuda", rank=3 * V_RANK) is not None:
+        fail("vdata: the ML-100k design compiled to an all-one-hot plan")
+    vplan = try_compile_categorical(
+        jX_tr, jb_tr, vgroup, None, np.float32, "cuda", rank=3 * V_RANK,
+        allow_side=True,
+    )
+    t_vplan = time.perf_counter() - t0
+    if vplan is None or not vplan.has_side:
+        fail("vdata: no entity+attribute plan for the ML-100k design")
+    vtiling = [(t.n_cols, t.n_tiles, t.tile_rows, t.tile_entities)
+               for t in vplan.tables]
+    vside = [tuple(si.stack_feat.shape) for si in vplan.side
+             if si is not None]
+    say("vdata", f"rows {vplan.n_rows}, features {vplan.n_features}; "
+                 f"(B, K, T, S) per table {vtiling}; (C, Pf) per side "
+                 f"table {vside}; plan {t_vplan:.2f} s")
+
+    vtrainer = CategoricalVITrainer(vplan, jy_tr, VariationalConfig(),
+                                    V_RANK, 0.1, SEED)
+    with deterministic(torch):
+        vstate = vtrainer._initialize()
+        vrows = vkernel_phase(torch, vplan, vtrainer, vstate)
+    for r in vrows:
+        say("vkernel", json.dumps(r))
+    vplan64 = try_compile_categorical(
+        jX_tr, jb_tr, vgroup, None, np.float64, "cuda", rank=3 * V_RANK,
+        allow_side=True,
+    )
+    say("vsweep", json.dumps(
+        vsweep_phase(torch, vplan, vplan64, vtrainer, vstate)))
+    del vplan64
+    say("vsections", json.dumps(
+        vsections_phase(torch, vplan, vtrainer, vstate)))
+    del vplan, vtrainer, vstate
+    torch.cuda.empty_cache()
+
+    stamps.clear()
+    torch.cuda.reset_peak_memory_stats()
+    gram.fused_tile_gram_cross.vi_launches = 0
+    gram.fused_tile_gram.launches = 0
+    t_fit = time.perf_counter()
+    vfm = VariationalFMRegressor(
+        rank=V_RANK, random_seed=SEED, device="cuda"
+    ).fit(jX_tr, jy_tr, X_rel=jb_tr, n_iter=V_N_ITER, grouping=jgroup,
+          callback=timer)
+    torch.cuda.synchronize()
+    t_fit_end = time.perf_counter()
+    v_vi = gram.fused_tile_gram_cross.vi_launches
+    v_meta = gram.fused_tile_gram.launches
+    vpeak = torch.cuda.max_memory_allocated()
+    if vfm.history_.engine != "fastpath":
+        fail(f"VI fit resolved to {vfm.history_.engine!r}, not 'fastpath'")
+    if v_vi <= 0 or v_meta <= 0:
+        fail(f"the VI fit launched fused_tile_gram_cross[vi] {v_vi} and "
+             f"fused_tile_gram {v_meta} times")
+    elbos = np.asarray(vfm.history_.elbos, dtype=np.float64)
+    drop = float(max(-np.diff(elbos).min(), 0.0))
+    if not (np.isfinite(elbos).all()
+            and drop <= ELBO_DROP_TOL * np.abs(elbos).min()):
+        fail(f"vfit: the ELBO fell by {drop} (trace {elbos.tolist()})")
+    ttfs, rate = fit_rates(stamps, t_fit)
+    say("vfit", f"engine {vfm.history_.engine}, {len(stamps)} sweeps, "
+                f"time to first sweep {ttfs:.2f} s, {rate:.3f} sweeps/s, "
+                f"fit {t_fit_end - t_fit:.1f} s, launches: "
+                f"fused_tile_gram_cross[vi] {v_vi}, fused_tile_gram "
+                f"{v_meta}; ELBO first {elbos[0]:.6e} last {elbos[-1]:.6e}"
+                f", largest decrease {drop:.3e} (tolerance "
+                f"{ELBO_DROP_TOL:.0e} of |ELBO|); peak device memory "
+                f"{vpeak / 2**30:.3f} GiB")
+
+    t0 = time.perf_counter()
+    vpred = vfm.predict(jX_te, jb_te)
+    t_pred = time.perf_counter() - t0
+    vrmse = float(np.sqrt(np.mean((vpred - jy_te) ** 2)))
+    if not (vpred.shape == jy_te.shape and np.isfinite(vpred).all()
+            and vrmse < jstd):
+        fail(f"vpredict: rmse {vrmse} vs std(y_test) {jstd}")
+    say("vpredict", f"{jy_te.size} held-out rows in {t_pred:.2f} s, RMSE "
+                    f"{vrmse:.4f} < std(y_test) {jstd:.4f}")
+    del vfm
+    torch.cuda.empty_cache()
+
+    # ---- VI at the ML-10M shape (the fast-path design), rank 32 ----
+    t0 = time.perf_counter()
+    p10 = try_compile_categorical(
+        X_tr, blocks_tr, np.asarray(grouping, np.int32), None, np.float32,
+        "cuda", rank=3 * V10M_RANK,
+    )
+    if p10 is None:
+        fail("v10m: the ML-10M design did not compile for VI")
+    t_p10 = time.perf_counter() - t0
+    tr10 = CategoricalVITrainer(p10, y_tr, VariationalConfig(), V10M_RANK,
+                                0.1, SEED)
+    st10 = tr10._initialize()
+    k10 = vi_layout_rows(torch, p10, st10, tr10.y_tiles, V10M_RANK,
+                         range(len(p10.tables)))
+    t10 = [(t.n_cols, t.n_tiles, t.tile_rows, t.tile_entities)
+           for t in p10.tables]
+    del p10, tr10, st10
+    torch.cuda.empty_cache()
+    stamps.clear()
+    torch.cuda.reset_peak_memory_stats()
+    gram.fused_tile_gram_cross.vi_launches = 0
+    t_fit = time.perf_counter()
+    v10 = VariationalFMRegressor(
+        rank=V10M_RANK, random_seed=SEED, device="cuda"
+    ).fit(X_tr, y_tr, X_rel=blocks_tr, n_iter=V10M_N_ITER,
+          grouping=grouping, callback=timer)
+    torch.cuda.synchronize()
+    v10_launches = gram.fused_tile_gram_cross.vi_launches
+    v10_peak = torch.cuda.max_memory_allocated()
+    if v10.history_.engine != "fastpath" or v10_launches <= 0:
+        fail(f"v10m: engine {v10.history_.engine!r}, VI-layout launches "
+             f"{v10_launches}")
+    ttfs, rate = fit_rates(stamps, t_fit)
+    pred10 = v10.predict(X_te, blocks_te)
+    rmse10 = float(np.sqrt(np.mean((pred10 - y_te) ** 2)))
+    if not (np.isfinite(pred10).all() and rmse10 < std):
+        fail(f"v10m: rmse {rmse10} vs std(y_test) {std}")
+    say("v10m", json.dumps(dict(
+        plan_tables=t10, plan_s=round(t_p10, 2), kernel=k10,
+        sweeps=len(stamps), time_to_first_sweep_s=ttfs, sweeps_per_s=rate,
+        vi_launches=v10_launches, peak_gib=v10_peak / 2**30,
+        elbo_first=v10.history_.elbos[0], elbo_last=v10.history_.elbos[-1],
+        rmse=rmse10, std_y_test=std,
+        whole_run_s=time.perf_counter() - t_start,
+    )))
+
+    def entry(name, source, replaces, launches, rows):
+        lib = [r.get("library_ms") for r in rows]
+        b = [r["bound_ms"] for r in rows]
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["err_float32"] for r in rows),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(b),
+            "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+            "library_ms": None if None in lib else sum(lib),
+        }
+
+    print(json.dumps({"kernels": [
+        entry("fused_tile_gram_cross", GRAM_SOURCE, GRAM_REPLACES, launches,
+              krows),
+        entry("fused_tile_gram_cross[vi]", GRAM_SOURCE, GRAM_REPLACES, v_vi,
+              [r for r in vrows if r["kernel"] != "fused_tile_gram"]),
+        entry("fused_tile_gram", GRAM_SOURCE, META_REPLACES, v_meta,
+              [r for r in vrows if r["kernel"] == "fused_tile_gram"]),
+        entry("joint_tail_pass", TAIL_SOURCE, TAIL_REPLACES, jlaunches,
+              jrows),
+    ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

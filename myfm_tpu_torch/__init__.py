@@ -13,16 +13,36 @@ package resolves them:
   hand-written CUDA kernel (ops/joint_tail.py, csrc/joint_tail.cu), and
   row-space serving.
 
-The colored engine, probit tasks, variational inference and multiple
-devices are later slices and raise ``NotImplementedError``.  The
-package imports neither JAX nor ``myfm_tpu``.
+``VariationalFMRegressor.fit`` → ``predict`` runs deterministic CAVI on
+the entity-space fast path, on all-one-hot designs and on designs whose
+blocks carry per-entity side features (entity+attribute tables), with
+the Gram statistics computed by the same CUDA source in its VI layout
+and by its separate-meta variant (ops/gram.py ``fused_tile_gram``).
+
+The colored engines (Gibbs and row-space VI), probit tasks (the VI
+classifier included), entity+attribute tables on the Gibbs fast path
+and multiple devices are later slices and raise
+``NotImplementedError``.  The package imports neither JAX nor
+``myfm_tpu``.
 """
 
 from .base import ConfigBuilder, MyFMBase, std_cdf
-from .containers import FM, FMHyperParameters, LearningHistory
+from .containers import (
+    FM,
+    FMHyperParameters,
+    LearningHistory,
+    VariationalFM,
+    VariationalFMHyperParameters,
+    VariationalLearningHistory,
+)
 from .gibbs import MyFMGibbsBase, MyFMGibbsRegressor, MyFMRegressor
-from .predictor import Predictor
+from .predictor import Predictor, VariationalPredictor
 from .relational import RelationBlock
+from .variational import (
+    MyFMVariationalBase,
+    VariationalFMClassifier,
+    VariationalFMRegressor,
+)
 
 __version__ = "0.1.0"
 
@@ -38,5 +58,12 @@ __all__ = [
     "MyFMGibbsRegressor",
     "MyFMRegressor",
     "Predictor",
+    "VariationalFM",
+    "VariationalFMHyperParameters",
+    "VariationalLearningHistory",
+    "MyFMVariationalBase",
+    "VariationalFMRegressor",
+    "VariationalFMClassifier",
+    "VariationalPredictor",
     "__version__",
 ]

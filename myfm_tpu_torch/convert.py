@@ -1,9 +1,11 @@
 """Carry the TPU package's numbers across to this port.
 
 These helpers take objects of ``myfm_tpu`` (a ``GibbsState`` with its
-residual e, a ``CategoricalState``, ``FM`` samples, a ``Predictor``, a
-``CategoricalPlan``, a row-space ``DesignPlan``) by their attributes
-alone, read every array with
+residual e, a ``CategoricalState``, a ``VIState`` or
+``CategoricalVIState``, ``FM`` samples, a ``Predictor``, a
+``CategoricalPlan`` with or without entity+attribute tables, a
+row-space ``DesignPlan``) by their attributes alone, read every array
+with
 ``np.asarray``, and build the port's counterpart on a torch device — so
 both packages can be run on the same numbers.  Nothing here imports the
 TPU package or JAX.
@@ -26,9 +28,11 @@ from .design import (
     DesignPlan,
     TablePlan,
 )
-from .design_categorical import CategoricalPlan, CategoricalTable
+from .design_categorical import CategoricalPlan, CategoricalTable, SideInfo
 from .ops.categorical import CategoricalState
+from .ops.categorical_vi import CategoricalVIState
 from .ops.gibbs import GibbsState
+from .ops.variational import VIState
 from .predictor import Predictor
 
 
@@ -57,6 +61,22 @@ def categorical_state_from_numpy(state, device) -> CategoricalState:
     )
 
 
+def vi_state_from_numpy(state, device) -> VIState:
+    """The port's VIState from any object with VIState's fields."""
+    return VIState(**{
+        f.name: _tensor(getattr(state, f.name), device)
+        for f in dataclasses.fields(VIState)
+    })
+
+
+def categorical_vi_state_from_numpy(state, device) -> CategoricalVIState:
+    """The port's CategoricalVIState (core, tau)."""
+    return CategoricalVIState(
+        core=vi_state_from_numpy(state.core, device),
+        tau=_tensor(state.tau, device),
+    )
+
+
 def fm_from_numpy(fm) -> FM:
     """The port's FM container from one posterior sample."""
     return FM(
@@ -75,12 +95,19 @@ def predictor_from_numpy(predictor, device) -> Predictor:
     return out
 
 
+def _side_from_numpy(si, device):
+    if si is None:
+        return None
+    return SideInfo(**{
+        f.name: (si.n_cols if f.name == "n_cols"
+                 else _tensor(getattr(si, f.name), device))
+        for f in dataclasses.fields(SideInfo)
+    })
+
+
 def plan_from_numpy(plan, device) -> CategoricalPlan:
-    """The port's CategoricalPlan from a one-hot TPU-package plan."""
-    if any(si is not None for si in getattr(plan, "side", ())):
-        raise NotImplementedError(
-            "entity+attribute (side-feature) tables: later slice"
-        )
+    """The port's CategoricalPlan from a TPU-package plan, its
+    entity+attribute tables' ``SideInfo`` included."""
     tables = []
     for t in plan.tables:
         kw = {}
@@ -104,6 +131,8 @@ def plan_from_numpy(plan, device) -> CategoricalPlan:
         n_rows=plan.n_rows,
         n_features=plan.n_features,
         n_groups=plan.n_groups,
+        side=tuple(_side_from_numpy(si, device)
+                   for si in getattr(plan, "side", ())),
     )
 
 

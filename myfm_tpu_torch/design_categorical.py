@@ -12,9 +12,15 @@ The layout is packed on the host in numpy and uploaded once; every
 layout array is bit-equal to the TPU package's at the same (T, S).
 What differs is how (T, S) is chosen: the TPU package ranks tilings by a
 VMEM-gated cost model of its Pallas kernel, while this port uses a rule
-of its own fitted to the CUDA kernel (``choose_tiling``).  Entity +
-attribute tables (blocks with per-entity side features) are not ported
-yet and raise ``NotImplementedError``.
+of its own fitted to the CUDA kernel (``choose_tiling``).
+
+With ``allow_side`` a block of [one-hot | per-entity side feature] column
+groups compiles too: its one-hot groups become ordinary tables, and its
+side columns an *entity+attribute* table over the block rows, whose
+``SideInfo`` holds the dense side matrix and the per-color operands of
+the side features (``compile_side_info``).  The VI fast path
+(ops/categorical_vi.py) runs such plans; the Gibbs fast path does not
+yet and raises on them.
 """
 
 from __future__ import annotations
@@ -39,6 +45,14 @@ TILE_ENTITIES_CANDIDATES = (1, 2, 4, 8, 16, 32, 64)
 # windows agree bit for bit)
 CHUNK_ROWS = 1 << 20
 CHUNK_FLAT_BYTES = 1 << 30
+
+# Entity+attribute gates (the TPU package's): a non-one-hot column group
+# of a block compiles as a dense per-entity side matrix only when the
+# dense [B, Fs] footprint and the stacked per-color operands [C, B] stay
+# bounded, and the greedy coloring of the side columns (conflict =
+# co-occurrence in a block row) stays shallow.
+SIDE_DENSE_ELEMS = 1 << 25
+SIDE_MAX_COLORS = 2048
 
 
 def _packed_rows(counts: np.ndarray, T: int, S: int) -> int:
@@ -152,6 +166,73 @@ class CategoricalTable:
     max_fin: int = 0
 
 
+@dataclasses.dataclass(frozen=True)
+class SideInfo:
+    """Per-entity side features of one entity+attribute table.
+
+    The owning ``CategoricalTable`` tiles the block rows themselves
+    (``ent[n] = mapper[n]``, ``B = block_size``); ``xs`` holds the
+    non-one-hot feature values of each block row.  Colors partition the
+    side columns into row-disjoint sets, so each color's operands are
+    dense B-vectors: ``xw`` (the x value at each block row, 0 where the
+    color has no feature) and ``segb`` (the feature's slot in the color,
+    Pf where none)."""
+
+    xs: torch.Tensor  # [B, Fs] float — dense side matrix
+    feat_cols: torch.Tensor  # [Fs] int32 — global feature ids
+    stack_xw: torch.Tensor  # [C, B] float
+    stack_segb: torch.Tensor  # [C, B] int32 (pad = Pf)
+    stack_feat: torch.Tensor  # [C, Pf] int32 global ids (pad = F)
+    n_cols: int  # Fs
+
+
+def compile_side_info(
+    Xs: sps.csr_matrix,
+    col_ids: np.ndarray,
+    n_features: int,
+    dtype,
+    device,
+) -> Optional[SideInfo]:
+    """Dense side matrix and stacked per-color operands on ``device``, or
+    None when the footprint or coloring gates fail (the TPU package's
+    gates and layout, bit for bit)."""
+    from .design import greedy_color
+
+    Xs = sps.csr_matrix(Xs)
+    B, Fs = Xs.shape
+    if B * Fs > SIDE_DENSE_ELEMS:
+        return None
+    csc = Xs.tocsc()
+    colors = greedy_color(csc)
+    C = len(colors)
+    if C > SIDE_MAX_COLORS or C * B > SIDE_DENSE_ELEMS:
+        return None
+    col_ids = np.asarray(col_ids, dtype=np.int64)
+    Pf = max(max(len(c) for c in colors), 1)
+    xw = np.zeros((C, B), dtype=dtype)
+    segb = np.full((C, B), Pf, dtype=np.int32)
+    feat = np.full((C, Pf), n_features, dtype=np.int64)
+    for ci, cols in enumerate(colors):
+        for sj, j in enumerate(cols):
+            lo, hi = csc.indptr[j], csc.indptr[j + 1]
+            rows = csc.indices[lo:hi]
+            xw[ci, rows] = csc.data[lo:hi]
+            segb[ci, rows] = sj
+            feat[ci, sj] = col_ids[j]
+
+    def up(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    return SideInfo(
+        xs=up(Xs.toarray().astype(dtype)),
+        feat_cols=up(col_ids.astype(np.int32)),
+        stack_xw=up(xw),
+        stack_segb=up(segb),
+        stack_feat=up(feat.astype(np.int32)),
+        n_cols=Fs,
+    )
+
+
 def _finalize_windows(final_part: np.ndarray, counts: np.ndarray,
                       K: int, S: int, chunk_tiles: int):
     """Per-chunk contiguous entity windows for Gram consumption.
@@ -208,6 +289,18 @@ class CategoricalPlan:
     n_rows: int
     n_features: int
     n_groups: int
+    # side[t] is the SideInfo of table t when t is an entity+attribute
+    # table (its entities are block rows with per-entity side features),
+    # else None; all None for an all-one-hot design
+    side: Tuple[Optional[SideInfo], ...] = ()
+
+    def __post_init__(self):
+        if len(self.side) != len(self.tables):
+            object.__setattr__(self, "side", (None,) * len(self.tables))
+
+    @property
+    def has_side(self) -> bool:
+        return any(si is not None for si in self.side)
 
     @property
     def n_real(self) -> int:
@@ -545,10 +638,11 @@ def try_compile_categorical(
     fixed_ts: Optional[Tuple[int, int]] = None,
 ) -> Optional[CategoricalPlan]:
     """Compile the fast-path plan onto ``device``, or None if any table
-    is not one-hot.  A design that needs an entity+attribute table
-    raises ``NotImplementedError``: that table kind is a later slice of
-    the port, and no other engine may silently take its place.
-    ``fixed_ts`` pins every table's (T, S)."""
+    is neither one-hot nor (with ``allow_side``) an entity+attribute
+    block within the side gates.  ``rank`` is the width the tiling is
+    chosen for (the Gram's D = rank + 2: the factor rank on the Gibbs
+    path, 3R or 4R on the VI path).  ``fixed_ts`` pins every table's
+    (T, S)."""
     dtype = np.dtype(dtype)
     extracted = extract_categorical_mappings(
         X, blocks, grouping, dtype, allow_side=allow_side
@@ -556,10 +650,6 @@ def try_compile_categorical(
     if extracted is None:
         return None
     mappings, side_specs, n_rows, n_features, grouping = extracted
-    if side_specs:
-        raise NotImplementedError(
-            "entity+attribute (side-feature) tables: later slice"
-        )
 
     if grouping is None:
         grouping = np.zeros(n_features, dtype=np.int32)
@@ -571,6 +661,7 @@ def try_compile_categorical(
     group_counts = np.bincount(grouping, minlength=n_groups).astype(dtype)
 
     tables = []
+    side: List[Optional[SideInfo]] = []
     for ent, B, off in mappings:
         tab = compile_categorical_table(
             ent, B, off, n_rows, dtype, device, rank=rank,
@@ -579,6 +670,19 @@ def try_compile_categorical(
         if tab is None:
             return None
         tables.append(tab)
+        side.append(None)
+    for ent, B, Xs, col_ids in side_specs:
+        info = compile_side_info(Xs, col_ids, n_features, dtype, device)
+        if info is None:
+            return None
+        tab = compile_categorical_table(
+            ent, B, int(col_ids[0]), n_rows, dtype, device, rank=rank,
+            max_inflation=max_inflation, fixed_ts=fixed_ts,
+        )
+        if tab is None:
+            return None
+        tables.append(tab)
+        side.append(info)
     tables = tuple(tables)
 
     # cross-table entity maps in each table's tile-row order — device
@@ -607,4 +711,5 @@ def try_compile_categorical(
         n_rows=n_rows,
         n_features=n_features,
         n_groups=int(n_groups),
+        side=tuple(side),
     )

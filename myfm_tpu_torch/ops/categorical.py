@@ -143,19 +143,32 @@ def _wv_rows(w, V, t2: CategoricalTable, idx: torch.Tensor):
     return _wv_source(w, V, t2)[idx]
 
 
+_GIBBS_SIDE = (
+    "entity+attribute (side-feature) tables on the Gibbs fast path: "
+    "later slice"
+)
+
+
+def require_one_hot(plan: CategoricalPlan):
+    """The Gibbs fast path runs all-one-hot plans; a plan with
+    entity+attribute tables raises (the TPU package would run its
+    ``_ea_table_pass`` there, so no other engine may take its place)."""
+    if plan.has_side:
+        raise NotImplementedError(_GIBBS_SIDE)
+
+
 def eff_tables(plan: CategoricalPlan, w, V):
     """Per-table effective entity rows: ``None`` for a one-hot table,
     whose [w_t | V_t] slices are the per-entity rows.  Entity+attribute
-    tables, the only kind with other rows, are not ported yet."""
+    tables, the only kind with other rows, raise (``require_one_hot``)."""
+    require_one_hot(plan)
     return [None for _ in plan.tables]
 
 
 def _eff_source(w, V, t2: CategoricalTable, eff2) -> torch.Tensor:
     """Table t2's gather source of [w | V | qs] rows ([B+1, 2+R])."""
     if eff2 is not None:
-        raise NotImplementedError(
-            "entity+attribute (side-feature) tables: later slice"
-        )
+        raise NotImplementedError(_GIBBS_SIDE)
     return _wv_source(w, V, t2)
 
 

@@ -1,23 +1,33 @@
 """Per-entity Gram statistics over sorted row tiles.
 
-PyTorch counterpart of ``myfm_tpu/ops/pallas_gram.py``
-``fused_tile_gram_cross`` (the Pallas TPU kernel of the categorical
-fast path), in its Gibbs layout.  The categorical sweep
-(ops/categorical.py) needs, per table and per entity u,
+PyTorch counterpart of the two Pallas TPU kernels of the categorical fast
+paths in ``myfm_tpu/ops/pallas_gram.py``:
 
-    G_u = Σ_{rows n of u} z_n z_nᵀ,   z_n = [1 | e⁰_n | φ_n],
+* ``fused_tile_gram_cross`` (kernel 1), in the Gibbs layout and in the VI
+  layout.  The categorical sweeps need, per table and per entity u,
 
-where φ_n is the other tables' factor sum at row n and e⁰_n the
-residual without w0.  Rows are sorted by entity and packed into tiles
-of T rows holding at most S entities (design_categorical._pack_tiles);
-an entity that spans tiles carries its running Gram into slot 0 of the
-next tile, so its complete Gram lands at its last (tile, slot).
+      G_u = Σ_{rows n of u} z_n z_nᵀ,   z_n = [1 | e⁰_n | zcols_n],
 
-``fused_tile_gram_cross`` launches the hand-written CUDA kernel
-(csrc/fused_gram_cross.cu) on CUDA tensors and runs the plain PyTorch
-version ``fused_tile_gram_cross_reference`` on CPU tensors.  The output
-is [K*S, D, D] (the TPU kernel's [K*S, Dp, D] without its 8-row slot
-padding) plus the carry leaving the last tile.
+  where zcols are the other tables' summed columns (the factor sums φ on
+  the Gibbs path; φ, σ, τ on the VI path) and e⁰_n the residual without
+  w0.  The kernel takes the other tables' gathered rows as they are and
+  sums them itself.
+* ``fused_tile_gram`` (kernel 2), the separate-meta variant: the caller
+  has already summed the other tables into ``meta`` = [ones | lin−τ(+w0)
+  | qs_other] and ``q_other`` (the VI entity+attribute table pass).
+
+Rows are sorted by entity and packed into tiles of T rows holding at most
+S entities (design_categorical._pack_tiles); an entity that spans tiles
+carries its running Gram into slot 0 of the next tile, so its complete
+Gram lands at its last (tile, slot).  ``out_rows`` emits only the Gram's
+first rows (all D columns): the VI consumers read only the rows
+[1 | e | φ].
+
+Each wrapper launches the hand-written CUDA kernel
+(csrc/fused_gram_cross.cu) on CUDA tensors and runs its plain PyTorch
+version on CPU tensors.  The output is [K*S, rows, D] (the TPU kernel's
+[K*S, Dpr, D] without its 8-row slot padding) plus the carry [rows, D]
+leaving the last tile, with rows = ``out_rows`` or D.
 """
 
 from __future__ import annotations
@@ -42,36 +52,60 @@ def _own_rows(wvsl: torch.Tensor, slot: torch.Tensor, S: int):
     return wv_pad[k_idx, slot.clamp(0, S)]
 
 
-def fused_tile_gram_cross_reference(
-    aux2: torch.Tensor,  # [K, 2, T] (slot_f, tau); pad rows slot_f == S
-    gths: Sequence[torch.Tensor],  # n_cross × [K, T, 2+R] [w | V | qs]
-    wvsl: torch.Tensor,  # [K, S, 2+R] own [w | V | qs] per slot
-    cont_in: torch.Tensor,  # [K] int32
-    cont_out: torch.Tensor,  # [K] int32
-    last_slot: torch.Tensor,  # [K] int32
-    S: int,
-    carry_in: Optional[torch.Tensor] = None,  # [D, D]
-):
-    """Plain PyTorch version of the Gram kernel: returns
-    (flat partial Grams [K*S, D, D], carry_out [D, D]).  Works on any
-    device (the comparisons on the card run it on CUDA tensors)."""
+def masked_rows(z: torch.Tensor, m: torch.Tensor, rows: int) -> torch.Tensor:
+    """The slot-masked operand [K, T, S*rows]: slot s's block holds the
+    first ``rows`` z columns of the rows it weights (m [K, T, S])."""
+    K, T, S = m.shape
+    return (m[:, :, :, None] * z[:, :, None, :rows]).reshape(K, T, S * rows)
+
+
+def _grams_with_carry(z, m, rows, cont_in, cont_out, last_slot, carry_in):
+    """Σ_t m[k,t,s] z zᵀ over the first ``rows`` rows, then the TPU grid's
+    in-order carry: tiles with neither flag set neither read nor change
+    it.  Returns (flat [K*S, rows, D], carry_out [rows, D])."""
+    K, T, S = m.shape
+    D = z.shape[2]
+    partial = torch.bmm(
+        masked_rows(z, m, rows).transpose(1, 2), z
+    ).reshape(K, S, rows, D)
+    carry = (
+        z.new_zeros(rows, D) if carry_in is None else carry_in.clone()
+    )
+    ci = cont_in.tolist()
+    co = cont_out.tolist()
+    ls = last_slot.tolist()
+    for k in range(K):
+        if ci[k]:
+            partial[k, 0] += carry
+        if co[k]:
+            carry = partial[k, ls[k]].clone()
+    return partial.reshape(K * S, rows, D), carry
+
+
+def cross_rows(aux2, gths, wvsl, S: int, q_lo: int = 1, n_extra: int = 0):
+    """Kernel 1's z rows [K, T, D] and slot mask m [K, T, S] (plain
+    PyTorch).  The gathered rows have W = q_lo + R + n_extra + 1 columns
+    [lin | .. | zcols | qs] with the zcols block (R own-factor columns,
+    then ``n_extra`` more) starting at ``q_lo``; D = R + n_extra + 2."""
     slot_f = aux2[:, 0, :]
     tau = aux2[:, 1, :]
     K, T = slot_f.shape
     R = wvsl.shape[2] - 2
-    D = R + 2
+    n_z = R + n_extra
+    qs_col = q_lo + n_z
     dtype = wvsl.dtype
     slot = slot_f.long()
     valid = (slot >= 0) & (slot < S)
     ones = valid.to(dtype)
-    g = torch.zeros(K, T, D, dtype=dtype, device=wvsl.device)
+    lin_o = torch.zeros(K, T, dtype=dtype, device=wvsl.device)
+    qs_o = torch.zeros(K, T, dtype=dtype, device=wvsl.device)
+    Z_o = torch.zeros(K, T, n_z, dtype=dtype, device=wvsl.device)
     for gth in gths:
-        g = g + gth
-    lin_o = g[:, :, 0]
-    Z_o = g[:, :, 1 : 1 + R]
-    qs_o = g[:, :, 1 + R]
+        lin_o = lin_o + gth[:, :, 0]
+        Z_o = Z_o + gth[:, :, q_lo : q_lo + n_z]
+        qs_o = qs_o + gth[:, :, qs_col]
     own = _own_rows(wvsl, torch.where(valid, slot, S), S)
-    qf = Z_o + own[:, :, 1 : 1 + R]
+    qf = Z_o[:, :, :R] + own[:, :, 1 : 1 + R]
     score = (
         lin_o
         - tau
@@ -83,25 +117,74 @@ def fused_tile_gram_cross_reference(
     m = (
         slot[:, :, None] == torch.arange(S, device=slot.device)
     ).to(dtype)  # [K, T, S], all-zero on pad rows
-    mz = (m[:, :, :, None] * z[:, :, None, :]).reshape(K, T, S * D)
-    partial = torch.bmm(mz.transpose(1, 2), z).reshape(K, S, D, D)
+    return z, m
 
-    # the in-order carry of the TPU grid: tiles with neither flag set
-    # neither read nor change it
-    carry = (
-        torch.zeros(D, D, dtype=dtype, device=wvsl.device)
-        if carry_in is None
-        else carry_in.clone()
+
+def fused_tile_gram_cross_reference(
+    aux2: torch.Tensor,  # [K, 2, T] (slot_f, tau); pad rows slot_f == S
+    gths: Sequence[torch.Tensor],  # n_cross × [K, T, W] gathered rows
+    wvsl: torch.Tensor,  # [K, S, 2+R] own [w | V | qs] per slot
+    cont_in: torch.Tensor,  # [K] int32
+    cont_out: torch.Tensor,  # [K] int32
+    last_slot: torch.Tensor,  # [K] int32
+    S: int,
+    carry_in: Optional[torch.Tensor] = None,  # [rows, D]
+    q_lo: int = 1,
+    n_extra: int = 0,
+    out_rows: Optional[int] = None,
+):
+    """Plain PyTorch version of kernel 1: returns (flat partial Grams
+    [K*S, rows, D], carry_out [rows, D]); layout as in ``cross_rows``.
+    Works on any device (the comparisons on the card run it on CUDA
+    tensors)."""
+    z, m = cross_rows(aux2, gths, wvsl, S, q_lo, n_extra)
+    rows = z.shape[2] if out_rows is None else out_rows
+    return _grams_with_carry(z, m, rows, cont_in, cont_out, last_slot,
+                             carry_in)
+
+
+def meta_rows(meta, q_other, slot, wvsl, S: int):
+    """Kernel 2's z rows [K, T, D] and row-weighted slot mask m
+    [K, T, S] (plain PyTorch).  ``q_other``'s first R columns (R = wvsl
+    width − 1) are the other tables' factor sums φ; the rest enter z as
+    they are; D = Rq + 2."""
+    R = wvsl.shape[2] - 1
+    ones = meta[:, :, 0]
+    m = (
+        slot.long()[:, :, None] == torch.arange(S, device=slot.device)
+    ).to(meta.dtype) * ones[:, :, None]
+    own = torch.bmm(m, wvsl)  # [K, T, 1+R]
+    qf = q_other[:, :, :R] + own[:, :, 1:]
+    score = meta[:, :, 1] + own[:, :, 0] + 0.5 * (
+        (qf * qf).sum(dim=2)
+        - meta[:, :, 2]
+        - (own[:, :, 1:] ** 2).sum(dim=2)
     )
-    ci = cont_in.tolist()
-    co = cont_out.tolist()
-    ls = last_slot.tolist()
-    for k in range(K):
-        if ci[k]:
-            partial[k, 0] += carry
-        if co[k]:
-            carry = partial[k, ls[k]].clone()
-    return partial.reshape(K * S, D, D), carry
+    e = score * ones
+    z = torch.cat([ones[:, :, None], e[:, :, None], q_other], dim=2)
+    return z, m
+
+
+def fused_tile_gram_reference(
+    meta: torch.Tensor,  # [K, T, 3] [ones | lin−τ(+w0) | qs_other]
+    q_other: torch.Tensor,  # [K, T, Rq]
+    slot: torch.Tensor,  # [K, T] int32
+    wvsl: torch.Tensor,  # [K, S, 1+R] own [w | V] per slot
+    cont_in: torch.Tensor,
+    cont_out: torch.Tensor,
+    last_slot: torch.Tensor,
+    S: int,
+    carry_in: Optional[torch.Tensor] = None,  # [rows, D]
+    out_rows: Optional[int] = None,
+):
+    """Plain PyTorch version of kernel 2 (the TPU package's
+    ``fused_tile_gram_reference`` with the ``out_rows`` rectangle):
+    returns (flat partial Grams [K*S, rows, D], carry_out [rows, D]);
+    layout as in ``meta_rows``."""
+    z, m = meta_rows(meta, q_other, slot, wvsl, S)
+    rows = z.shape[2] if out_rows is None else out_rows
+    return _grams_with_carry(z, m, rows, cont_in, cont_out, last_slot,
+                             carry_in)
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -109,81 +192,88 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def _bind(lib: ctypes.CDLL):
-    fn = lib.myfm_fused_gram_cross
-    if fn.argtypes is None:
-        fn.argtypes = (
+    if lib.myfm_fused_gram_cross.argtypes is None:
+        lib.myfm_fused_gram_cross.argtypes = (
             [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
             + [ctypes.c_void_p] * 8
-            + [ctypes.c_int] * 4
+            + [ctypes.c_int] * 7
             + [ctypes.c_void_p]
         )
-        fn.restype = ctypes.c_int
-        lib.myfm_fused_gram_cross_scratch.argtypes = [
-            ctypes.c_int, ctypes.c_int,
-        ]
-        lib.myfm_fused_gram_cross_scratch.restype = ctypes.c_int
-    return fn
-
-
-def _check_cuda(aux2, gths, wvsl, cont_in, cont_out, last_slot, S,
-                carry_in):
-    if aux2.device.type != "cuda":
-        raise ValueError(
-            f"fused_tile_gram_cross: tensors on {aux2.device} are not "
-            "supported (CPU tensors take the plain version)"
+        lib.myfm_fused_gram_cross.restype = ctypes.c_int
+        lib.myfm_fused_gram.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 11
+            + [ctypes.c_int] * 6
+            + [ctypes.c_void_p]
         )
-    dtype = wvsl.dtype
+        lib.myfm_fused_gram.restype = ctypes.c_int
+        lib.myfm_gram_carry_scratch.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.myfm_gram_carry_scratch.restype = ctypes.c_int
+    return lib
+
+
+def _check_common(name, floats, ints, K, S, rows, D, carry_in, smem):
+    """Device, dtype, contiguity, flag and shared-memory checks shared by
+    both wrappers; raises on what the kernel does not take."""
+    device = floats[0].device
+    dtype = floats[0].dtype
+    if device.type != "cuda":
+        raise ValueError(
+            f"{name}: tensors on {device} are not supported (CPU tensors "
+            "take the plain version)"
+        )
     if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"fused_tile_gram_cross: dtype {dtype}")
-    K, two, T = aux2.shape
-    W = wvsl.shape[2]
-    R = W - 2
-    D = R + 2
-    if two != 2 or wvsl.shape[:2] != (K, S) or R < 0:
-        raise ValueError(
-            f"fused_tile_gram_cross: aux2 {tuple(aux2.shape)}, wvsl "
-            f"{tuple(wvsl.shape)}, S={S}"
-        )
-    if not 1 <= S <= MAX_SLOTS or len(gths) > MAX_CROSS:
-        raise ValueError(
-            f"fused_tile_gram_cross: S={S} (max {MAX_SLOTS}), "
-            f"{len(gths)} cross tables (max {MAX_CROSS})"
-        )
-    floats = [aux2, wvsl, *gths] + ([carry_in] if carry_in is not None
-                                    else [])
-    for t in floats:
-        if t.dtype != dtype or t.device != aux2.device:
+        raise TypeError(f"{name}: dtype {dtype}")
+    if not 1 <= S <= MAX_SLOTS:
+        raise ValueError(f"{name}: S={S} (max {MAX_SLOTS})")
+    if not 1 <= rows <= D:
+        raise ValueError(f"{name}: out_rows={rows} outside [1, {D}]")
+    for t in floats + ([carry_in] if carry_in is not None else []):
+        if t.dtype != dtype or t.device != device:
             raise ValueError(
-                "fused_tile_gram_cross: operands must share dtype and "
-                f"device ({t.dtype} on {t.device} vs {dtype} on "
-                f"{aux2.device})"
+                f"{name}: operands must share dtype and device ({t.dtype} "
+                f"on {t.device} vs {dtype} on {device})"
             )
         if not t.is_contiguous():
-            raise ValueError("fused_tile_gram_cross: non-contiguous operand")
-    for gth in gths:
-        if tuple(gth.shape) != (K, T, W):
+            raise ValueError(f"{name}: non-contiguous operand")
+    for t, shape in ints:
+        if (t.dtype != torch.int32 or tuple(t.shape) != shape
+                or t.device != device or not t.is_contiguous()):
             raise ValueError(
-                f"fused_tile_gram_cross: gathered rows {tuple(gth.shape)}"
-                f" != {(K, T, W)}"
+                f"{name}: index operands must be contiguous int32 {shape} "
+                f"on {device}"
             )
-    for t in (cont_in, cont_out, last_slot):
-        if (t.dtype != torch.int32 or tuple(t.shape) != (K,)
-                or t.device != aux2.device or not t.is_contiguous()):
-            raise ValueError(
-                "fused_tile_gram_cross: tile flags must be contiguous "
-                f"int32 [{K}] on {aux2.device}"
-            )
-    if carry_in is not None and tuple(carry_in.shape) != (D, D):
-        raise ValueError(
-            f"fused_tile_gram_cross: carry_in {tuple(carry_in.shape)}"
-        )
-    smem = (T + S) * D * wvsl.element_size() + T * 4
+    if carry_in is not None and tuple(carry_in.shape) != (rows, D):
+        raise ValueError(f"{name}: carry_in {tuple(carry_in.shape)} != "
+                         f"{(rows, D)}")
     if smem > SMEM_LIMIT:
         raise ValueError(
-            f"fused_tile_gram_cross: T={T}, S={S}, D={D} needs {smem} B "
-            f"of shared memory (limit {SMEM_LIMIT})"
+            f"{name}: needs {smem} B of shared memory per tile (limit "
+            f"{SMEM_LIMIT}); use smaller tiles"
         )
-    return K, T, R, D
+
+
+def _launch(name, fn, operands, dims, K, S, rows, D, dtype, device,
+            carry_in):
+    """Allocate the outputs and the carry scratch, call the C entry point
+    ``fn`` (its operand pointers, then carry_in / out / carry_out /
+    scratch, then its integer ``dims``) on the current stream, and raise
+    if the launch failed."""
+    lib = _bind(_build.load("fused_gram_cross"))
+    if carry_in is None:
+        carry_in = torch.zeros(rows, D, dtype=dtype, device=device)
+    out = torch.empty(K * S, rows, D, dtype=dtype, device=device)
+    carry_out = torch.empty(rows, D, dtype=dtype, device=device)
+    scratch = torch.empty(lib.myfm_gram_carry_scratch(K, rows * D),
+                          dtype=dtype, device=device)
+    with torch.cuda.device(device):
+        rc = getattr(lib, fn)(
+            int(dtype == torch.float64), *operands, _ptr(carry_in),
+            _ptr(out), _ptr(carry_out), _ptr(scratch), *dims,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    return out, carry_out
 
 
 def fused_tile_gram_cross(
@@ -195,47 +285,113 @@ def fused_tile_gram_cross(
     last_slot: torch.Tensor,
     S: int,
     carry_in: Optional[torch.Tensor] = None,
+    q_lo: int = 1,
+    n_extra: int = 0,
+    out_rows: Optional[int] = None,
 ):
-    """Flat partial Grams [K*S, D, D] and the carry leaving the last
-    tile.  ``e`` excludes w0: the consumers apply the exact rank-1 w0
-    correction to the Gram statistics.  CPU tensors run the plain
-    version; CUDA tensors launch the kernel, or raise."""
+    """Kernel 1: flat partial Grams [K*S, rows, D] and the carry leaving
+    the last tile (layout as in ``fused_tile_gram_cross_reference``; the
+    defaults are the Gibbs layout with the full square Gram).  ``e``
+    excludes w0: the consumers apply the exact rank-1 w0 correction to
+    the Gram statistics.  CPU tensors run the plain version; CUDA
+    tensors launch the kernel, or raise.  ``launches`` counts the
+    Gibbs-layout launches, ``vi_launches`` all others."""
     gths = tuple(gths)
     if aux2.device.type == "cpu":
         return fused_tile_gram_cross_reference(
-            aux2, gths, wvsl, cont_in, cont_out, last_slot, S, carry_in
+            aux2, gths, wvsl, cont_in, cont_out, last_slot, S, carry_in,
+            q_lo, n_extra, out_rows,
         )
-    K, T, R, D = _check_cuda(
-        aux2, gths, wvsl, cont_in, cont_out, last_slot, S, carry_in
-    )
-    if carry_in is None:
-        carry_in = torch.zeros(D, D, dtype=wvsl.dtype, device=wvsl.device)
-    lib = _build.load("fused_gram_cross")
-    fn = _bind(lib)
-    out = torch.empty(K * S, D, D, dtype=wvsl.dtype, device=wvsl.device)
-    carry_out = torch.empty(D, D, dtype=wvsl.dtype, device=wvsl.device)
-    scratch = torch.empty(
-        lib.myfm_fused_gram_cross_scratch(K, R), dtype=wvsl.dtype,
-        device=wvsl.device,
+    K, two, T = aux2.shape
+    R = wvsl.shape[2] - 2
+    D = R + n_extra + 2
+    W = q_lo + R + n_extra + 1
+    rows = D if out_rows is None else out_rows
+    name = "fused_tile_gram_cross"
+    if two != 2 or tuple(wvsl.shape[:2]) != (K, S) or R < 0:
+        raise ValueError(f"{name}: aux2 {tuple(aux2.shape)}, wvsl "
+                         f"{tuple(wvsl.shape)}, S={S}")
+    if q_lo < 1 or n_extra < 0 or len(gths) > MAX_CROSS:
+        raise ValueError(f"{name}: q_lo={q_lo}, n_extra={n_extra}, "
+                         f"{len(gths)} cross tables (max {MAX_CROSS})")
+    for gth in gths:
+        if tuple(gth.shape) != (K, T, W):
+            raise ValueError(f"{name}: gathered rows {tuple(gth.shape)} "
+                             f"!= {(K, T, W)}")
+    item = wvsl.element_size()
+    _check_common(
+        name, [aux2, wvsl, *gths],
+        [(t, (K,)) for t in (cont_in, cont_out, last_slot)],
+        K, S, rows, D, carry_in, (T * W + S * (R + 2)) * item + T * 4,
     )
     gth_ptrs = (ctypes.c_void_p * max(len(gths), 1))(
         *[g.data_ptr() for g in gths]
     )
-    with torch.cuda.device(aux2.device):
-        rc = fn(
-            int(wvsl.dtype == torch.float64), _ptr(aux2),
-            ctypes.cast(gth_ptrs, ctypes.c_void_p), len(gths),
-            _ptr(wvsl), _ptr(cont_in), _ptr(cont_out), _ptr(last_slot),
-            _ptr(carry_in), _ptr(out), _ptr(carry_out), _ptr(scratch),
-            K, T, S, R,
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"fused_gram_cross kernel launch failed: cudaError {rc}"
-        )
-    fused_tile_gram_cross.launches += 1
-    return out, carry_out
+    out = _launch(
+        name, "myfm_fused_gram_cross",
+        [_ptr(aux2), ctypes.cast(gth_ptrs, ctypes.c_void_p), len(gths),
+         _ptr(wvsl), _ptr(cont_in), _ptr(cont_out), _ptr(last_slot)],
+        [K, T, S, R, q_lo, n_extra, rows],
+        K, S, rows, D, wvsl.dtype, wvsl.device, carry_in,
+    )
+    if (q_lo, n_extra, out_rows) == (1, 0, None):
+        fused_tile_gram_cross.launches += 1
+    else:
+        fused_tile_gram_cross.vi_launches += 1
+    return out
 
 
 fused_tile_gram_cross.launches = 0
+fused_tile_gram_cross.vi_launches = 0
+
+
+def fused_tile_gram(
+    meta: torch.Tensor,
+    q_other: torch.Tensor,
+    slot: torch.Tensor,
+    wvsl: torch.Tensor,
+    cont_in: torch.Tensor,
+    cont_out: torch.Tensor,
+    last_slot: torch.Tensor,
+    S: int,
+    carry_in: Optional[torch.Tensor] = None,
+    out_rows: Optional[int] = None,
+):
+    """Kernel 2: flat partial Grams [K*S, rows, D] and the carry leaving
+    the last tile (layout as in ``fused_tile_gram_reference``; ``ones``,
+    meta's first column, is 0 or 1).  CPU tensors run the plain version;
+    CUDA tensors launch the kernel, or raise."""
+    if meta.device.type == "cpu":
+        return fused_tile_gram_reference(
+            meta, q_other, slot, wvsl, cont_in, cont_out, last_slot, S,
+            carry_in, out_rows,
+        )
+    K, T, Rq = q_other.shape
+    R = wvsl.shape[2] - 1
+    D = Rq + 2
+    rows = D if out_rows is None else out_rows
+    name = "fused_tile_gram"
+    if (tuple(meta.shape) != (K, T, 3) or tuple(wvsl.shape[:2]) != (K, S)
+            or not 0 <= R <= Rq):
+        raise ValueError(f"{name}: meta {tuple(meta.shape)}, q_other "
+                         f"{tuple(q_other.shape)}, wvsl "
+                         f"{tuple(wvsl.shape)}, S={S}")
+    item = wvsl.element_size()
+    _check_common(
+        name, [meta, q_other, wvsl],
+        [(slot, (K, T))] + [(t, (K,)) for t in (cont_in, cont_out,
+                                                last_slot)],
+        K, S, rows, D, carry_in, (T * D + S * (R + 1)) * item + T * 4,
+    )
+    out = _launch(
+        name, "myfm_fused_gram",
+        [_ptr(meta), _ptr(q_other), _ptr(slot), _ptr(wvsl), _ptr(cont_in),
+         _ptr(cont_out), _ptr(last_slot)],
+        [K, T, S, R, Rq, rows],
+        K, S, rows, D, wvsl.dtype, wvsl.device, carry_in,
+    )
+    fused_tile_gram.launches += 1
+    return out
+
+
+fused_tile_gram.launches = 0

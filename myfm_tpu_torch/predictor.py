@@ -1,10 +1,13 @@
-"""Posterior-predictive averaging over kept Gibbs samples.
+"""Posterior-predictive averaging over kept Gibbs samples, and scoring
+with the converged variational weights.
 
-PyTorch counterpart of ``myfm_tpu/predictor.py`` ``Predictor``: samples
-are stacked on the device in memory-bounded chunks and scored with
-ops/forward_categorical when every table is one-hot, else with the
-row-space forward (ops/forward.py) over a compiled design.
-``n_workers`` is accepted for API parity and ignored.
+PyTorch counterpart of ``myfm_tpu/predictor.py`` ``Predictor`` and
+``VariationalPredictor``.  Gibbs samples are stacked on the device in
+memory-bounded chunks and scored with ops/forward_categorical when every
+table is one-hot, else with the row-space forward (ops/forward.py) over
+a compiled design.  The variational weight set is scored on the device
+with the row-space forward.  ``n_workers`` is accepted for API parity
+and ignored.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import numpy as np
 import torch
 from scipy import sparse as sps
 
-from .containers import FM
+from .containers import FM, VariationalFM
 from .design import compile_design
 from .design_categorical import torch_dtype
 from .ops.forward import predict_score
@@ -108,3 +111,46 @@ class Predictor:
                 acc += predict_score(plan, w0s[k], ws[k], vs[k])
             total += acc.double().cpu().numpy()
         return total / len(self.samples)
+
+
+class VariationalPredictor:
+    """Holds the single converged VI weight set (reference
+    declare_module.hpp:343-346) and scores it on ``device``."""
+
+    def __init__(self, rank: int, n_features: int, task: str,
+                 dtype=np.float32, device="cpu"):
+        self.rank = rank
+        self.n_features = n_features
+        self.task = task
+        self.dtype = np.dtype(dtype)
+        self.device = torch.device(device)
+        self.samples: List[VariationalFM] = []  # exactly one after fit
+
+    def weights(self) -> VariationalFM:
+        return self.samples[0]
+
+    def predict(
+        self,
+        X: Optional[ArrayLike],
+        X_rel: Sequence[RelationBlock] = (),
+        n_workers: Optional[int] = None,
+    ) -> np.ndarray:
+        """The score of the posterior-mean weights, computed on the
+        device through the row-space forward."""
+        if not self.samples:
+            raise RuntimeError("Predictor has no samples.")
+        if self.task == TASK_CLASSIFICATION:
+            raise NotImplementedError(
+                "the variational classifier: later slice"
+            )
+        vfm = self.samples[0]
+        tdtype = torch_dtype(self.dtype)
+
+        def up(a):
+            return torch.as_tensor(np.asarray(a), dtype=tdtype,
+                                   device=self.device)
+
+        plan = compile_design(X, X_rel, dtype=self.dtype, for_training=False,
+                              device=self.device)
+        score = predict_score(plan, up(vfm.w0), up(vfm.w), up(vfm.V))
+        return score.double().cpu().numpy()

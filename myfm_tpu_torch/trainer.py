@@ -28,6 +28,7 @@ from .ops.categorical import (
     draw_sweep_variates,
     init_categorical_state,
     make_y_tiles,
+    require_one_hot,
 )
 from .ops.forward import predict_score
 from .ops.gibbs import (
@@ -279,6 +280,7 @@ class CategoricalGibbsTrainer:
                 f"task {cfg.task!r} on the fast path (probit tasks): "
                 "later slice"
             )
+        require_one_hot(plan)
         self.plan = plan
         self.cfg = _resolve_gram_fast_matmul(cfg)
         self.rank = rank

@@ -126,13 +126,24 @@ def test_choose_tiling_rule():
 
 
 def test_side_feature_table_raises():
+    """A multi-hot block compiles to an entity+attribute table with
+    ``allow_side`` (the VI fast path runs it); the Gibbs fast path raises
+    on such a plan instead of taking another route."""
     rng = np.random.RandomState(0)
     N = 50
     Xs = sps.csr_matrix(rng.random((6, 3)))  # a multi-hot block
     blocks = [RelationBlock(rng.randint(0, 6, N), Xs)]
+    plan = try_compile_categorical(None, blocks, None, None, np.float64,
+                                   "cpu", rank=2, allow_side=True,
+                                   fixed_ts=(16, 2))
+    assert plan.has_side and plan.side[0].n_cols == 3
+    from myfm_tpu_torch.trainer import CategoricalGibbsTrainer
+
     with pytest.raises(NotImplementedError, match="later slice"):
-        try_compile_categorical(None, blocks, None, None, np.float64,
-                                "cpu", rank=2, allow_side=True)
+        CategoricalGibbsTrainer(plan, rng.normal(size=N),
+                                GibbsConfig(task="regression"), 2, 0.1, 0)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        tcat.eff_tables(plan, None, None)
     assert try_compile_categorical(None, blocks, None, None, np.float64,
                                    "cpu", rank=2) is None
 

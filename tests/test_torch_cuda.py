@@ -335,3 +335,212 @@ def test_joint_sweep_with_tail_kernel_matches_plain_on_real_plans(
         assert bool(torch.isfinite(g).all()), f
         scale = max(float(w.abs().max()), 1.0)
         assert float((g - w).abs().max()) <= 1e-10 * scale, f
+
+
+# ---------------------------------------------------------------------------
+# the VI uses of csrc/fused_gram_cross.cu: kernel 1's VI layout and
+# kernel 2 (fused_tile_gram)
+# ---------------------------------------------------------------------------
+
+
+def _vi_gram_problem(T, S, n_cross, R, seed, dtype, N=20_000, B=300):
+    """Kernel 1 operands in the VI layout on a real packing: gathered rows
+    [w | wvar | V | σ | sv | qs] (3 + 3R columns), own [w | V | qs]."""
+    rng = np.random.RandomState(seed)
+    ent = rng.randint(0, B, N)
+    ent[: N // 4] = 2
+    tab = compile_categorical_table(ent, B, 0, N, dtype, "cpu", rank=3 * R,
+                                    fixed_ts=(T, S))
+    K = tab.n_tiles
+    slot_f = tab.slot_f.numpy().reshape(K, T)
+    valid = (slot_f < S)[:, :, None]
+    gths = []
+    for _ in range(n_cross):
+        V = 0.3 * rng.normal(size=(K, T, R))
+        s = 0.1 * rng.random((K, T, R)) + 0.01
+        body = np.concatenate(
+            [rng.normal(size=(K, T, 1)), rng.random((K, T, 1)), V, s, s * V,
+             (V * V).sum(axis=2, keepdims=True)], axis=2)
+        gths.append((body * valid).astype(dtype))
+    wv = 0.3 * rng.normal(size=(K, S, 1 + R))
+    wvsl = np.concatenate(
+        [wv, (wv[:, :, 1:] ** 2).sum(axis=2, keepdims=True)], axis=2
+    ).astype(dtype)
+    aux2 = np.stack(
+        [slot_f, 3.0 + rng.normal(size=(K, T)) * valid[:, :, 0]], axis=1
+    ).astype(dtype)
+    flags = [tab.cont_in.numpy(), tab.cont_out.numpy(),
+             tab.last_slot.numpy()]
+    carry = rng.normal(size=(2 + R, 3 * R + 2)).astype(dtype)
+    return aux2, gths, wvsl, flags, S, carry
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-4),
+                                       (np.float64, 1e-10)])
+@pytest.mark.parametrize("T,S,n_cross,R", [(16, 2, 1, 1), (128, 4, 2, 10),
+                                           (128, 8, 2, 32)])
+def test_gram_kernel_vi_layout_matches_plain(dtype, tol, T, S, n_cross, R):
+    device = _cuda()
+    aux2, gths, wvsl, flags, S, carry = _vi_gram_problem(
+        T, S, n_cross, R, seed=T + R, dtype=dtype)
+
+    def run(fn):
+        def t(a):
+            return torch.as_tensor(a, device=device)
+
+        out, c = fn(t(aux2), [t(g) for g in gths], t(wvsl),
+                    *[t(f) for f in flags], S, t(carry), q_lo=2,
+                    n_extra=2 * R, out_rows=2 + R)
+        return out.cpu().numpy(), c.cpu().numpy()
+
+    before = (gram.fused_tile_gram_cross.launches,
+              gram.fused_tile_gram_cross.vi_launches)
+    out, c = run(gram.fused_tile_gram_cross)
+    torch.cuda.synchronize()
+    assert (gram.fused_tile_gram_cross.launches,
+            gram.fused_tile_gram_cross.vi_launches) == (before[0],
+                                                        before[1] + 1)
+    ref, ref_c = run(gram.fused_tile_gram_cross_reference)
+    assert out.shape == ref.shape == (len(ref), 2 + R, 3 * R + 2)
+    scale = max(float(np.abs(ref).max()), 1.0)
+    assert float(np.abs(out - ref).max()) <= tol * scale
+    assert float(np.abs(c - ref_c).max()) <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-4),
+                                       (np.float64, 1e-10)])
+@pytest.mark.parametrize("T,S,R,Rq,out_rows", [
+    (16, 2, 3, 12, None), (256, 4, 10, 40, 12), (128, 64, 10, 40, 12),
+    (128, 1, 2, 5, 4),
+])
+def test_meta_gram_kernel_matches_plain(dtype, tol, T, S, R, Rq, out_rows):
+    device = _cuda()
+    rng = np.random.RandomState(T + S + R)
+    N, B = 20_000, 300
+    ent = rng.randint(0, B, N)
+    ent[: N // 4] = 2
+    tab = compile_categorical_table(ent, B, 0, N, dtype, "cpu", rank=Rq,
+                                    fixed_ts=(T, S))
+    K = tab.n_tiles
+    ones = (tab.src.numpy().reshape(K, T) < N).astype(dtype)
+    meta = np.stack([ones, 3.0 + rng.normal(size=(K, T)) * ones,
+                     rng.random((K, T)) * ones], axis=2).astype(dtype)
+    q_other = (0.3 * rng.normal(size=(K, T, Rq)) * ones[:, :, None]
+               ).astype(dtype)
+    wvsl = (0.3 * rng.normal(size=(K, S, 1 + R))).astype(dtype)
+    D = Rq + 2
+    carry = rng.normal(size=(out_rows or D, D)).astype(dtype)
+    ops = [torch.as_tensor(a, device=device) for a in (
+        meta, q_other, tab.slot.numpy().reshape(K, T), wvsl,
+        tab.cont_in.numpy(), tab.cont_out.numpy(), tab.last_slot.numpy(),
+    )]
+    cy = torch.as_tensor(carry, device=device)
+    before = gram.fused_tile_gram.launches
+    out, c = gram.fused_tile_gram(*ops, S, cy, out_rows=out_rows)
+    torch.cuda.synchronize()
+    assert gram.fused_tile_gram.launches == before + 1
+    ref, ref_c = gram.fused_tile_gram_reference(*ops, S, cy,
+                                                out_rows=out_rows)
+    scale = max(float(ref.abs().max()), 1.0)
+    assert float((out - ref).abs().max()) <= tol * scale
+    assert float((c - ref_c).abs().max()) <= tol * scale
+
+
+@pytest.mark.cuda
+def test_gram_kernels_refuse_tiles_beyond_shared_memory():
+    device = _cuda()
+    K, T, S, R = 2, 1024, 2, 32
+    z = torch.zeros
+    flags = [z(K, dtype=torch.int32, device=device) for _ in range(3)]
+    with pytest.raises(ValueError, match="shared memory"):
+        gram.fused_tile_gram_cross(
+            z(K, 2, T, dtype=torch.float64, device=device),
+            [z(K, T, 3 + 3 * R, dtype=torch.float64, device=device)],
+            z(K, S, 2 + R, dtype=torch.float64, device=device), *flags, S,
+            q_lo=2, n_extra=2 * R, out_rows=2 + R)
+    with pytest.raises(ValueError, match="shared memory"):
+        gram.fused_tile_gram(
+            z(K, T, 3, dtype=torch.float64, device=device),
+            z(K, T, 4 * R, dtype=torch.float64, device=device),
+            z(K, T, dtype=torch.int32, device=device),
+            z(K, S, 1 + R, dtype=torch.float64, device=device), *flags, S,
+            out_rows=2 + R)
+
+
+def _tiny_vi_plan(device, rank, dtype):
+    from myfm_tpu_torch.design_categorical import try_compile_categorical
+    from myfm_tpu_torch.utils.ml_features import (
+        build_feature_blocks,
+        load_synthetic_movielens,
+    )
+
+    tr, te = load_synthetic_movielens("tiny", 0)
+    X, _, blocks, _, grouping = build_feature_blocks(tr, te,
+                                                     "timesvdpp_flipped")
+    plan = try_compile_categorical(
+        X, blocks, np.asarray(grouping, np.int32), None, dtype, device,
+        rank=4 * rank, allow_side=True)
+    assert plan is not None and plan.has_side
+    return plan, tr["rating"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [3, 10])
+def test_vi_sweep_with_kernels_matches_plain(rank):
+    """One float64 CAVI sweep on the tiny timeSVD++ entity+attribute plan
+    through both kernels against one through their plain versions, from
+    one state: every field within 1e-10 of its scale."""
+    from myfm_tpu_torch.ops.categorical_vi import categorical_vi_sweep
+    from myfm_tpu_torch.ops.variational import VariationalConfig
+    from myfm_tpu_torch.vi_trainer import CategoricalVITrainer
+
+    device = _cuda()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        plan, y = _tiny_vi_plan(device, rank, np.float64)
+        tr = CategoricalVITrainer(plan, y, VariationalConfig(), rank, 0.1, 0,
+                                  np.float64)
+        state = tr._initialize()
+        before = (gram.fused_tile_gram_cross.vi_launches,
+                  gram.fused_tile_gram.launches)
+        got = categorical_vi_sweep(plan, state, tr.y, tr.y_tiles, tr.cfg)
+        n_ea = sum(si is not None for si in plan.side)
+        assert gram.fused_tile_gram.launches == before[1] + n_ea
+        assert gram.fused_tile_gram_cross.vi_launches > before[0]
+        want = categorical_vi_sweep(plan, state, tr.y, tr.y_tiles, tr.cfg,
+                                    plain=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for f in ("w", "w_var", "V", "V_var", "e", "e_var_sum", "elbo"):
+        g, w = getattr(got.core, f), getattr(want.core, f)
+        assert bool(torch.isfinite(g).all()), f
+        scale = max(float(w.abs().max()), 1.0)
+        assert float((g - w).abs().max()) <= 1e-10 * scale, f
+
+
+@pytest.mark.cuda
+def test_vi_fit_on_card_goes_through_both_kernels():
+    from myfm_tpu_torch import VariationalFMRegressor
+    from myfm_tpu_torch.utils.ml_features import (
+        build_feature_blocks,
+        load_synthetic_movielens,
+    )
+
+    device = _cuda()
+    tr, te = load_synthetic_movielens("tiny", 0)
+    Xtr, Xte, btr, bte, grouping = build_feature_blocks(
+        tr, te, "timesvdpp_flipped")
+    before = (gram.fused_tile_gram_cross.vi_launches,
+              gram.fused_tile_gram.launches)
+    fm = VariationalFMRegressor(rank=4, device=device).fit(
+        Xtr, tr["rating"], X_rel=btr, n_iter=20, grouping=grouping)
+    assert fm.history_.engine == "fastpath"
+    assert gram.fused_tile_gram_cross.vi_launches > before[0]
+    assert gram.fused_tile_gram.launches > before[1]
+    elbos = np.asarray(fm.history_.elbos)
+    assert (np.diff(elbos) >= -1e-6 * np.abs(elbos[1:])).all()
+    pred = fm.predict(Xte, bte)
+    assert float(np.sqrt(np.mean((pred - te["rating"]) ** 2))) < (
+        te["rating"].std())

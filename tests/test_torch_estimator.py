@@ -35,7 +35,8 @@ sys.path.insert(0, os.path.join(REPO, "examples"))
 def test_import_leaves_jax_and_pandas_out():
     code = (
         "import sys, myfm_tpu_torch, myfm_tpu_torch.convert, "
-        "myfm_tpu_torch.trainer, myfm_tpu_torch.ops.gram, "
+        "myfm_tpu_torch.trainer, myfm_tpu_torch.vi_trainer, "
+        "myfm_tpu_torch.ops.gram, myfm_tpu_torch.ops.categorical_vi, "
         "myfm_tpu_torch.ops.joint_tail, myfm_tpu_torch.utils.ml_features, "
         "myfm_tpu_torch.utils.benchmark_data\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
