@@ -17,7 +17,14 @@ holds every CUDA kernel of each against its plain PyTorch version:
   design at rank 10, 20 sweeps, which "auto" resolves to the fast path
   with entity+attribute tables (kernel 2 and kernel 1's VI layout), and
   on the ML-10M-shaped design at rank 32, 3 sweeps (kernel 1's VI
-  layout).
+  layout);
+* the probit tasks: ``MyFMOrderedProbit`` and ``MyFMGibbsClassifier``
+  (rank 32, 6 sweeps) on the ML-10M-shaped design's fast path (kernel 1)
+  and ``MyFMOrderedProbit`` (rank 10, 20 sweeps, the joint engine) on the
+  ML-100k design (kernel 4);
+* kernel 3 (``tile_gram``) through its entry point ``entity_grams``, and
+  kernels 5 and 6 (kernel 1 section by section, and its (slot, τ) load)
+  through ``myfm_tpu_torch.tools.kernel_sections``, on the ML-10M plan.
 
 Phases, one line each:
 
@@ -28,8 +35,26 @@ Phases, one line each:
             first chunk of tiles (the main path's shapes), fp32 + fp64
   sweep     one categorical_sweep through the kernel vs one through
             the plain version, same state and variates
+  egram     tile_gram (kernel 3) on the z rows of each table's first
+            chunk: kernel vs plain (fp32 + fp64) and vs kernel 1's Gram
+            of the same tiles; then entity_grams over every tile of each
+            table against the sweep's own per-entity Grams (kernel 1)
+  sections  kernel 1 at levels 0-3 on the user table's first chunk (ms
+            and ns/row per level, level 3 bit-equal to the production
+            kernel), and the (slot, τ) probe bit-equal to
+            transpose(1, 2).contiguous() on that chunk's aux2 and on the
+            TPU probe's [4, 2, 256]
+  osweep    one ordered-probit categorical_sweep through kernel 1 vs one
+            through the plain version, same state and variates
   fit       the estimator; the kernel's launch counter must rise
   predict   held-out RMSE, below std(y_test)
+  ofit      MyFMOrderedProbit(rank=32) on ratings 1..5 as classes 0..4,
+            6 sweeps; "auto" must resolve to the fast path, kernel 1 must
+            launch, every kept sample's cutpoints finite and increasing
+  opredict  predict_proba rows sum to 1; held-out log-loss below the
+            class-frequency predictor's
+  cfit      MyFMGibbsClassifier(rank=32) on rating >= 4, 6 sweeps
+  cpredict  held-out log-loss below the base rate's; accuracy, AUC
   jdata     the ML-100k timeSVD++-flipped design and its joint plan:
             (B, C, Pf) of each block's tail, compile time
   jkernel   joint_tail_pass, kernel vs plain, on each block's real tail
@@ -39,6 +64,9 @@ Phases, one line each:
   jfit      the estimator through "auto"; must resolve to "joint" and
             launch the tail kernel
   jpredict  held-out RMSE through row-space serving, below std(y_test)
+  jofit     MyFMOrderedProbit(rank=10, sweep_strategy="joint"), 20
+            sweeps; the tail kernel must launch
+  jopredict the ofit / opredict checks on the held-out rows
   vdata     the same ML-100k design's VI plan, with entity+attribute
             tables: (B, K, T, S) per table, (C, Pf) per side table
   vkernel   fused_tile_gram (each EA table, all its tiles) and
@@ -64,9 +92,11 @@ same work (the larger of the bytes it must move over 3.35 TB/s and its
 fp32 operations over 67 TFLOP/s, the H100 SXM's published peaks) and
 which of the two bounds it, and the time of the one PyTorch call that
 computes the same function where there is one (the torch.bmm of the
-slot-masked operand for the Gram kernels; none for the joint tail, a
-chain of ~1k dependent colors).  Times are summed over the tables (or
-block tails) of the path, at their first chunk.
+slot-masked operand for the Gram kernels and section levels 1-3,
+transpose(1, 2).contiguous() for the probe; none for the joint tail, a
+chain of ~1k dependent colors, nor for section level 0).  Times are
+summed over the tables (or block tails) of the path, at their first
+chunk.
 
 The last line is {"ok": true, "device": {...}}, printed only when
 every phase passed; any failure exits non-zero.  Without a CUDA card,
@@ -101,6 +131,19 @@ SWEEP_MOMENT_TOL = 1e-4
 
 GRAM_REPLACES = "myfm_tpu/ops/pallas_gram.py:602"
 GRAM_SOURCE = "myfm_tpu_torch/csrc/fused_gram_cross.cu"
+ROWS_REPLACES = "myfm_tpu/ops/pallas_gram.py:100"
+SECTIONS_SOURCE = "myfm_tpu_torch/csrc/gram_sections.cu"
+SECTIONS_REPLACES = "scripts/microbench_kernel_sections.py:176"
+PROBE_REPLACES = "scripts/probe_transpose.py:42"
+# entity_grams (kernel 3 over every tile of a table) vs the sweep's
+# per-entity Grams (kernel 1 chunk by chunk), fp32, of max |G|: the same
+# row sums, the z rows built by two codes
+EGRAM_TOL = 1e-5
+P_N_ITER = 6  # probit fits on the fast path (< 200: "auto" keeps it)
+JO_N_ITER = 20
+# one ordered-probit sweep, kernel vs plain: as SWEEP_*; the cutpoints'
+# Newton mode moves with the scores (fp32)
+OSWEEP_CUT_TOL = 1e-3
 
 J_RANK = 10
 J_N_ITER = 200  # >= 200 at <= 500k rows: "auto" prefers the joint engine
@@ -209,7 +252,7 @@ def cast(torch, ops, dtype):
 
 
 def compare_gram(torch, kernel, plain, rows_of, ops, S, kw, rows, tol,
-                 label):
+                 label, row_ops=4):
     """One Gram kernel vs its plain version on ``ops`` in fp32 and fp64
     (max error over max |plain|), then fp32 times: the kernel, the plain
     version, the one-call yardstick (torch.bmm of the prebuilt
@@ -247,7 +290,7 @@ def compare_gram(torch, kernel, plain, rows_of, ops, S, kw, rows, tol,
         flat = [t for x in o for t in (x if isinstance(x, list) else [x])]
         moved = nbytes(*flat) + nbytes(out, carry) + carry.numel() * 4
         row["bound_ms"], row["bound_by"] = bound(
-            moved, n_valid * (2 * pairs + 4 * D))
+            moved, n_valid * (2 * pairs + row_ops * D))
     return row
 
 
@@ -290,29 +333,18 @@ def build_design(seed):
 def kernel_phase(torch, plan, state, y_tiles):
     """Kernel vs plain at each table's first chunk of tiles."""
     from myfm_tpu_torch.ops import gram
-    from myfm_tpu_torch.ops.categorical import (
-        eff_tables,
-        table_gram_operands,
-    )
 
-    w, V = state.core.w, state.core.V
-    eff = eff_tables(plan, w, V)
     rows = []
     for ti, t in enumerate(plan.tables):
-        V_t = V[t.col_offset : t.col_offset + t.n_cols]
-        own = torch.cat(
-            [w[t.col_offset : t.col_offset + t.n_cols, None], V_t,
-             (V_t * V_t).sum(1, keepdim=True)], dim=1,
-        )
-        ops = next(table_gram_operands(plan, ti, w, V, eff, own,
-                                       y_tiles[ti]))
+        ops = first_chunk_ops(torch, plan, ti, state.core.w, state.core.V,
+                              y_tiles)
         S = t.tile_entities
         row = dict(table=ti, K=ops[0].shape[0], T=t.tile_rows, S=S,
                    n_cross=len(ops[1]))
         row.update(compare_gram(
             torch, gram.fused_tile_gram_cross,
             gram.fused_tile_gram_cross_reference,
-            lambda o, S: gram.cross_rows(o[0], o[1], o[2], S), list(ops), S,
+            lambda o, S: gram.cross_rows(o[0], o[1], o[2], S), ops, S,
             {}, RANK + 2, KERNEL_TOL, f"kernel vs plain, table {ti}",
         ))
         rows.append(row)
@@ -355,6 +387,223 @@ def sweep_phase(torch, plan, trainer, state):
     if res["dsum_e2"] > SWEEP_MOMENT_TOL * e2:
         fail(f"sweep: |Δ sum_e2| {res['dsum_e2']:.3e} over {e2:.3e}")
     return res
+
+
+def own_rows(torch, w, V, t):
+    """Table t's own per-entity [w | V | qs] rows."""
+    V_t = V[t.col_offset : t.col_offset + t.n_cols]
+    return torch.cat([w[t.col_offset : t.col_offset + t.n_cols, None], V_t,
+                      (V_t * V_t).sum(1, keepdim=True)], dim=1)
+
+
+def table_chunks(torch, plan, ti, w, V, y_tiles):
+    """Kernel 1's operands of table ti, chunk by chunk of tiles."""
+    from myfm_tpu_torch.ops.categorical import (
+        eff_tables,
+        table_gram_operands,
+    )
+
+    return table_gram_operands(plan, ti, w, V, eff_tables(plan, w, V),
+                               own_rows(torch, w, V, plan.tables[ti]),
+                               y_tiles[ti])
+
+
+def first_chunk_ops(torch, plan, ti, w, V, y_tiles):
+    """Kernel 1's operands at table ti's first chunk of tiles."""
+    return list(next(table_chunks(torch, plan, ti, w, V, y_tiles)))
+
+
+def egram_phase(torch, plan, state, y_tiles):
+    """tile_gram (kernel 3) vs plain on each table's first-chunk z rows
+    (built with the plain path) and vs kernel 1's Gram of the same tiles;
+    then its entry point, entity_grams, over every tile of each table
+    with the launch count set to 0 before it, against the sweep's
+    per-entity Grams (kernel 1, chunk by chunk).  Returns (comparison
+    rows, path rows, launches on the path)."""
+    from myfm_tpu_torch.ops import gram
+    from myfm_tpu_torch.ops.categorical import _build_table_gram, eff_tables
+
+    w, V = state.core.w, state.core.V
+    rows, zs = [], []
+    for ti, t in enumerate(plan.tables):
+        S, T = t.tile_entities, t.tile_rows
+        ops = first_chunk_ops(torch, plan, ti, w, V, y_tiles)
+        K = ops[0].shape[0]
+        z, _ = gram.cross_rows(ops[0], ops[1], ops[2], S)
+        slot = t.slot[: K * T].view(K, T)
+        kops = [z, slot, *ops[3:]]
+        row = dict(table=ti, K=K, T=T, S=S, D=RANK + 2)
+        row.update(compare_gram(
+            torch, gram.tile_gram, gram.tile_gram_reference,
+            lambda o, S: (o[0], (o[1].long()[:, :, None] == torch.arange(
+                S, device=o[1].device)).to(o[0].dtype)),
+            kops, S, {}, RANK + 2, KERNEL_TOL, f"tile_gram vs plain, table "
+            f"{ti}", row_ops=0,
+        ))
+        mine, _ = gram.tile_gram(*kops, S)
+        k1, _ = gram.fused_tile_gram_cross(*ops, S)
+        torch.cuda.synchronize()
+        scale = max(float(k1.abs().max()), 1.0)
+        row["vs_kernel1"] = float((mine - k1).abs().max()) / scale
+        if not row["vs_kernel1"] <= KERNEL_TOL["float32"]:
+            fail(f"egram table {ti}: tile_gram vs kernel 1 "
+                 f"{row['vs_kernel1']:.3e} of scale")
+        rows.append(row)
+        # every tile's z rows, for the entry point below
+        zs.append(torch.cat([
+            gram.cross_rows(c[0], c[1], c[2], S)[0]
+            for c in table_chunks(torch, plan, ti, w, V, y_tiles)]))
+    gram.tile_gram.launches = 0
+    grams = [gram.entity_grams(t, z, t.tile_entities, RANK + 2)
+             for t, z in zip(plan.tables, zs)]
+    torch.cuda.synchronize()
+    launches = gram.tile_gram.launches
+    path = []
+    eff = eff_tables(plan, w, V)
+    for ti, (t, G) in enumerate(zip(plan.tables, grams)):
+        ref = _build_table_gram(plan, ti, w, V, eff,
+                                own_rows(torch, w, V, t), y_tiles[ti],
+                                plain=False)
+        rel = float((G - ref).abs().max()) / max(float(ref.abs().max()), 1.0)
+        if not (bool(torch.isfinite(G).all()) and rel <= EGRAM_TOL):
+            fail(f"egram: entity_grams of table {ti} vs the sweep's Grams "
+                 f"{rel:.3e} of scale")
+        path.append(dict(table=ti, B=t.n_cols, tiles=t.n_tiles, rel=rel))
+    del zs, grams
+    return rows, path, launches
+
+
+def sections_phase(torch, plan, state, y_tiles):
+    """Kernels 5 and 6 through tools/kernel_sections on the user table's
+    first chunk: the checks (each level vs plain, level 3 bit-equal to the
+    production kernel; the probe bit-equal to the transpose), then the
+    timed runs with the launch counts set to 0 before them."""
+    from myfm_tpu_torch.ops import gram
+    from myfm_tpu_torch.tools import kernel_sections as ks
+
+    ti = 1  # the user table
+    t = plan.tables[ti]
+    S = t.tile_entities
+    ops = first_chunk_ops(torch, plan, ti, state.core.w, state.core.V,
+                          y_tiles)
+    errs = ks.check_sections(ops, S)
+    probe_tpu = torch.randn(4, 2, 256, device="cuda")
+    for x in (ops[0], probe_tpu):
+        ks.check_probe(x.contiguous())
+    gram.gram_section.launches = [0] * len(gram.SECTION_LEVELS)
+    gram.interleave_probe.launches = dict.fromkeys(gram.PROBE_VARIANTS, 0)
+    levels = ks.time_sections(ops, S)
+    probe = ks.time_probe(ops[0].contiguous())
+    probe_small = ks.time_probe(probe_tpu)
+    torch.cuda.synchronize()
+    for r in levels:
+        r["launches"] = gram.gram_section.launches[r["level"]]
+        r["err_float32"] = errs[f"level{r['level']}_err"]
+    for r in probe:
+        r["launches"] = gram.interleave_probe.launches[r["variant"]]
+        r["err_float32"] = 0.0  # bit-equal (check_probe)
+    return dict(table=ti, K=ops[0].shape[0], T=t.tile_rows, S=S,
+                rows=ops[0].shape[0] * t.tile_rows, levels=levels,
+                probe=probe, probe_tpu_shape=probe_small)
+
+
+def osweep_phase(torch, plan, y_tr):
+    """One ordered-probit sweep through kernel 1 vs one through the plain
+    version, from the same state and variates."""
+    from myfm_tpu_torch.ops.categorical import (
+        categorical_sweep,
+        draw_sweep_variates,
+    )
+    from myfm_tpu_torch.ops.gibbs import GibbsConfig
+    from myfm_tpu_torch.ops.oprobit import _newton_minimize
+    from myfm_tpu_torch.trainer import CategoricalGibbsTrainer
+
+    tr = CategoricalGibbsTrainer(
+        plan, (y_tr - 1).astype(np.int64), GibbsConfig(task="ordered",
+                                                       n_class=5),
+        RANK, 0.1, SEED,
+    )
+    state = tr._initialize()
+    v = draw_sweep_variates(plan, tr.cfg, RANK, tr.generator, torch.float32,
+                            tr.device)
+    res = {}
+    outs = []
+    for plain in (False, True):
+        syncs = _newton_minimize.syncs
+        t0 = time.perf_counter()
+        outs.append(categorical_sweep(plan, state, tr.y, tr.y_tiles, v,
+                                      tr.cfg, plain=plain))
+        torch.cuda.synchronize()
+        res["plain_s" if plain else "kernel_s"] = time.perf_counter() - t0
+        res["newton_syncs"] = _newton_minimize.syncs - syncs
+    a, b = (o.core for o in outs)
+    for f in ("w", "V"):
+        x, z = getattr(a, f), getattr(b, f)
+        if not bool(torch.isfinite(x).all()):
+            fail(f"osweep: non-finite {f}")
+        res[f"d{f}"] = float((x - z).abs().max())
+        if res[f"d{f}"] > SWEEP_WEIGHT_TOL:
+            fail(f"osweep: max |Δ{f}| {res[f'd{f}']:.3e} > "
+                 f"{SWEEP_WEIGHT_TOL:.0e}")
+    res["cutpoints"] = a.cutpoints.tolist()
+    res["dcut"] = float((a.cutpoints - b.cutpoints).abs().max())
+    res["accepts"] = [a.n_mh_accept.tolist(), b.n_mh_accept.tolist()]
+    if not (bool(torch.isfinite(a.cutpoints).all())
+            and bool((torch.diff(a.cutpoints) > 0).all())
+            and res["dcut"] <= OSWEEP_CUT_TOL):
+        fail(f"osweep: cutpoints {res['cutpoints']} (Δ {res['dcut']:.3e})")
+    return res
+
+
+def log_loss(P, y):
+    """Mean −log P[row, class] (P [N, K], or [N] = P(class 1))."""
+    if P.ndim == 1:
+        P = np.stack([1.0 - P, P], axis=1)
+    return float(-np.mean(np.log(P[np.arange(y.size), y] + 1e-15)))
+
+
+def probit_checks(phase, fm, X_te, b_te, y_te, y_tr, n_class):
+    """Held-out checks of a probit fit: probabilities of the right shape
+    whose rows sum to 1, log-loss below the class-frequency predictor's.
+    Returns the scores."""
+    from myfm_tpu_torch.base import roc_auc
+
+    t0 = time.perf_counter()
+    P = fm.predict_proba(X_te, b_te)
+    t_pred = time.perf_counter() - t0
+    out = dict(rows=int(y_te.size), predict_s=t_pred)
+    if n_class == 2:
+        if not (P.shape == y_te.shape and np.isfinite(P).all()
+                and np.all((P >= 0) & (P <= 1))):
+            fail(f"{phase}: P(y=1) of shape {P.shape}, finite "
+                 f"{np.isfinite(P).all()}")
+        out["accuracy"] = float(np.mean((P > 0.5) == (y_te > 0)))
+        out["auc"] = roc_auc(y_te > 0, P)
+    else:
+        dev = float(np.abs(P.sum(axis=1) - 1.0).max())
+        if not (P.shape == (y_te.size, n_class) and np.isfinite(P).all()
+                and dev <= 1e-5):
+            fail(f"{phase}: class probabilities of shape {P.shape}, rows "
+                 f"off 1 by {dev}")
+        out["row_sum_dev"] = dev
+        out["accuracy"] = float(np.mean(P.argmax(axis=1) == y_te))
+    freq = np.bincount(y_tr, minlength=n_class) / y_tr.size
+    out["log_loss"] = log_loss(P, y_te)
+    out["base_log_loss"] = log_loss(
+        freq[1] * np.ones(y_te.size) if n_class == 2
+        else np.tile(freq, (y_te.size, 1)), y_te)
+    if not out["log_loss"] < out["base_log_loss"]:
+        fail(f"{phase}: held-out log-loss {out['log_loss']} not below the "
+             f"class-frequency predictor's {out['base_log_loss']}")
+    return out
+
+
+def cutpoint_checks(phase, fm):
+    cuts = fm.cutpoint_samples
+    if not (cuts.ndim == 2 and np.isfinite(cuts).all()
+            and np.all(np.diff(cuts, axis=1) > 0)):
+        fail(f"{phase}: kept cutpoints not finite and increasing: {cuts}")
+    return cuts[-1].tolist()
 
 
 def build_joint_design():
@@ -748,6 +997,15 @@ def main():
         say("kernel", json.dumps(r))
     res = sweep_phase(torch, plan, trainer, state)
     say("sweep", json.dumps(res))
+    erows, epath, e_launches = egram_phase(torch, plan, state,
+                                           trainer.y_tiles)
+    for r in erows:
+        say("egram", json.dumps(r))
+    say("egram", json.dumps(dict(entity_grams=epath,
+                                 tile_gram_launches=e_launches)))
+    sec = sections_phase(torch, plan, state, trainer.y_tiles)
+    say("sections", json.dumps(sec))
+    say("osweep", json.dumps(osweep_phase(torch, plan, y_tr)))
     del plan, trainer, state
     torch.cuda.empty_cache()
 
@@ -789,9 +1047,52 @@ def main():
                    f"std(y_test) {std:.4f}; so far "
                    f"{time.perf_counter() - t_start:.1f} s")
 
-    # ---- the joint engine: ML-100k timeSVD++-flipped, rank 10 ----
+    # ---- the probit tasks on the fast path: ML-10M shape, rank 32 ----
     del fm
     torch.cuda.empty_cache()
+    from myfm_tpu_torch import MyFMGibbsClassifier, MyFMOrderedProbit
+    from myfm_tpu_torch.ops.oprobit import _newton_minimize
+
+    yo_tr, yo_te = (y_tr - 1).astype(np.int64), (y_te - 1).astype(np.int64)
+    o_launches = {}
+    for phase, est, ytr_, yte_, n_class in (
+        ("ofit", MyFMOrderedProbit, yo_tr, yo_te, 5),
+        ("cfit", MyFMGibbsClassifier, (y_tr >= 4).astype(np.int64),
+         (y_te >= 4).astype(np.int64), 2),
+    ):
+        stamps.clear()
+        torch.cuda.reset_peak_memory_stats()
+        gram.fused_tile_gram_cross.launches = 0
+        syncs = _newton_minimize.syncs
+        t_fit = time.perf_counter()
+        pfm = est(rank=RANK, random_seed=SEED, device="cuda").fit(
+            X_tr, ytr_, X_rel=blocks_tr, n_iter=P_N_ITER,
+            n_kept_samples=N_KEPT, grouping=grouping, callback=timer,
+        )
+        torch.cuda.synchronize()
+        t_fit_end = time.perf_counter()
+        o_launches[phase] = gram.fused_tile_gram_cross.launches
+        if pfm.history_.engine != "fastpath":
+            fail(f"{phase}: resolved to {pfm.history_.engine!r}")
+        if o_launches[phase] <= 0:
+            fail(f"{phase}: never launched fused_tile_gram_cross")
+        ttfs, rate = fit_rates(stamps, t_fit)
+        info = dict(engine=pfm.history_.engine, sweeps=len(stamps),
+                    time_to_first_sweep_s=ttfs, sweeps_per_s=rate,
+                    fit_s=t_fit_end - t_fit, kernel_launches=o_launches[phase],
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    newton_syncs=_newton_minimize.syncs - syncs)
+        if n_class > 2:
+            info["cutpoints_last"] = cutpoint_checks(phase, pfm)
+            info["mh_accepts"] = pfm.history_.n_mh_accept
+        say(phase, json.dumps(info))
+        say(phase.replace("fit", "predict"), json.dumps(probit_checks(
+            phase.replace("fit", "predict"), pfm, X_te, blocks_te, yte_,
+            ytr_, n_class)))
+        del pfm
+        torch.cuda.empty_cache()
+
+    # ---- the joint engine: ML-100k timeSVD++-flipped, rank 10 ----
     from myfm_tpu_torch.design import compile_design, joint_auto_eligible
     from myfm_tpu_torch.trainer import GibbsTrainer
 
@@ -873,8 +1174,42 @@ def main():
                     f"std(y_test) {jstd:.4f}; so far "
                     f"{time.perf_counter() - t_start:.1f} s")
 
-    # ---- VI: the same ML-100k design, entity+attribute fast path ----
+    # ---- ordered probit on the joint engine: ML-100k, rank 10 ----
     del jfm
+    torch.cuda.empty_cache()
+    jyo_tr = (np.asarray(jy_tr) - 1).astype(np.int64)
+    jyo_te = (np.asarray(jy_te) - 1).astype(np.int64)
+    stamps.clear()
+    torch.cuda.reset_peak_memory_stats()
+    joint_tail.joint_tail_pass.launches = 0
+    syncs = _newton_minimize.syncs
+    t_fit = time.perf_counter()
+    jofm = MyFMOrderedProbit(
+        rank=J_RANK, random_seed=SEED, sweep_strategy="joint", device="cuda"
+    ).fit(jX_tr, jyo_tr, X_rel=jb_tr, n_iter=JO_N_ITER, grouping=jgroup,
+          callback=timer)
+    torch.cuda.synchronize()
+    t_fit_end = time.perf_counter()
+    jo_launches = joint_tail.joint_tail_pass.launches
+    if jofm.history_.engine != "joint" or jo_launches <= 0:
+        fail(f"jofit: engine {jofm.history_.engine!r}, tail kernel launches "
+             f"{jo_launches}")
+    ttfs, rate = fit_rates(stamps, t_fit)
+    say("jofit", json.dumps(dict(
+        engine=jofm.history_.engine, sweeps=len(stamps),
+        time_to_first_sweep_s=ttfs, sweeps_per_s=rate,
+        fit_s=t_fit_end - t_fit, tail_kernel_launches=jo_launches,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        newton_syncs=_newton_minimize.syncs - syncs,
+        cutpoints_last=cutpoint_checks("jofit", jofm),
+        mh_accepts=jofm.history_.n_mh_accept,
+    )))
+    say("jopredict", json.dumps(probit_checks(
+        "jopredict", jofm, jX_te, jb_te, jyo_te, jyo_tr,
+        int(jyo_tr.max()) + 1)))
+    del jofm
+
+    # ---- VI: the same ML-100k design, entity+attribute fast path ----
     torch.cuda.empty_cache()
     from myfm_tpu_torch import VariationalFMRegressor
     from myfm_tpu_torch.ops.variational import VariationalConfig
@@ -1036,6 +1371,15 @@ def main():
               [r for r in vrows if r["kernel"] == "fused_tile_gram"]),
         entry("joint_tail_pass", TAIL_SOURCE, TAIL_REPLACES, jlaunches,
               jrows),
+        entry("tile_gram", GRAM_SOURCE, ROWS_REPLACES, e_launches, erows),
+    ] + [
+        entry(f"gram_section[{r['level']}]", SECTIONS_SOURCE,
+              SECTIONS_REPLACES, r["launches"], [r])
+        for r in sec["levels"]
+    ] + [
+        entry(f"interleave_probe[{r['variant']}]", SECTIONS_SOURCE,
+              PROBE_REPLACES, r["launches"], [r])
+        for r in sec["probe"]
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

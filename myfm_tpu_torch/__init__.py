@@ -1,9 +1,10 @@
 """myfm_tpu_torch — Bayesian Factorization Machines in PyTorch and CUDA.
 
 The port of ``myfm_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100,
-one slice at a time.  ``MyFMGibbsRegressor.fit`` → ``predict`` (the
-regression task) runs on two engines, resolved by "auto" as the TPU
-package resolves them:
+one slice at a time.  The Gibbs estimators ``MyFMGibbsRegressor``,
+``MyFMGibbsClassifier`` (probit) and ``MyFMOrderedProbit`` run ``fit``
+→ ``predict`` on two engines, resolved by "auto" as the TPU package
+resolves them, whatever the task:
 
 * the categorical fast path, on designs whose every table is one-hot,
   with the per-entity Gram statistics computed by a hand-written CUDA
@@ -19,10 +20,9 @@ blocks carry per-entity side features (entity+attribute tables), with
 the Gram statistics computed by the same CUDA source in its VI layout
 and by its separate-meta variant (ops/gram.py ``fused_tile_gram``).
 
-The colored engines (Gibbs and row-space VI), probit tasks (the VI
-classifier included), entity+attribute tables on the Gibbs fast path
-and multiple devices are later slices and raise
-``NotImplementedError``.  The package imports neither JAX nor
+The colored engines (Gibbs and row-space VI), the VI classifier,
+entity+attribute tables on the Gibbs fast path and multiple devices are
+later slices and raise ``NotImplementedError``.  The package imports neither JAX nor
 ``myfm_tpu``.
 """
 
@@ -35,7 +35,14 @@ from .containers import (
     VariationalFMHyperParameters,
     VariationalLearningHistory,
 )
-from .gibbs import MyFMGibbsBase, MyFMGibbsRegressor, MyFMRegressor
+from .gibbs import (
+    MyFMClassifier,
+    MyFMGibbsBase,
+    MyFMGibbsClassifier,
+    MyFMGibbsRegressor,
+    MyFMOrderedProbit,
+    MyFMRegressor,
+)
 from .predictor import Predictor, VariationalPredictor
 from .relational import RelationBlock
 from .variational import (
@@ -56,7 +63,10 @@ __all__ = [
     "LearningHistory",
     "MyFMGibbsBase",
     "MyFMGibbsRegressor",
+    "MyFMGibbsClassifier",
+    "MyFMOrderedProbit",
     "MyFMRegressor",
+    "MyFMClassifier",
     "Predictor",
     "VariationalFM",
     "VariationalFMHyperParameters",

@@ -2,7 +2,7 @@
 
 PyTorch counterpart of ``myfm_tpu/base.py``: the same constructor
 surface, ``_fit`` validation/grouping/callback plumbing and the
-Regressor mixin.  Two differences: the estimator runs on an
+Regressor and Classifier mixins.  Two differences: the estimator runs on an
 explicit ``torch.device``, and multi-device training (``mesh`` /
 ``n_devices > 1``) is not ported yet and raises.
 """
@@ -54,6 +54,8 @@ REAL = np.float64
 ArrayLike = Union[np.ndarray, sps.spmatrix]
 
 TASK_REGRESSION = "regression"
+TASK_CLASSIFICATION = "classification"
+TASK_ORDERED = "ordered"
 
 
 def std_cdf(x: np.ndarray) -> np.ndarray:
@@ -430,3 +432,49 @@ class RegressorMixin:
         result["rmse"] = float(((y - prediction) ** 2).mean() ** 0.5)
         result["mae"] = float(np.abs(y - prediction).mean())
         return result
+
+
+class ClassifierMixin:
+    """Binary probit classification: y ∈ {0, 1} is fitted as ±1, and
+    the held-out scores are the log-loss, the accuracy and the AUC of
+    Φ(score)."""
+
+    @property
+    def _task_type(self) -> str:
+        return TASK_CLASSIFICATION
+
+    def _prepare_prediction_for_test(self, fm, X, X_rel):
+        return std_cdf(fm.predict_score(X, X_rel))
+
+    def _process_y(self, y: np.ndarray) -> np.ndarray:
+        return np.asarray(y).astype(np.float64) * 2 - 1
+
+    def _measure_score(self, prediction, y) -> Dict[str, float]:
+        result = OrderedDict()
+        lp = np.log(prediction + 1e-15)
+        l1mp = np.log(1 - prediction + 1e-15)
+        gt = np.asarray(y) > 0
+        result["ll"] = float(
+            (-lp.dot(gt) - l1mp.dot(~gt)) / max(1, prediction.shape[0])
+        )
+        result["accuracy"] = float(np.mean((prediction >= 0.5) == gt))
+        result["auc"] = roc_auc(gt, prediction)
+        return result
+
+    def _status_report(self, fm, hyper) -> str:
+        return "w0 = {:.2f} ".format(float(fm.w0))
+
+
+def roc_auc(positive: np.ndarray, score: np.ndarray) -> float:
+    """Area under the ROC curve: the chance that a random positive
+    scores above a random negative (ties count half), from the ranks."""
+    positive = np.asarray(positive, dtype=bool)
+    n_pos = int(positive.sum())
+    n_neg = positive.size - n_pos
+    if n_pos == 0 or n_neg == 0:
+        return float("nan")
+    from scipy.stats import rankdata
+
+    ranks = rankdata(score)
+    return float((ranks[positive].sum() - n_pos * (n_pos + 1) / 2)
+                 / (n_pos * n_neg))

@@ -1,7 +1,8 @@
 """Carry the TPU package's numbers across to this port.
 
 These helpers take objects of ``myfm_tpu`` (a ``GibbsState`` with its
-residual e, a ``CategoricalState``, a ``VIState`` or
+residual e and, for the ordered task, its cutpoints, unconstrained α and
+MH accept counts, a ``CategoricalState`` with its latent τ, a ``VIState`` or
 ``CategoricalVIState``, ``FM`` samples, a ``Predictor``, a
 ``CategoricalPlan`` with or without entity+attribute tables, a
 row-space ``DesignPlan``) by their attributes alone, read every array
@@ -78,7 +79,8 @@ def categorical_vi_state_from_numpy(state, device) -> CategoricalVIState:
 
 
 def fm_from_numpy(fm) -> FM:
-    """The port's FM container from one posterior sample."""
+    """The port's FM container from one posterior sample (its cutpoint
+    vectors, one per cutpoint group, included)."""
     return FM(
         float(fm.w0), np.asarray(fm.w), np.asarray(fm.V),
         [np.asarray(c) for c in getattr(fm, "cutpoints", []) or []],

@@ -1,0 +1,439 @@
+// Shared device code of the per-entity Gram kernels (csrc/fused_gram_cross.cu,
+// csrc/gram_sections.cu): the Gram pass over a tile's z rows in shared
+// memory, the three carry kernels, and the launchers of kernels 1, 2 and 3.
+// What they compute, what bounds them and how they are designed is set out
+// at the top of fused_gram_cross.cu.  Everything here has internal linkage,
+// so each source that includes it compiles its own copy.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxCross = 8;
+constexpr int kMaxSlots = 64;  // the per-thread "slot written" mask is 64 bits
+constexpr int kThreads = 256;
+constexpr int kSegTiles = 32;
+
+template <typename F>
+struct CrossPtrs {
+  const F* p[kMaxCross];
+};
+
+// The p-th entry a thread owns in the [out_rows, D] rectangle: first the
+// upper triangle of the leading out_rows x out_rows square, then the
+// out_rows x (D - out_rows) block right of it.
+__device__ __forceinline__ void pair_of(int p, int out_rows, int D, int& i,
+                                        int& j) {
+  const int n_sq = out_rows * (out_rows + 1) / 2;
+  if (p < n_sq) {
+    int ii = 0, rem = p;
+    while (rem >= out_rows - ii) {
+      rem -= out_rows - ii;
+      ++ii;
+    }
+    i = ii;
+    j = ii + rem;
+  } else {
+    const int q = p - n_sq;
+    const int w = D - out_rows;
+    i = q / w;
+    j = out_rows + q % w;
+  }
+}
+
+template <typename F>
+__device__ __forceinline__ void flush_slot(F* out_tile, int s, int i, int j,
+                                           int out_rows, int D, F acc,
+                                           uint64_t& written) {
+  const size_t base = (size_t)s * out_rows * D;
+  const bool again = (written >> s) & 1ull;
+  F* ij = out_tile + base + (size_t)i * D + j;
+  *ij = again ? *ij + acc : acc;
+  if (j < out_rows && i != j) {
+    F* ji = out_tile + base + (size_t)j * D + i;
+    *ji = again ? *ji + acc : acc;
+  }
+  written |= 1ull << s;
+}
+
+// Every slot's partial Gram rectangle over the tile's z rows (row pitch P
+// in shared memory).  A row whose slot is outside [0, S) counts nowhere.
+template <typename F>
+__device__ void tile_grams(const F* z, int P, const int* slot, int T, int S,
+                           int D, int out_rows, F* out_tile) {
+  const int n_pairs =
+      out_rows * (out_rows + 1) / 2 + out_rows * (D - out_rows);
+  for (int p = threadIdx.x; p < n_pairs; p += blockDim.x) {
+    int i, j;
+    pair_of(p, out_rows, D, i, j);
+    uint64_t written = 0;
+    int cur = -1;
+    F acc = F(0);
+    for (int t = 0; t < T; ++t) {
+      const int s = slot[t];
+      if (s != cur) {
+        if (cur >= 0 && cur < S) {
+          flush_slot(out_tile, cur, i, j, out_rows, D, acc, written);
+        }
+        cur = s;
+        acc = F(0);
+      }
+      acc = fma(z[(size_t)t * P + i], z[(size_t)t * P + j], acc);
+    }
+    if (cur >= 0 && cur < S) {
+      flush_slot(out_tile, cur, i, j, out_rows, D, acc, written);
+    }
+    for (int s = 0; s < S; ++s) {
+      if (!((written >> s) & 1ull)) {
+        const size_t base = (size_t)s * out_rows * D;
+        out_tile[base + (size_t)i * D + j] = F(0);
+        if (j < out_rows) out_tile[base + (size_t)j * D + i] = F(0);
+      }
+    }
+  }
+}
+
+// Pass 1 of the cross entry point: one block per tile -> its S partial
+// Gram rectangles (no carry).
+template <typename F>
+__global__ void __launch_bounds__(kThreads)
+gram_tile_kernel(const F* __restrict__ aux2, CrossPtrs<F> gths, int n_cross,
+                 const F* __restrict__ wvsl, F* __restrict__ out, int T,
+                 int S, int R, int q_lo, int n_extra, int out_rows) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n_z = R + n_extra;
+  const int D = n_z + 2;
+  const int W = q_lo + n_z + 1;  // gathered row width (>= D: q_lo >= 1)
+  const int Wo = R + 2;          // own [w | V | qs] row width
+  F* z = reinterpret_cast<F*>(smem_raw);  // [T][W]
+  F* own = z + (size_t)T * W;             // [S][Wo]
+  int* slot = reinterpret_cast<int*>(own + (size_t)S * Wo);  // [T]
+
+  const int k = blockIdx.x;
+  const int tid = threadIdx.x;
+  const size_t tile_off = (size_t)k * T * W;
+
+  // cross sums per row, coalesced over the tile's rows (the unrolled loop
+  // indexes the pointer array statically, so it stays in kernel-parameter
+  // space instead of a local-memory copy)
+  for (int i = tid; i < T * W; i += blockDim.x) {
+    F acc = F(0);
+#pragma unroll
+    for (int c = 0; c < kMaxCross; ++c) {
+      if (c < n_cross) acc += gths.p[c][tile_off + i];
+    }
+    z[i] = acc;
+  }
+  for (int i = tid; i < S * Wo; i += blockDim.x) {
+    own[i] = wvsl[(size_t)k * S * Wo + i];
+  }
+  const F* slot_row = aux2 + (size_t)k * 2 * T;
+  const F* tau_row = slot_row + T;
+  for (int t = tid; t < T; t += blockDim.x) slot[t] = (int)slot_row[t];
+  __syncthreads();
+
+  // z row = [valid | e | zcols], built in place by the row's thread
+  for (int t = tid; t < T; t += blockDim.x) {
+    F* row = z + (size_t)t * W;
+    const int s = slot[t];
+    const bool valid = s >= 0 && s < S;
+    const F lin = row[0];
+    const F qs = row[q_lo + n_z];
+    F e = F(0);
+    if (valid) {
+      const F* o = own + (size_t)s * Wo;
+      F sq = F(0);
+      for (int r = 0; r < R; ++r) {
+        const F q = row[q_lo + r] + o[1 + r];
+        sq = fma(q, q, sq);
+      }
+      e = lin - tau_row[t] + o[0] + F(0.5) * (sq - qs - o[R + 1]);
+    }
+    if (q_lo < 2) {
+      for (int c = n_z - 1; c >= 0; --c) row[2 + c] = row[q_lo + c];
+    } else if (q_lo > 2) {
+      for (int c = 0; c < n_z; ++c) row[2 + c] = row[q_lo + c];
+    }
+    row[0] = valid ? F(1) : F(0);
+    row[1] = e;
+  }
+  __syncthreads();
+
+  tile_grams(z, W, slot, T, S, D, out_rows,
+             out + (size_t)k * S * out_rows * D);
+}
+
+// Pass 1 of the meta entry point: one block per tile -> its S partial
+// Gram rectangles (no carry).
+template <typename F>
+__global__ void __launch_bounds__(kThreads)
+gram_meta_tile_kernel(const F* __restrict__ meta, const F* __restrict__ qo,
+                      const int* __restrict__ slot_in,
+                      const F* __restrict__ wvsl, F* __restrict__ out, int T,
+                      int S, int R, int Rq, int out_rows) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int D = Rq + 2;
+  const int Wo = R + 1;  // own [w | V] row width
+  F* z = reinterpret_cast<F*>(smem_raw);  // [T][D]
+  F* own = z + (size_t)T * D;             // [S][Wo]
+  int* slot = reinterpret_cast<int*>(own + (size_t)S * Wo);  // [T]
+
+  const int k = blockIdx.x;
+  const int tid = threadIdx.x;
+  const size_t row0 = (size_t)k * T;
+
+  for (int i = tid; i < T * Rq; i += blockDim.x) {
+    const int t = i / Rq;
+    z[(size_t)t * D + 2 + (i - t * Rq)] = qo[row0 * Rq + i];
+  }
+  for (int i = tid; i < S * Wo; i += blockDim.x) {
+    own[i] = wvsl[(size_t)k * S * Wo + i];
+  }
+  for (int t = tid; t < T; t += blockDim.x) {
+    const int s = slot_in[row0 + t];
+    const bool valid = meta[(row0 + t) * 3] != F(0) && s >= 0 && s < S;
+    slot[t] = valid ? s : S;
+  }
+  __syncthreads();
+
+  for (int t = tid; t < T; t += blockDim.x) {
+    F* row = z + (size_t)t * D;
+    const F* m = meta + (row0 + t) * 3;
+    const F ones = m[0];
+    const int s = slot[t];
+    F e = F(0);
+    if (s < S) {
+      const F* o = own + (size_t)s * Wo;
+      F sq = F(0), so = F(0);
+      for (int r = 0; r < R; ++r) {
+        const F q = row[2 + r] + o[1 + r];
+        sq = fma(q, q, sq);
+        so = fma(o[1 + r], o[1 + r], so);
+      }
+      e = (m[1] + o[0] + F(0.5) * (sq - m[2] - so)) * ones;
+    }
+    row[0] = ones;
+    row[1] = e;
+  }
+  __syncthreads();
+
+  tile_grams(z, D, slot, T, S, D, out_rows,
+             out + (size_t)k * S * out_rows * D);
+}
+
+// Pass 1 of the rows entry point (kernel 3): one block per tile copies its
+// [T, D] rows (pad rows are zero rows) and their slots into shared memory
+// -> its S partial Gram squares (no carry).
+template <typename F>
+__global__ void __launch_bounds__(kThreads)
+gram_rows_tile_kernel(const F* __restrict__ rows,
+                      const int* __restrict__ slot_in, F* __restrict__ out,
+                      int T, int S, int D) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  F* z = reinterpret_cast<F*>(smem_raw);                 // [T][D]
+  int* slot = reinterpret_cast<int*>(z + (size_t)T * D);  // [T]
+  const int k = blockIdx.x;
+  const size_t row0 = (size_t)k * T;
+  for (int i = threadIdx.x; i < T * D; i += blockDim.x) {
+    z[i] = rows[row0 * D + i];
+  }
+  for (int t = threadIdx.x; t < T; t += blockDim.x) {
+    slot[t] = slot_in[row0 + t];
+  }
+  __syncthreads();
+  tile_grams(z, D, slot, T, S, D, D, out + (size_t)k * S * D * D);
+}
+
+// Pass 2a: the composed carry map (A, b) of each segment of tiles, on the
+// E = out_rows * D entries of a slot's rectangle.
+template <typename F>
+__global__ void carry_segment_kernel(const F* __restrict__ out,
+                                     const int* __restrict__ cont_in,
+                                     const int* __restrict__ cont_out,
+                                     const int* __restrict__ last_slot,
+                                     F* __restrict__ seg_b,
+                                     F* __restrict__ seg_a, int K, int S,
+                                     int E) {
+  const int seg = blockIdx.x;
+  const int e = blockIdx.y * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  const int k0 = seg * kSegTiles;
+  const int k1 = min(K, k0 + kSegTiles);
+  bool a = true;
+  F b = F(0);
+  for (int k = k0; k < k1; ++k) {
+    if (cont_out[k]) {
+      const int ls = last_slot[k];
+      const F pk = out[((size_t)k * S + ls) * E + e];
+      const bool ak = cont_in[k] && ls == 0;
+      b = ak ? b + pk : pk;
+      a = a && ak;
+    }
+  }
+  seg_b[(size_t)seg * E + e] = b;
+  if (e == 0) seg_a[seg] = a ? F(1) : F(0);
+}
+
+// Pass 2b: the carry entering each segment (one thread per entry).
+template <typename F>
+__global__ void carry_scan_kernel(const F* __restrict__ seg_b,
+                                  const F* __restrict__ seg_a,
+                                  const F* __restrict__ carry_in,
+                                  F* __restrict__ seg_c, int nseg, int E) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  F c = carry_in[e];
+  for (int s = 0; s < nseg; ++s) {
+    seg_c[(size_t)s * E + e] = c;
+    const F b = seg_b[(size_t)s * E + e];
+    c = seg_a[s] != F(0) ? c + b : b;
+  }
+}
+
+// Pass 2c: apply the carries inside each segment, in tile order.
+template <typename F>
+__global__ void carry_apply_kernel(F* __restrict__ out,
+                                   const int* __restrict__ cont_in,
+                                   const int* __restrict__ cont_out,
+                                   const int* __restrict__ last_slot,
+                                   const F* __restrict__ seg_c,
+                                   F* __restrict__ carry_out, int K, int S,
+                                   int E, int nseg) {
+  const int seg = blockIdx.x;
+  const int e = blockIdx.y * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  const int k0 = seg * kSegTiles;
+  const int k1 = min(K, k0 + kSegTiles);
+  F c = seg_c[(size_t)seg * E + e];
+  for (int k = k0; k < k1; ++k) {
+    const int ls = last_slot[k];
+    const F b = out[((size_t)k * S + ls) * E + e];  // before the add below
+    if (cont_in[k]) {
+      F* o0 = out + (size_t)k * S * E + e;
+      *o0 = *o0 + c;
+    }
+    if (cont_out[k]) c = (cont_in[k] && ls == 0) ? c + b : b;
+  }
+  if (seg == nseg - 1) carry_out[e] = c;
+}
+
+template <typename F>
+int carry_pass(F* out, const int* cont_in, const int* cont_out,
+               const int* last_slot, const void* carry_in, void* carry_out,
+               void* scratch, int K, int S, int E, cudaStream_t st) {
+  const int nseg = (K + kSegTiles - 1) / kSegTiles;
+  F* seg_b = static_cast<F*>(scratch);
+  F* seg_c = seg_b + (size_t)nseg * E;
+  F* seg_a = seg_c + (size_t)nseg * E;
+  const dim3 grid2(nseg, (E + kThreads - 1) / kThreads);
+  carry_segment_kernel<F><<<grid2, kThreads, 0, st>>>(
+      out, cont_in, cont_out, last_slot, seg_b, seg_a, K, S, E);
+  carry_scan_kernel<F><<<(E + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      seg_b, seg_a, static_cast<const F*>(carry_in), seg_c, nseg, E);
+  carry_apply_kernel<F><<<grid2, kThreads, 0, st>>>(
+      out, cont_in, cont_out, last_slot, seg_c, static_cast<F*>(carry_out),
+      K, S, E, nseg);
+  return (int)cudaGetLastError();
+}
+
+// Kernel 1's Gram pass alone (no carry): validates, sizes and opts in to
+// the shared-memory stage, launches gram_tile_kernel.  The per-section
+// timing (gram_sections.cu, level 2) launches exactly this.
+template <typename F>
+int launch_cross_grams(const void* aux2, const void* const* gths,
+                       int n_cross, const void* wvsl, void* out, int K, int T,
+                       int S, int R, int q_lo, int n_extra, int out_rows,
+                       cudaStream_t st) {
+  const int D = R + n_extra + 2;
+  if (n_cross < 0 || n_cross > kMaxCross || S < 1 || S > kMaxSlots ||
+      K < 1 || T < 1 || R < 0 || q_lo < 1 || n_extra < 0 || out_rows < 1 ||
+      out_rows > D) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int W = q_lo + R + n_extra + 1;
+  const size_t smem = ((size_t)T * W + (size_t)S * (R + 2)) * sizeof(F) +
+                      (size_t)T * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      gram_tile_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  CrossPtrs<F> cp;
+  for (int c = 0; c < kMaxCross; ++c) {
+    cp.p[c] = c < n_cross ? static_cast<const F*>(gths[c]) : nullptr;
+  }
+  gram_tile_kernel<F><<<K, kThreads, smem, st>>>(
+      static_cast<const F*>(aux2), cp, n_cross, static_cast<const F*>(wvsl),
+      static_cast<F*>(out), T, S, R, q_lo, n_extra, out_rows);
+  return (int)cudaGetLastError();
+}
+
+template <typename F>
+int launch_cross(const void* aux2, const void* const* gths, int n_cross,
+                 const void* wvsl, const int* cont_in, const int* cont_out,
+                 const int* last_slot, const void* carry_in, void* out,
+                 void* carry_out, void* scratch, int K, int T, int S, int R,
+                 int q_lo, int n_extra, int out_rows, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = launch_cross_grams<F>(aux2, gths, n_cross, wvsl, out, K, T,
+                                        S, R, q_lo, n_extra, out_rows, st);
+  if (err != 0) return err;
+  return carry_pass<F>(static_cast<F*>(out), cont_in, cont_out, last_slot,
+                       carry_in, carry_out, scratch, K, S,
+                       out_rows * (R + n_extra + 2), st);
+}
+
+template <typename F>
+int launch_meta(const void* meta, const void* q_other, const int* slot,
+                const void* wvsl, const int* cont_in, const int* cont_out,
+                const int* last_slot, const void* carry_in, void* out,
+                void* carry_out, void* scratch, int K, int T, int S, int R,
+                int Rq, int out_rows, void* stream) {
+  const int D = Rq + 2;
+  if (S < 1 || S > kMaxSlots || K < 1 || T < 1 || R < 0 || Rq < R ||
+      out_rows < 1 || out_rows > D) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = ((size_t)T * D + (size_t)S * (R + 1)) * sizeof(F) +
+                      (size_t)T * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      gram_meta_tile_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  F* o = static_cast<F*>(out);
+  gram_meta_tile_kernel<F><<<K, kThreads, smem, st>>>(
+      static_cast<const F*>(meta), static_cast<const F*>(q_other), slot,
+      static_cast<const F*>(wvsl), o, T, S, R, Rq, out_rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return carry_pass<F>(o, cont_in, cont_out, last_slot, carry_in, carry_out,
+                       scratch, K, S, out_rows * D, st);
+}
+
+template <typename F>
+int launch_rows(const void* rows, const int* slot, const int* cont_in,
+                const int* cont_out, const int* last_slot,
+                const void* carry_in, void* out, void* carry_out,
+                void* scratch, int K, int T, int S, int D, void* stream) {
+  if (S < 1 || S > kMaxSlots || K < 1 || T < 1 || D < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = (size_t)T * D * sizeof(F) + (size_t)T * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      gram_rows_tile_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  F* o = static_cast<F*>(out);
+  gram_rows_tile_kernel<F><<<K, kThreads, smem, st>>>(
+      static_cast<const F*>(rows), slot, o, T, S, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return carry_pass<F>(o, cont_in, cont_out, last_slot, carry_in, carry_out,
+                       scratch, K, S, D * D, st);
+}
+
+}  // namespace

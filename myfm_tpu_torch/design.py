@@ -440,7 +440,7 @@ def compile_design(
     joint_dense: bool = False,
     dense_budget: int = 64 << 20,
     joint_rank: Optional[int] = None,
-    device="cpu",
+    device="cuda",
 ) -> DesignPlan:
     """Compile (X, blocks) into a plan on ``device`` (arguments as in
     ``myfm_tpu.design.compile_design``).  ``strategy="serial"`` makes

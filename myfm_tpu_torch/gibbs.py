@@ -1,8 +1,10 @@
-"""Gibbs-sampler regressor on the categorical fast path and the joint
-engine.
+"""Gibbs-sampler estimators on the categorical fast path and the joint
+engine: regressor, probit classifier, ordered probit.
 
 PyTorch counterpart of ``myfm_tpu/gibbs.py`` (``MyFMGibbsRegressor``,
-``_gibbs_config``, ``_encode_ordered_targets`` and ``_train_core``).
+``MyFMGibbsClassifier``, ``MyFMOrderedProbit``, ``_gibbs_config``,
+``_encode_ordered_targets`` and ``_train_core``).  The engine does not
+depend on the task.
 The "auto" / "categorical" / "joint" engine resolution is the TPU
 package's, unchanged; wherever it lands on the colored engine, this
 port raises ``NotImplementedError``, since that engine is a later
@@ -11,14 +13,17 @@ slice.  There is no design cache: every fit compiles its plan.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+from collections import OrderedDict
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 from scipy import sparse as sps
 
 from .base import (
     REAL,
+    TASK_ORDERED,
     ArrayLike,
+    ClassifierMixin,
     ConfigBuilder,
     MyFMBase,
     RegressorMixin,
@@ -311,5 +316,194 @@ class MyFMGibbsRegressor(RegressorMixin, MyFMGibbsBase):
         return self._predict_core(X, X_rel, n_workers=n_workers)
 
 
-# Reference alias
+class MyFMGibbsClassifier(ClassifierMixin, MyFMGibbsBase):
+    r"""Bayesian FM binary classifier (probit data augmentation)."""
+
+    def fit(
+        self,
+        X: Optional[ArrayLike],
+        y: np.ndarray,
+        X_rel: List[RelationBlock] = [],
+        X_test: Optional[ArrayLike] = None,
+        y_test: Optional[np.ndarray] = None,
+        X_rel_test: List[RelationBlock] = [],
+        n_iter: int = 100,
+        n_kept_samples: Optional[int] = None,
+        grouping: Optional[List[int]] = None,
+        group_shapes: Optional[List[int]] = None,
+        callback: Optional[
+            Callable[
+                [int, FM, FMHyperParameters, LearningHistory],
+                Tuple[bool, Optional[str]],
+            ]
+        ] = None,
+        config_builder: Optional[ConfigBuilder] = None,
+    ) -> "MyFMGibbsClassifier":
+        r"""Run Gibbs sampling on y ∈ {0, 1} (same parameters as
+        ``myfm_tpu.MyFMGibbsClassifier.fit``)."""
+        self._fit(
+            X, y, X_rel=X_rel, X_test=X_test, X_rel_test=X_rel_test,
+            y_test=y_test, n_iter=n_iter, n_kept_samples=n_kept_samples,
+            grouping=grouping, callback=callback, group_shapes=group_shapes,
+            config_builder=config_builder,
+        )
+        return self
+
+    def predict(
+        self,
+        X: Optional[ArrayLike],
+        X_rel: List[RelationBlock] = [],
+        n_workers: Optional[int] = None,
+    ) -> np.ndarray:
+        """Class prediction at threshold 0.5."""
+        return self.predict_proba(X, X_rel, n_workers=n_workers) > 0.5
+
+    def predict_proba(
+        self,
+        X: Optional[ArrayLike],
+        X_rel: List[RelationBlock] = [],
+        n_workers: Optional[int] = None,
+    ) -> np.ndarray:
+        """P(y=1 | x): the posterior mean of the per-sample Φ(score)."""
+        return self._predict_core(X, X_rel, n_workers=n_workers)
+
+
+class MyFMOrderedProbit(MyFMGibbsBase):
+    """Bayesian FM for ordinal regression (cumulative probit link)."""
+
+    @property
+    def _task_type(self) -> str:
+        return TASK_ORDERED
+
+    def fit(
+        self,
+        X: Optional[ArrayLike],
+        y: np.ndarray,
+        X_rel: List[RelationBlock] = [],
+        X_test: Optional[ArrayLike] = None,
+        y_test: Optional[np.ndarray] = None,
+        X_rel_test: List[RelationBlock] = [],
+        n_iter: int = 100,
+        n_kept_samples: Optional[int] = None,
+        grouping: Optional[List[int]] = None,
+        group_shapes: Optional[List[int]] = None,
+        callback: Optional[
+            Callable[
+                [int, FM, FMHyperParameters, LearningHistory],
+                Tuple[bool, Optional[str]],
+            ]
+        ] = None,
+        callback_default_freq: int = 5,
+        cutpoint_groups: Optional[
+            List[Tuple[int, List[int]]]
+        ] = None,
+    ) -> "MyFMOrderedProbit":
+        """Fit the ordinal-probit FM on integer classes y ∈ [0, K).
+
+        ``cutpoint_groups`` optionally partitions the rows into
+        independent cutpoint samplers, each entry ``(n_class,
+        row_indices)``; by default one group covers every row with
+        K = max(y) + 1 classes."""
+        config_builder = ConfigBuilder()
+        y = np.asarray(y)
+        if cutpoint_groups is None:
+            n_class = int(y.max()) + 1
+            cutpoint_groups = [(n_class, list(range(y.shape[0])))]
+        config_builder.set_cutpoint_groups(cutpoint_groups)
+        self.n_cutpoint_groups = len(cutpoint_groups)
+        self._fit(
+            X, y, X_rel=X_rel, X_test=X_test, y_test=y_test,
+            X_rel_test=X_rel_test, n_iter=n_iter,
+            n_kept_samples=n_kept_samples, grouping=grouping,
+            callback=callback, group_shapes=group_shapes,
+            config_builder=config_builder,
+            callback_default_freq=callback_default_freq,
+        )
+        return self
+
+    def _process_y(self, y: np.ndarray) -> np.ndarray:
+        y = np.asarray(y)
+        if y.min() < 0:
+            raise ValueError("ordered-probit targets must be >= 0")
+        return y.astype(np.float64)
+
+    def _prepare_prediction_for_test(self, fm, X, X_rel):
+        return fm.oprobit_predict_proba(
+            sps.csr_matrix(X, dtype=REAL), X_rel, 0
+        )
+
+    def _measure_score(self, prediction, y) -> Dict[str, float]:
+        result: Dict[str, float] = OrderedDict()
+        result["accuracy"] = float(
+            (np.argmax(prediction, axis=1) == y).mean()
+        )
+        result["log_loss"] = float(
+            -np.log(
+                prediction[
+                    np.arange(prediction.shape[0]), y.astype(np.int64)
+                ]
+                + 1e-15
+            ).mean()
+        )
+        return result
+
+    def _status_report(self, fm, hyper) -> str:
+        log_str = "w0 = {:.2f}, ".format(float(fm.w0))
+        if len(fm.cutpoints) == 1:
+            log_str += "cutpoint = {} ".format(
+                ["{:.3f}".format(c) for c in list(fm.cutpoints[0])]
+            )
+        return log_str
+
+    def predict_proba(
+        self,
+        X: Optional[ArrayLike],
+        X_rel: List[RelationBlock] = [],
+        n_workers: Optional[int] = None,
+        cutpoint_index: int = 0,
+    ) -> np.ndarray:
+        """Per-class probabilities averaged over the kept samples [N, K],
+        on cutpoint group ``cutpoint_index``'s scale."""
+        predictor = self._fetch_predictor()
+        shape = check_data_consistency(X, X_rel)
+        if X is None:
+            X = sps.csr_matrix((shape, 0), dtype=REAL)
+        else:
+            X = sps.csr_matrix(X)
+        return predictor.predict_parallel_oprobit(
+            X, X_rel, n_workers or 1, cutpoint_index
+        )
+
+    def predict(
+        self,
+        X: Optional[ArrayLike],
+        X_rel: List[RelationBlock] = [],
+        cutpoint_index: int = 0,
+    ) -> np.ndarray:
+        """The argmax class (on cutpoint group ``cutpoint_index``'s
+        scale)."""
+        return self.predict_proba(
+            X, X_rel=X_rel, cutpoint_index=cutpoint_index
+        ).argmax(axis=1)
+
+    @property
+    def cutpoint_samples(self) -> Optional[np.ndarray]:
+        """Samples of the first cutpoint group's cutpoints; ``None``
+        before fit."""
+        return self.get_cutpoint_samples(0)
+
+    def get_cutpoint_samples(
+        self, cutpoint_index: int = 0
+    ) -> Optional[np.ndarray]:
+        """Samples of cutpoint group ``cutpoint_index``'s cutpoints
+        ([sample, n_class − 1]); ``None`` before fit."""
+        if self.predictor_ is None:
+            return None
+        return np.asarray(
+            [fm.cutpoints[cutpoint_index] for fm in self.predictor_.samples]
+        )
+
+
+# Reference aliases
 MyFMRegressor = MyFMGibbsRegressor
+MyFMClassifier = MyFMGibbsClassifier

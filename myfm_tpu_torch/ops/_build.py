@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source compiles with ``nvcc`` into a shared library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so
 a build takes seconds).  Libraries go to ``build/myfm_tpu_torch/`` at the
-repository root, named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads as it is.  Nothing is
+repository root, named by a hash of the source, of every header it
+includes from ``csrc/`` and of the flags, so an edited source or header
+rebuilds and an unchanged one loads as it is.  Nothing is
 built at import time: ``load`` builds on first use, and ``build_all``
 starts one ``nvcc`` per source at once.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -21,7 +23,8 @@ from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "myfm_tpu_torch"
-SOURCES = ("fused_gram_cross", "joint_tail")
+SOURCES = ("fused_gram_cross", "joint_tail", "gram_sections")
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,9 +46,25 @@ def _nvcc() -> str:
     )
 
 
+def source_files(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every file it includes with quotes,
+    recursively, each once, in the order they are first included."""
+    seen: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            todo.append((path.parent / inc.decode()).resolve())
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -1,7 +1,8 @@
 """Entity-space Gibbs sweep for all-categorical designs (fast path).
 
-PyTorch counterpart of ``myfm_tpu/ops/categorical.py`` for the
-regression task on one-hot tables.  Because every table is one-hot per
+PyTorch counterpart of ``myfm_tpu/ops/categorical.py`` on one-hot
+tables, for the regression, classification (probit) and ordered-probit
+tasks.  Because every table is one-hot per
 row, the residual and the factor sums are functions of the small
 per-entity weight tables,
 
@@ -19,6 +20,10 @@ table's weights from those statistics in entity space:
 Update order: α → w0 → λ_w/μ_w → λ_V/μ_V → per table {w_t, V_t factor
 scan}.  α and w0 need only the carried residual moments Σe and Σe²,
 which the last table pass refreshes exactly from its Gram statistics.
+The probit tasks fix α = 1 and regress on a latent target τ instead of
+y: after the table passes they score every row, redraw τ (and, ordered,
+the cutpoints by MH first) and take the moments from the new residual;
+each table pass reads τ gathered into its tile order.
 
 A sweep is two steps: ``draw_sweep_variates`` draws every standard
 variate of the sweep from a ``torch.Generator``, and
@@ -37,15 +42,20 @@ from ..design_categorical import CategoricalPlan, CategoricalTable
 from .gibbs import (
     GibbsConfig,
     GibbsState,
+    TASK_CLASSIFICATION,
+    TASK_ORDERED,
     TASK_REGRESSION,
     _draw_normal,
     draw_lambda,
+    draw_latent_variates,
     draw_mu,
     lambda_gamma_shape,
+    refresh_latent,
     std_gamma,
     std_normal,
 )
 from .gram import fused_tile_gram_cross, fused_tile_gram_cross_reference
+from .oprobit import OprobitVariates, initialize_oprobit_core
 
 
 @dataclasses.dataclass
@@ -62,10 +72,12 @@ class CategoricalState:
 
 @dataclasses.dataclass
 class SweepVariates:
-    """Every standard variate one regression sweep consumes, in the
-    order the TPU package splits its key (categorical.py:771-816)."""
+    """Every standard variate one sweep consumes, in the order the TPU
+    package splits its key (categorical.py:771-816); the probit tasks
+    add the latent uniforms (and, ordered, each cutpoint group's MH
+    variates) and draw no α variate."""
 
-    gamma_alpha: torch.Tensor  # scalar, Gamma((α₀+n)/2, 1)
+    gamma_alpha: Optional[torch.Tensor]  # scalar, Gamma((α₀+n)/2, 1)
     normal_w0: torch.Tensor  # scalar
     gamma_lambda_w: torch.Tensor  # [G]
     normal_mu_w: torch.Tensor  # [G]
@@ -73,21 +85,14 @@ class SweepVariates:
     normal_mu_V: torch.Tensor  # [G, R]
     noise_w: torch.Tensor  # [F]
     noise_V: torch.Tensor  # [F, R]
-
-
-def _require_regression(cfg: GibbsConfig):
-    if cfg.task != TASK_REGRESSION:
-        raise NotImplementedError(
-            f"task {cfg.task!r} on the fast path (probit tasks): later "
-            "slice"
-        )
+    u_latent: Optional[torch.Tensor] = None  # [N] probit tasks
+    oprobit: Optional[Tuple[OprobitVariates, ...]] = None  # per group
 
 
 def draw_sweep_variates(plan: CategoricalPlan, cfg: GibbsConfig,
                         rank: int, generator: torch.Generator,
                         dtype: torch.dtype, device) -> SweepVariates:
     """Draw one sweep's standard variates from ``generator``."""
-    _require_regression(cfg)
     G = plan.n_groups
     F = plan.n_features
     counts = plan.group_counts
@@ -95,11 +100,15 @@ def draw_sweep_variates(plan: CategoricalPlan, cfg: GibbsConfig,
     def normal(shape):
         return std_normal(shape, generator, dtype, device)
 
-    shape_alpha = torch.full(
-        (), (cfg.alpha_0 + plan.n_real) / 2.0, dtype=dtype, device=device
-    )
-    return SweepVariates(
-        gamma_alpha=std_gamma(shape_alpha, generator),
+    gamma_alpha = None
+    if cfg.task == TASK_REGRESSION:
+        shape_alpha = torch.full(
+            (), (cfg.alpha_0 + plan.n_real) / 2.0, dtype=dtype,
+            device=device
+        )
+        gamma_alpha = std_gamma(shape_alpha, generator)
+    v = SweepVariates(
+        gamma_alpha=gamma_alpha,
         normal_w0=normal(()),
         gamma_lambda_w=std_gamma(lambda_gamma_shape(1, counts, cfg),
                                  generator),
@@ -110,6 +119,9 @@ def draw_sweep_variates(plan: CategoricalPlan, cfg: GibbsConfig,
         noise_w=normal((F,)),
         noise_V=normal((F, rank)),
     )
+    v.u_latent, v.oprobit = draw_latent_variates(
+        cfg, plan.n_rows, generator, dtype, device)
+    return v
 
 
 def _pad_zero_row(arr: torch.Tensor) -> torch.Tensor:
@@ -455,18 +467,24 @@ def categorical_sweep(
 ) -> CategoricalState:
     """One full Gibbs iteration on the categorical fast path, applying
     the given standard ``variates``.  ``y_tiles[t]`` is y gathered to
-    table t's tile order (make_y_tiles, once per fit).  The input state
-    is not modified."""
-    _require_regression(cfg)
+    table t's tile order (make_y_tiles, once per fit; the probit tasks
+    gather their latent τ instead, every sweep).  ``y`` holds ±1 for
+    classification and the encoded integer classes for the ordered
+    task.  The input state is not modified."""
     core = state.core
     n = plan.n_real
     v = variates
 
-    # α | e ~ Gamma((α₀+n)/2, rate=(β₀+Σe²)/2) from the carried moment
     sum_e = state.sum_e
     sum_e2 = state.sum_e2
-    rate = (cfg.beta_0 + sum_e2) / 2.0
-    alpha = v.gamma_alpha / rate
+    if cfg.task == TASK_REGRESSION:
+        # α | e ~ Gamma((α₀+n)/2, rate=(β₀+Σe²)/2) from the carried moment
+        rate = (cfg.beta_0 + sum_e2) / 2.0
+        alpha = v.gamma_alpha / rate
+        tau_tiles = y_tiles
+    else:
+        alpha = torch.ones_like(core.w0)
+        tau_tiles = make_y_tiles(plan, state.tau)
 
     w0 = core.w0
     if cfg.fit_w0:
@@ -490,40 +508,69 @@ def categorical_sweep(
     w, V = core.w, core.V
     n_tables = len(plan.tables)
     moments = None
+    regression = cfg.task == TASK_REGRESSION
     eff = eff_tables(plan, w, V)
     for ti in range(n_tables):
         w, V, moments = _table_pass(
             plan, ti, w, V, w0, alpha, lambda_w, mu_w, lambda_V, mu_V,
-            gi, v.noise_w, v.noise_V, y_tiles[ti], cfg, plain,
-            want_moments=ti == n_tables - 1, eff=eff,
+            gi, v.noise_w, v.noise_V, tau_tiles[ti], cfg, plain,
+            want_moments=regression and ti == n_tables - 1, eff=eff,
         )
-    # the last table pass computed the exact post-sweep moments
-    sum_e, sum_e2 = moments
 
     new_core = GibbsState(
         w0=w0, w=w, V=V, e=core.e, alpha=alpha,
         mu_w=mu_w, lambda_w=lambda_w, mu_V=mu_V, lambda_V=lambda_V,
+        cutpoints=core.cutpoints, oprobit_alpha=core.oprobit_alpha,
+        n_mh_accept=core.n_mh_accept,
+    )
+    if regression:
+        # the last table pass computed the exact post-sweep moments in
+        # entity space; no residual refresh is needed
+        sum_e, sum_e2 = moments
+        return CategoricalState(
+            core=new_core, tau=None, sum_e=sum_e, sum_e2=sum_e2
+        )
+    # the probit tasks redraw the latent target per row, which needs
+    # the score
+    score = score_rows(plan, w0, w, V)
+    e, cutpoints, oprobit_alpha, n_mh_accept = refresh_latent(
+        score, y, core, cfg, v.u_latent, v.oprobit,
+    )
+    new_core = dataclasses.replace(
+        new_core, e=e, cutpoints=cutpoints, oprobit_alpha=oprobit_alpha,
+        n_mh_accept=n_mh_accept,
     )
     return CategoricalState(
-        core=new_core, tau=None, sum_e=sum_e, sum_e2=sum_e2
+        core=new_core, tau=score - e, sum_e=e.sum(), sum_e2=(e * e).sum()
     )
 
 
 def init_categorical_state(
     plan: CategoricalPlan, core: GibbsState, y: torch.Tensor,
-    cfg: GibbsConfig,
+    cfg: GibbsConfig, u_latent: Optional[torch.Tensor] = None,
 ) -> CategoricalState:
-    """Initialize e = score − y and its moments from freshly initialized
-    weights."""
-    _require_regression(cfg)
-    e = score_rows(plan, core.w0, core.w, core.V) - y
-    core = dataclasses.replace(core, e=e)
+    """The residual, its moments and the latent τ from freshly
+    initialised weights: e = score − y for regression and (±1-coded)
+    classification, whose τ starts at y; for the ordered task the
+    Newton MAP cutpoints and a latent draw from the uniforms
+    ``u_latent``."""
+    score = score_rows(plan, core.w0, core.w, core.V)
+    tau = None
+    if cfg.task == TASK_ORDERED:
+        core, e = initialize_oprobit_core(score, core, y, cfg, u_latent)
+        tau = score - e
+    else:
+        e = score - y
+        core = dataclasses.replace(core, e=e)
+        if cfg.task == TASK_CLASSIFICATION:
+            tau = y.clone()
     return CategoricalState(
-        core=core, tau=None, sum_e=e.sum(), sum_e2=(e * e).sum()
+        core=core, tau=tau, sum_e=e.sum(), sum_e2=(e * e).sum()
     )
 
 
 def make_y_tiles(plan: CategoricalPlan, y: torch.Tensor):
-    """Per-table tile-order copies of y (computed once per fit)."""
+    """Per-table tile-order copies of y (once per fit) or of the latent
+    τ (once per sweep): device gathers, pad rows 0."""
     y_pad = _pad_zero_row(y[:, None])[:, 0]
     return tuple(y_pad[t.src] for t in plan.tables)

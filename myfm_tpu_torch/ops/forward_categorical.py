@@ -15,8 +15,9 @@ and per row chunk
 
     score[n, s] = w0_s + lin[n, s] + ½ (Σ_r Q² − qs)[n, s].
 
-The posterior sum (probit-squashed per sample for classification)
-reduces on the device; only the [N] result reaches the host.
+The posterior sum (probit-squashed per sample for classification, or the
+per-class probabilities of each sample's cutpoints for the ordered task)
+reduces on the device; only the [N] (or [N, K]) result reaches the host.
 """
 
 from __future__ import annotations
@@ -153,22 +154,37 @@ def serving_row_chunk(
     return min(_ROW_CHUNK, 1 << (rc.bit_length() - 1))
 
 
+def oprobit_class_probs(score: torch.Tensor,
+                        cutpoints: torch.Tensor) -> torch.Tensor:
+    """P(class k | score, γ) = Φ(γ_k − s) − Φ(γ_{k−1} − s) with γ_{−1} =
+    −∞ and γ_{K−1} = +∞: scores [..., S] and cutpoints [S, K−1] give
+    [..., S, K]."""
+    cdf = torch.special.ndtr(cutpoints - score[..., None])
+    zero = torch.zeros_like(cdf[..., :1])
+    return (torch.cat([cdf, zero + 1.0], dim=-1)
+            - torch.cat([zero, cdf], dim=-1))
+
+
 def scores_samples_reduce(
     plan: InferencePlan,
     w0s: torch.Tensor,  # [S]
     ws: torch.Tensor,  # [S, F]
     Vs: torch.Tensor,  # [S, F, R]
-    mode: str = "sum",  # "sum" | "probit_sum"
+    mode: str = "sum",  # "sum" | "probit_sum" | "oprobit_sum"
+    cutpoints: Optional[torch.Tensor] = None,  # [S, K-1] for oprobit
     row_chunk: int = _ROW_CHUNK,
 ):
     """Device-reduced posterior-predictive sums over S samples.
 
-    mode "sum":        Σ_s score_s       -> [N]
-    mode "probit_sum": Σ_s Φ(score_s)    -> [N]
+    mode "sum":         Σ_s score_s                  -> [N]
+    mode "probit_sum":  Σ_s Φ(score_s)               -> [N]
+    mode "oprobit_sum": Σ_s P(class | score_s, γ_s)  -> [N, K]
     (callers divide by the total sample count; summing keeps chunked
     sample batches exact)."""
-    if mode not in ("sum", "probit_sum"):
-        raise NotImplementedError(f"serving mode {mode!r}: later slice")
+    if mode not in ("sum", "probit_sum", "oprobit_sum"):
+        raise ValueError(f"serving mode {mode!r}")
+    if (mode == "oprobit_sum") != (cutpoints is not None):
+        raise ValueError("cutpoints go with mode 'oprobit_sum' only")
     S, F, R = Vs.shape
     sources = stack_sources(plan, ws, Vs)
     out = []
@@ -177,5 +193,7 @@ def scores_samples_reduce(
         sc = _chunk_scores(plan, sources, w0s, idxs, S, R)
         if mode == "probit_sum":
             sc = torch.special.ndtr(sc)
+        elif mode == "oprobit_sum":
+            sc = oprobit_class_probs(sc, cutpoints)
         out.append(sc.sum(dim=1))
     return torch.cat(out)

@@ -3,17 +3,19 @@
 PyTorch counterpart of the parts of ``myfm_tpu/ops/gibbs.py`` that the
 categorical fast path and the joint engine use: ``GibbsConfig``,
 ``GibbsState``, ``_draw_normal``, ``draw_alpha``, ``draw_w0``,
-``draw_lambda``, ``draw_mu``, ``init_state``, the regression branch of
-``refresh_e`` and ``gibbs_sweep`` with its merged-joint branch.  The
-colored engine (``sweep_w``, ``sweep_V``, ``sweep_V_joint``) is not
-ported yet: a sweep that needs it raises ``NotImplementedError``.
+``draw_lambda``, ``draw_mu``, ``init_state``, ``refresh_e`` for the
+regression, classification (probit) and ordered-probit tasks, and
+``gibbs_sweep`` with its merged-joint branch.  The colored engine
+(``sweep_w``, ``sweep_V``, ``sweep_V_joint``) is not ported yet: a sweep
+that needs it raises ``NotImplementedError``.
 
 Every draw is a deterministic transform of standard variates that the
-caller passes in (a standard-gamma variate, a standard normal); the
-variates themselves come from a ``torch.Generator`` (``std_gamma``,
-``std_normal``).  The split lets the tests hand both packages the same
-variates, since the JAX and torch generators give different numbers
-from one seed.
+caller passes in (a standard-gamma variate, a standard normal, the
+probit tasks' latent uniforms); the variates themselves come from a
+``torch.Generator`` (``std_gamma``, ``std_normal``,
+``special.uniform_open``).  The split lets the tests hand both packages
+the same variates, since the JAX and torch generators give different
+numbers from one seed.
 """
 
 from __future__ import annotations
@@ -23,7 +25,12 @@ from typing import Optional, Tuple
 
 import torch
 
+from .oprobit import OprobitVariates, oprobit_groups_update
+from .special import truncated_std_normal_onesided, uniform_open
+
 TASK_REGRESSION = "regression"
+TASK_CLASSIFICATION = "classification"
+TASK_ORDERED = "ordered"
 _COLORED = "colored engine: later slice"
 
 
@@ -59,18 +66,30 @@ class GibbsConfig:
     # split / bf16 modes of the TPU package are not ported yet.
     gram_fast_matmul: Optional[object] = None
 
+    @property
+    def cutpoint_group_classes(self) -> Tuple[int, ...]:
+        """Class count per cutpoint group ((n_class,) when ungrouped).
+        Group g's classes occupy the encoded targets
+        [Σ_{j<g} K_j, Σ_{j<g} K_j + K_g) (ops/oprobit.py)."""
+        if self.n_classes:
+            return self.n_classes
+        return (self.n_class,) if self.n_class else ()
+
 
 @dataclasses.dataclass
 class GibbsState:
     w0: torch.Tensor  # scalar
     w: torch.Tensor  # [F]
     V: torch.Tensor  # [F, R]
-    e: torch.Tensor  # [N] residual score - y
-    alpha: torch.Tensor  # scalar noise precision
+    e: torch.Tensor  # [N] residual: score − y (regression), score − z
+    alpha: torch.Tensor  # scalar noise precision (1 for the probit tasks)
     mu_w: torch.Tensor  # [G]
     lambda_w: torch.Tensor  # [G]
     mu_V: torch.Tensor  # [G, R]
     lambda_V: torch.Tensor  # [G, R]
+    cutpoints: Optional[torch.Tensor] = None  # [Σ(K−1)] (ordered probit)
+    oprobit_alpha: Optional[torch.Tensor] = None  # [Σ(K−1)] unconstrained
+    n_mh_accept: Optional[torch.Tensor] = None  # [groups] int32
 
 
 def std_normal(shape, generator: torch.Generator, dtype,
@@ -187,35 +206,80 @@ def init_state(plan, rank: int, init_stdev: float,
     )
 
 
+def check_task(cfg: GibbsConfig):
+    """Raise on a task the sweeps do not know, and on an ordered task
+    without cutpoint groups."""
+    if cfg.task not in (TASK_REGRESSION, TASK_CLASSIFICATION, TASK_ORDERED):
+        raise ValueError(f"unknown task {cfg.task!r}")
+    if cfg.task == TASK_ORDERED and not cfg.cutpoint_group_classes:
+        raise ValueError("the ordered task needs cutpoint groups (n_class or "
+                         "n_classes)")
+
+
+def draw_latent_variates(cfg: GibbsConfig, n_rows: int,
+                         generator: torch.Generator, dtype: torch.dtype,
+                         device):
+    """The probit tasks' per-sweep variates after the weights' own: the
+    [N] latent uniforms in [tiny, 1), and for the ordered task each
+    cutpoint group's MH variates.  Returns (u_latent, oprobit) — both
+    None for regression."""
+    check_task(cfg)
+    if cfg.task == TASK_REGRESSION:
+        return None, None
+    u = uniform_open((n_rows,), generator, dtype, device)
+    if cfg.task == TASK_CLASSIFICATION:
+        return u, None
+    groups = cfg.cutpoint_group_classes
+    chi_shape = torch.full((), cfg.nu_oprobit / 2.0, dtype=dtype,
+                           device=device)
+    mh = tuple(
+        OprobitVariates(
+            normal=std_normal((K - 1,), generator, dtype, device),
+            chi=std_gamma(chi_shape, generator),
+            u_accept=torch.rand((), generator=generator, dtype=dtype,
+                                device=device),
+        )
+        for K in groups
+    )
+    return u, mh
+
+
 @dataclasses.dataclass
 class GibbsVariates:
     """Every standard variate one row-space sweep consumes (the TPU
     package draws them from the splits of its key: gibbs.py:926-928)."""
 
-    gamma_alpha: torch.Tensor  # scalar, Gamma((α₀+n)/2, 1)
+    gamma_alpha: Optional[torch.Tensor]  # scalar, Gamma((α₀+n)/2, 1)
     normal_w0: torch.Tensor  # scalar
     gamma_lambda_w: torch.Tensor  # [G]
     normal_mu_w: torch.Tensor  # [G]
     gamma_lambda_V: torch.Tensor  # [G, 1] (one variate per group)
     normal_mu_V: torch.Tensor  # [G, R]
     noise: torch.Tensor  # [F, R+1], the joint draws' ξ
+    u_latent: Optional[torch.Tensor] = None  # [N] probit tasks
+    oprobit: Optional[Tuple[OprobitVariates, ...]] = None  # per group
 
 
 def draw_gibbs_variates(plan, cfg: GibbsConfig, rank: int,
                         generator: torch.Generator, dtype: torch.dtype,
                         device) -> GibbsVariates:
-    """Draw one sweep's standard variates from ``generator``."""
+    """Draw one sweep's standard variates from ``generator`` (α's gamma
+    variate only for regression: the probit tasks fix α = 1)."""
     G = plan.n_groups
     counts = plan.group_counts
 
     def normal(shape):
         return std_normal(shape, generator, dtype, device)
 
-    shape_alpha = torch.full(
-        (), (cfg.alpha_0 + plan.n_rows) / 2.0, dtype=dtype, device=device
-    )
-    return GibbsVariates(
-        gamma_alpha=std_gamma(shape_alpha, generator),
+    gamma_alpha = None
+    if cfg.task == TASK_REGRESSION:
+        shape_alpha = torch.full(
+            (), (cfg.alpha_0 + plan.n_rows) / 2.0, dtype=dtype,
+            device=device
+        )
+        gamma_alpha = std_gamma(shape_alpha, generator)
+    v = GibbsVariates(
+        gamma_alpha=gamma_alpha,
         normal_w0=normal(()),
         gamma_lambda_w=std_gamma(lambda_gamma_shape(1, counts, cfg),
                                  generator),
@@ -225,26 +289,52 @@ def draw_gibbs_variates(plan, cfg: GibbsConfig, rank: int,
         normal_mu_V=normal((G, rank)),
         noise=normal((plan.n_features, rank + 1)),
     )
+    v.u_latent, v.oprobit = draw_latent_variates(
+        cfg, plan.n_rows, generator, dtype, device)
+    return v
 
 
 def require_joint(cfg: GibbsConfig):
-    """The port's row-space sweep is the merged joint engine on the
-    regression task; anything else is a later slice."""
+    """The port's row-space sweep is the merged joint engine; the
+    colored engine is a later slice."""
     if not (cfg.joint_rows and cfg.fit_linear):
         raise NotImplementedError(_COLORED)
-    if cfg.task != TASK_REGRESSION:
-        raise NotImplementedError(
-            f"task {cfg.task!r} on the joint engine (probit tasks): later "
-            "slice"
+
+
+def refresh_latent(score, y, state: GibbsState, cfg: GibbsConfig,
+                   u_latent, oprobit, weight=None):
+    """The residual from freshly computed scores, for every task.
+
+    Regression: e = score − y.  Classification: the latent probit
+    response z ~ TN(score, 1; sign(y)) is redrawn and e = score − z.
+    Ordered: one MH cutpoint step per group, then z ~ TN(score, 1; the
+    class interval).  Returns (e, cutpoints, oprobit_alpha,
+    n_mh_accept), the last three as in ``state`` unless ordered."""
+    if cfg.task == TASK_REGRESSION:
+        return score - y, state.cutpoints, state.oprobit_alpha, \
+            state.n_mh_accept
+    if cfg.task == TASK_CLASSIFICATION:
+        t = truncated_std_normal_onesided(u_latent, -score, y > 0)
+        return -t, state.cutpoints, state.oprobit_alpha, state.n_mh_accept
+    if cfg.task == TASK_ORDERED:
+        alpha, gamma, acc, e = oprobit_groups_update(
+            score, y, state.oprobit_alpha, state.n_mh_accept,
+            cfg.cutpoint_group_classes, cfg.reg_0, float(cfg.nu_oprobit),
+            oprobit, u_latent, weight=weight,
         )
+        return e, gamma, alpha, acc
+    raise ValueError(f"unknown task {cfg.task!r}")
 
 
-def refresh_e(plan, w0, w, V, y, cfg: GibbsConfig) -> torch.Tensor:
-    """Recompute the residual e = score − y from scratch (regression)."""
+def refresh_e(plan, state: GibbsState, w0, w, V, y, cfg: GibbsConfig,
+              u_latent=None, oprobit=None):
+    """Recompute the residual from scratch on the row-space plan
+    (``refresh_latent`` of its scores)."""
     from .forward import predict_score
 
     require_joint(cfg)
-    return predict_score(plan, w0, w, V) - y
+    return refresh_latent(predict_score(plan, w0, w, V), y, state, cfg,
+                          u_latent, oprobit)
 
 
 def draw_hypers(plan, state: GibbsState, variates: GibbsVariates,
@@ -254,7 +344,10 @@ def draw_hypers(plan, state: GibbsState, variates: GibbsVariates,
     v = variates
     n = plan.n_rows
     gi, gc = plan.group_index, plan.group_counts
-    alpha = draw_alpha(state.e, cfg, v.gamma_alpha)
+    if cfg.task == TASK_REGRESSION:
+        alpha = draw_alpha(state.e, cfg, v.gamma_alpha)
+    else:
+        alpha = torch.ones_like(state.w0)
     e = state.e
     w0 = state.w0
     if cfg.fit_w0:
@@ -273,8 +366,10 @@ def draw_hypers(plan, state: GibbsState, variates: GibbsVariates,
 def gibbs_sweep(plan, state: GibbsState, y: torch.Tensor,
                 variates: GibbsVariates, cfg: GibbsConfig) -> GibbsState:
     """One full Gibbs iteration (α → w0 → λ_w, μ_w → λ_V, μ_V → the
-    merged joint (w, V) pass → residual refresh), applying the given
-    standard ``variates``.  The input state is not modified.
+    merged joint (w, V) pass → residual refresh: for the probit tasks
+    the latent targets' redraw, and for the ordered task the cutpoints'
+    MH step first), applying the given standard ``variates``.  α is 1
+    for the probit tasks.  The input state is not modified.
 
     Both float32 fixes of the TPU package are kept: q is rebuilt from V
     at every sweep, and e is re-forwarded at its end, so the drift of
@@ -289,5 +384,11 @@ def gibbs_sweep(plan, state: GibbsState, y: torch.Tensor,
         h.mu_V, variates.noise, q=None,
         tail_kernel=bool(cfg.joint_tail_kernel),
     )
-    e = refresh_e(plan, h.w0, w, V, y, cfg)
-    return dataclasses.replace(h, w=w, V=V, e=e)
+    e, cutpoints, oprobit_alpha, n_mh_accept = refresh_e(
+        plan, state, h.w0, w, V, y, cfg, variates.u_latent,
+        variates.oprobit,
+    )
+    return dataclasses.replace(
+        h, w=w, V=V, e=e, cutpoints=cutpoints, oprobit_alpha=oprobit_alpha,
+        n_mh_accept=n_mh_accept,
+    )

@@ -1,7 +1,9 @@
 """Per-entity Gram statistics over sorted row tiles.
 
-PyTorch counterpart of the two Pallas TPU kernels of the categorical fast
-paths in ``myfm_tpu/ops/pallas_gram.py``:
+PyTorch counterpart of the three Pallas TPU kernels of
+``myfm_tpu/ops/pallas_gram.py`` and of the two TPU probes of kernel 1
+(``scripts/microbench_kernel_sections.py``,
+``scripts/probe_transpose.py``):
 
 * ``fused_tile_gram_cross`` (kernel 1), in the Gibbs layout and in the VI
   layout.  The categorical sweeps need, per table and per entity u,
@@ -15,6 +17,12 @@ paths in ``myfm_tpu/ops/pallas_gram.py``:
 * ``fused_tile_gram`` (kernel 2), the separate-meta variant: the caller
   has already summed the other tables into ``meta`` = [ones | lin−τ(+w0)
   | qs_other] and ``q_other`` (the VI entity+attribute table pass).
+* ``tile_gram`` (kernel 3): the Grams of rows the caller has built
+  ([K, T, D] z rows and their slots), reached through ``entity_grams``.
+* ``gram_section`` (kernel 5): kernel 1 cut down to its first sections,
+  levels 0-3, for timing each section (tools/kernel_sections.py).
+* ``interleave_probe`` (kernel 6): the load of kernel 1's [K, 2, T]
+  (slot, τ) operand into per-row pairs, [K, T, 2].
 
 Rows are sorted by entity and packed into tiles of T rows holding at most
 S entities (design_categorical._pack_tiles); an entity that spans tiles
@@ -23,11 +31,12 @@ Gram lands at its last (tile, slot).  ``out_rows`` emits only the Gram's
 first rows (all D columns): the VI consumers read only the rows
 [1 | e | φ].
 
-Each wrapper launches the hand-written CUDA kernel
-(csrc/fused_gram_cross.cu) on CUDA tensors and runs its plain PyTorch
-version on CPU tensors.  The output is [K*S, rows, D] (the TPU kernel's
-[K*S, Dpr, D] without its 8-row slot padding) plus the carry [rows, D]
-leaving the last tile, with rows = ``out_rows`` or D.
+Each wrapper launches its hand-written CUDA kernel
+(csrc/fused_gram_cross.cu; csrc/gram_sections.cu for kernels 5 and 6) on
+CUDA tensors and runs its plain PyTorch version on CPU tensors.  The
+Gram kernels' output is [K*S, rows, D] (the TPU kernel's [K*S, Dpr, D]
+without its 8-row slot padding) plus the carry [rows, D] leaving the
+last tile, with rows = ``out_rows`` or D.
 """
 
 from __future__ import annotations
@@ -193,6 +202,11 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def _bind(lib: ctypes.CDLL):
     if lib.myfm_fused_gram_cross.argtypes is None:
+        lib.myfm_tile_gram.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+            + [ctypes.c_void_p]
+        )
+        lib.myfm_tile_gram.restype = ctypes.c_int
         lib.myfm_fused_gram_cross.argtypes = (
             [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
             + [ctypes.c_void_p] * 8
@@ -252,24 +266,30 @@ def _check_common(name, floats, ints, K, S, rows, D, carry_in, smem):
         )
 
 
+def _stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
 def _launch(name, fn, operands, dims, K, S, rows, D, dtype, device,
-            carry_in):
+            carry_in, lib=None, first=None):
     """Allocate the outputs and the carry scratch, call the C entry point
-    ``fn`` (its operand pointers, then carry_in / out / carry_out /
-    scratch, then its integer ``dims``) on the current stream, and raise
-    if the launch failed."""
-    lib = _bind(_build.load("fused_gram_cross"))
+    ``fn`` (``first``, by default the dtype flag; its operand pointers;
+    then carry_in / out / carry_out / scratch; then its integer ``dims``)
+    on the current stream, and raise if the launch failed."""
+    lib = lib or _bind(_build.load("fused_gram_cross"))
+    scratch_lib = _bind(_build.load("fused_gram_cross"))
     if carry_in is None:
         carry_in = torch.zeros(rows, D, dtype=dtype, device=device)
     out = torch.empty(K * S, rows, D, dtype=dtype, device=device)
     carry_out = torch.empty(rows, D, dtype=dtype, device=device)
-    scratch = torch.empty(lib.myfm_gram_carry_scratch(K, rows * D),
+    scratch = torch.empty(scratch_lib.myfm_gram_carry_scratch(K, rows * D),
                           dtype=dtype, device=device)
+    if first is None:
+        first = int(dtype == torch.float64)
     with torch.cuda.device(device):
         rc = getattr(lib, fn)(
-            int(dtype == torch.float64), *operands, _ptr(carry_in),
-            _ptr(out), _ptr(carry_out), _ptr(scratch), *dims,
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+            first, *operands, _ptr(carry_in), _ptr(out), _ptr(carry_out),
+            _ptr(scratch), *dims, _stream(),
         )
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
@@ -395,3 +415,209 @@ def fused_tile_gram(
 
 
 fused_tile_gram.launches = 0
+
+
+def tile_gram_reference(
+    rows: torch.Tensor,  # [K, T, D] tile rows (pad rows are zero rows)
+    slot: torch.Tensor,  # [K, T] int32 slot per row
+    cont_in: torch.Tensor,  # [K] int32
+    cont_out: torch.Tensor,  # [K] int32
+    last_slot: torch.Tensor,  # [K] int32
+    S: int,
+    carry_in: Optional[torch.Tensor] = None,  # [D, D]; None = zero
+):
+    """Plain PyTorch version of kernel 3: (flat partial Grams [K*S, D, D],
+    carry_out [D, D]) of the given rows, with the in-order carry."""
+    m = (
+        slot.long()[:, :, None] == torch.arange(S, device=slot.device)
+    ).to(rows.dtype)
+    return _grams_with_carry(rows, m, rows.shape[2], cont_in, cont_out,
+                             last_slot, carry_in)
+
+
+def tile_gram(
+    rows: torch.Tensor,
+    slot: torch.Tensor,
+    cont_in: torch.Tensor,
+    cont_out: torch.Tensor,
+    last_slot: torch.Tensor,
+    S: int,
+    carry_in: Optional[torch.Tensor] = None,
+):
+    """Kernel 3: flat partial Grams [K*S, D, D] of the given rows and the
+    carry leaving the last tile (``carry_in`` None is a zero carry).  CPU
+    tensors run the plain version; CUDA tensors launch the kernel, or
+    raise."""
+    if rows.device.type == "cpu":
+        return tile_gram_reference(rows, slot, cont_in, cont_out, last_slot,
+                                   S, carry_in)
+    K, T, D = rows.shape
+    _check_common(
+        "tile_gram", [rows],
+        [(slot, (K, T))] + [(t, (K,)) for t in (cont_in, cont_out,
+                                                last_slot)],
+        K, S, D, D, carry_in, T * D * rows.element_size() + T * 4,
+    )
+    out = _launch(
+        "tile_gram", "myfm_tile_gram",
+        [_ptr(rows), _ptr(slot), _ptr(cont_in), _ptr(cont_out),
+         _ptr(last_slot)],
+        [K, T, S, D], K, S, D, D, rows.dtype, rows.device, carry_in,
+    )
+    tile_gram.launches += 1
+    return out
+
+
+tile_gram.launches = 0
+
+
+def entity_grams(table, rows_tiled: torch.Tensor, S: int, D: int,
+                 plain: bool = False) -> torch.Tensor:
+    """All-entity Grams [B, D, D] of a CategoricalTable's tile rows
+    ``rows_tiled`` [K, T, D] in one call: kernel 3 (its plain version with
+    ``plain``), then each entity's complete Gram at its last (tile,
+    slot)."""
+    slot = table.slot.reshape(rows_tiled.shape[:2])
+    gram = tile_gram_reference if plain else tile_gram
+    flat, _ = gram(rows_tiled, slot, table.cont_in, table.cont_out,
+                   table.last_slot, S)
+    return flat[table.final_part.long()]
+
+
+# ---- kernel 5: kernel 1 section by section (Gibbs layout, fp32) ----
+
+SECTION_LEVELS = (0, 1, 2, 3)
+
+
+def gram_section_reference(level: int, aux2, gths, wvsl, cont_in, cont_out,
+                           last_slot, S: int):
+    """Plain PyTorch version of section level ``level`` (csrc/
+    gram_sections.cu): (out [K*S, D, D], carry_out or None).  Levels 0
+    and 1 define their output by a per-tile checksum of every operand;
+    level 2 is kernel 1 without the carry, level 3 kernel 1 whole."""
+    if level == 3:
+        return fused_tile_gram_cross_reference(
+            aux2, gths, wvsl, cont_in, cont_out, last_slot, S)
+    K, _, T = aux2.shape
+    R = wvsl.shape[2] - 2
+    D = R + 2
+    if level == 2:
+        z, m = cross_rows(aux2, gths, wvsl, S)
+        return _grams_with_carry(z, m, D, cont_in.new_zeros(K),
+                                 cont_out.new_zeros(K), last_slot, None)[0], \
+            None
+    total = sum(g.sum(dim=(1, 2)) for g in gths) \
+        + wvsl.sum(dim=(1, 2)) + aux2.sum(dim=(1, 2))
+    if level == 0:
+        return total[:, None, None, None].expand(K, S, D, D).reshape(
+            K * S, D, D).clone(), None
+    slot = aux2[:, 0, :].long()
+    m = (slot[:, :, None] == torch.arange(S, device=slot.device)).to(
+        wvsl.dtype)
+    out = _grams_with_carry(gths[0], m, D, cont_in.new_zeros(K),
+                            cont_out.new_zeros(K), last_slot, None)[0]
+    out = out.reshape(K, S, D, D)
+    out[:, 0, 0, 0] += total
+    return out.reshape(K * S, D, D), None
+
+
+def _bind_sections(lib: ctypes.CDLL):
+    if lib.myfm_gram_section.argtypes is None:
+        lib.myfm_gram_section.argtypes = (
+            [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+            + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        )
+        lib.myfm_gram_section.restype = ctypes.c_int
+        lib.myfm_interleave_probe.argtypes = (
+            [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_int, ctypes.c_void_p]
+        )
+        lib.myfm_interleave_probe.restype = ctypes.c_int
+    return lib
+
+
+def gram_section(level: int, aux2, gths, wvsl, cont_in, cont_out,
+                 last_slot, S: int):
+    """Kernel 5: section level ``level`` of kernel 1 on kernel 1's
+    operands (Gibbs layout, fp32; layout as in
+    ``gram_section_reference``).  Level 3's output is bit-equal to
+    ``fused_tile_gram_cross`` on the same operands.  CPU tensors run the
+    plain version; CUDA tensors launch the kernel, or raise."""
+    if level not in SECTION_LEVELS:
+        raise ValueError(f"gram_section: level {level} not in "
+                         f"{SECTION_LEVELS}")
+    gths = tuple(gths)
+    if aux2.device.type == "cpu":
+        return gram_section_reference(level, aux2, gths, wvsl, cont_in,
+                                      cont_out, last_slot, S)
+    K, two, T = aux2.shape
+    R = wvsl.shape[2] - 2
+    D = R + 2
+    name = f"gram_section[{level}]"
+    if wvsl.dtype != torch.float32:
+        raise TypeError(f"{name}: fp32 only, got {wvsl.dtype}")
+    if (two != 2 or tuple(wvsl.shape[:2]) != (K, S) or not gths
+            or len(gths) > MAX_CROSS):
+        raise ValueError(f"{name}: aux2 {tuple(aux2.shape)}, wvsl "
+                         f"{tuple(wvsl.shape)}, {len(gths)} cross tables")
+    for gth in gths:
+        if tuple(gth.shape) != (K, T, D):
+            raise ValueError(f"{name}: gathered rows {tuple(gth.shape)} "
+                             f"!= {(K, T, D)}")
+    _check_common(
+        name, [aux2, wvsl, *gths],
+        [(t, (K,)) for t in (cont_in, cont_out, last_slot)],
+        K, S, D, D, None, (T * D + S * D + T) * 4 + T * 4,
+    )
+    gth_ptrs = (ctypes.c_void_p * len(gths))(*[g.data_ptr() for g in gths])
+    out, carry = _launch(
+        name, "myfm_gram_section",
+        [_ptr(aux2), ctypes.cast(gth_ptrs, ctypes.c_void_p), len(gths),
+         _ptr(wvsl), _ptr(cont_in), _ptr(cont_out), _ptr(last_slot)],
+        [K, T, S, R], K, S, D, D, wvsl.dtype, wvsl.device, None,
+        lib=_bind_sections(_build.load("gram_sections")), first=level,
+    )
+    gram_section.launches[level] += 1
+    return out, (carry if level == 3 else None)
+
+
+gram_section.launches = [0] * len(SECTION_LEVELS)  # per level
+
+
+# ---- kernel 6: the (slot, τ) load of kernel 1 ----
+
+PROBE_VARIANTS = ("direct", "staged")
+
+
+def interleave_probe_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel 6: [K, 2, T] -> [K, T, 2] pairs."""
+    return torch.stack([x[:, 0, :], x[:, 1, :]], dim=2)
+
+
+def interleave_probe(x: torch.Tensor, variant: str = "direct"):
+    """Kernel 6: kernel 1's [K, 2, T] (slot, τ) rows as per-row pairs
+    [K, T, 2], by one 8-byte store per row ("direct") or staged through
+    shared memory ("staged").  CPU tensors run the plain version; CUDA
+    tensors launch the kernel, or raise."""
+    if variant not in PROBE_VARIANTS:
+        raise ValueError(f"interleave_probe: variant {variant!r}")
+    if x.device.type == "cpu":
+        return interleave_probe_reference(x)
+    K, two, T = x.shape
+    if (x.dtype != torch.float32 or two != 2 or not x.is_contiguous()
+            or not 1 <= K <= 65535):
+        raise ValueError(f"interleave_probe: contiguous fp32 [K, 2, T] "
+                         f"with K <= 65535, got {x.dtype} {tuple(x.shape)}")
+    out = torch.empty(K, T, 2, dtype=x.dtype, device=x.device)
+    lib = _bind_sections(_build.load("gram_sections"))
+    with torch.cuda.device(x.device):
+        rc = lib.myfm_interleave_probe(PROBE_VARIANTS.index(variant),
+                                       _ptr(x), _ptr(out), K, T, _stream())
+    if rc != 0:
+        raise RuntimeError(f"interleave_probe kernel launch failed: "
+                           f"cudaError {rc}")
+    interleave_probe.launches[variant] += 1
+    return out
+
+
+interleave_probe.launches = dict.fromkeys(PROBE_VARIANTS, 0)

@@ -5,9 +5,10 @@ PyTorch counterpart of ``myfm_tpu/predictor.py`` ``Predictor`` and
 ``VariationalPredictor``.  Gibbs samples are stacked on the device in
 memory-bounded chunks and scored with ops/forward_categorical when every
 table is one-hot, else with the row-space forward (ops/forward.py) over
-a compiled design.  The variational weight set is scored on the device
-with the row-space forward.  ``n_workers`` is accepted for API parity
-and ignored.
+a compiled design; both scorers serve the regression mean, the probit
+classifier's Φ and the ordered probit's class probabilities.  The
+variational weight set is scored on the device with the row-space
+forward.  ``n_workers`` is accepted for API parity and ignored.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from .design_categorical import torch_dtype
 from .ops.forward import predict_score
 from .ops.forward_categorical import (
     compile_categorical_inference,
+    oprobit_class_probs,
     scores_samples_reduce,
     serving_row_chunk,
 )
@@ -41,7 +43,7 @@ class Predictor:
     on ``device``."""
 
     def __init__(self, rank: int, n_features: int, task: str,
-                 dtype=np.float32, device="cpu"):
+                 dtype=np.float32, device="cuda"):
         self.rank = rank
         self.n_features = n_features
         self.task = task
@@ -78,39 +80,65 @@ class Predictor:
     ) -> np.ndarray:
         """Posterior-predictive mean (probit-squashed per sample for
         classification, then averaged)."""
+        mode = "probit_sum" if self.task == TASK_CLASSIFICATION else "sum"
+        return self._reduce(X, X_rel, mode, None)
+
+    def predict_parallel_oprobit(
+        self,
+        X: Optional[ArrayLike],
+        X_rel: Sequence[RelationBlock] = (),
+        n_workers: Optional[int] = None,
+        cutpoint_index: int = 0,
+    ) -> np.ndarray:
+        """Per-class probabilities [N, K] averaged over the kept samples,
+        each sample's on its cutpoint group ``cutpoint_index``."""
+        return self._reduce(X, X_rel, "oprobit_sum", cutpoint_index)
+
+    def _reduce(self, X, X_rel, mode: str, cutpoint_index) -> np.ndarray:
+        """The posterior sum of ``mode`` over every kept sample, on the
+        entity-space scorer when every table is one-hot and on the
+        row-space one otherwise, divided by the sample count."""
         if not self.samples:
             raise RuntimeError("Predictor has no samples.")
         fast = compile_categorical_inference(
             X, X_rel, self.dtype, self.device
         )
+        plan = None
         if fast is None:
-            return self._predict_rows(X, X_rel)
-        mode = "probit_sum" if self.task == TASK_CLASSIFICATION else "sum"
-        total = np.zeros(fast.n_rows, dtype=np.float64)
+            plan = compile_design(X, X_rel, dtype=self.dtype,
+                                  for_training=False, device=self.device)
+        total = None
         for part, w0s, ws, vs in self._sample_chunks():
-            out = scores_samples_reduce(
-                fast, w0s, ws, vs, mode=mode,
-                row_chunk=serving_row_chunk(len(part), self.rank),
-            )
-            total += out.double().cpu().numpy()
+            cps = None
+            if mode == "oprobit_sum":
+                cps = torch.as_tensor(
+                    np.stack([s.cutpoints[cutpoint_index] for s in part]),
+                    dtype=ws.dtype, device=self.device,
+                )
+            if fast is not None:
+                out = scores_samples_reduce(
+                    fast, w0s, ws, vs, mode=mode, cutpoints=cps,
+                    row_chunk=serving_row_chunk(len(part), self.rank),
+                )
+            else:
+                out = _rows_reduce(plan, w0s, ws, vs, mode, cps)
+            out = out.double().cpu().numpy()
+            total = out if total is None else total + out
         return total / len(self.samples)
 
-    def _predict_rows(self, X, X_rel) -> np.ndarray:
-        """Row-space scorer: the design compiled for inference, each kept
-        sample scored with predict_score and summed per sample chunk."""
-        if self.task == TASK_CLASSIFICATION:
-            raise NotImplementedError(
-                "classification on the row-space scorer: later slice"
-            )
-        plan = compile_design(X, X_rel, dtype=self.dtype, for_training=False,
-                              device=self.device)
-        total = np.zeros(plan.n_rows, dtype=np.float64)
-        for part, w0s, ws, vs in self._sample_chunks():
-            acc = torch.zeros(plan.n_rows, dtype=ws.dtype, device=ws.device)
-            for k in range(len(part)):
-                acc += predict_score(plan, w0s[k], ws[k], vs[k])
-            total += acc.double().cpu().numpy()
-        return total / len(self.samples)
+
+def _rows_reduce(plan, w0s, ws, vs, mode: str, cutpoints):
+    """The row-space scorer's sum of ``mode`` over one sample chunk:
+    each sample scored with predict_score."""
+    acc = None
+    for k in range(ws.shape[0]):
+        sc = predict_score(plan, w0s[k], ws[k], vs[k])
+        if mode == "probit_sum":
+            sc = torch.special.ndtr(sc)
+        elif mode == "oprobit_sum":
+            sc = oprobit_class_probs(sc[:, None], cutpoints[k : k + 1])[:, 0]
+        acc = sc if acc is None else acc + sc
+    return acc
 
 
 class VariationalPredictor:
@@ -118,7 +146,7 @@ class VariationalPredictor:
     declare_module.hpp:343-346) and scores it on ``device``."""
 
     def __init__(self, rank: int, n_features: int, task: str,
-                 dtype=np.float32, device="cpu"):
+                 dtype=np.float32, device="cuda"):
         self.rank = rank
         self.n_features = n_features
         self.task = task

@@ -5,7 +5,8 @@ PyTorch counterpart of ``myfm_tpu/trainer.py`` (``run_mcmc_loop``,
 ``callback_allows_async``, and ``_resolve_joint_tail`` in place of
 ``_resolve_joint_pallas_tail``):
 runs ``n_iter`` sweeps, keeps the last ``n_kept_samples`` weight samples
-on the host, records the hyperparameter trace every iteration, and
+(with their cutpoints, for the ordered task) on the host, records the
+hyperparameter trace (and the MH accept counts) every iteration, and
 invokes the callback with early-stop support.
 
 Kept samples are copied to the host as they are kept.  When the callback
@@ -32,14 +33,17 @@ from .ops.categorical import (
 )
 from .ops.forward import predict_score
 from .ops.gibbs import (
-    TASK_REGRESSION,
+    TASK_ORDERED,
     GibbsConfig,
     GibbsState,
+    check_task,
     draw_gibbs_variates,
     gibbs_sweep,
     init_state,
     require_joint,
 )
+from .ops.oprobit import initialize_oprobit_core
+from .ops.special import uniform_open
 from .predictor import Predictor
 
 
@@ -47,15 +51,29 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _split_cutpoints(cat: np.ndarray, groups) -> list:
+    """The concatenated cutpoint vector split into one vector per
+    cutpoint group, as the FM container holds them."""
+    groups = groups or (cat.shape[0] + 1,)
+    out, off = [], 0
+    for K in groups:
+        out.append(cat[off : off + K - 1])
+        off += K - 1
+    return out
+
+
 class LazyFMView(FM):
     """FM view over device state; copies arrays to the host only on
-    access."""
+    access.  ``cut_groups`` (the class count per cutpoint group) splits
+    the concatenated cutpoints."""
 
-    def __init__(self, state: GibbsState):
+    def __init__(self, state: GibbsState, cut_groups=()):
         self._state = state
+        self._cut_groups = cut_groups
         self._w0 = None
         self._w = None
         self._V = None
+        self._cutpoints = None
 
     @property
     def w0(self):  # type: ignore[override]
@@ -77,7 +95,13 @@ class LazyFMView(FM):
 
     @property
     def cutpoints(self):  # type: ignore[override]
-        return []
+        if self._cutpoints is None:
+            cat = self._state.cutpoints
+            self._cutpoints = (
+                [] if cat is None
+                else _split_cutpoints(_host(cat), self._cut_groups)
+            )
+        return self._cutpoints
 
     def materialize(self) -> FM:
         return FM(self.w0, self.w, self.V, self.cutpoints)
@@ -135,20 +159,33 @@ def run_mcmc_loop(
     )
     history = LearningHistory(engine=trainer.engine_name)
     deferred = callback_allows_async(callback)
+    ordered = trainer.cfg.task == TASK_ORDERED
+    cut_groups = trainer.cfg.cutpoint_group_classes
     for it in range(n_iter):
         state = trainer._sweep_call(state)
         core = core_of(state)
-        view = LazyFMView(core)
+        view = LazyFMView(core, cut_groups)
         if it + n_kept_samples >= n_iter:
             predictor.samples.append(view.materialize())
         hyper = _hyper_of(core)
         if not deferred:
             hyper = _to_host(hyper)
         history.hypers.append(hyper)
+        if ordered:
+            # cumulative accept count per cutpoint group, every sweep
+            acc = core.n_mh_accept.clone()
+            history.n_mh_accept_trace.append(
+                acc if deferred else _host(acc).tolist())
         if callback is not None and callback(it, view, hyper, history):
             break
     if deferred:
         history.hypers = [_to_host(h) for h in history.hypers]
+        history.n_mh_accept_trace = [
+            _host(a).tolist() for a in history.n_mh_accept_trace]
+    if ordered:
+        history.n_mh_accept = [
+            int(c) for c in _host(core_of(state).n_mh_accept)
+        ]
     return predictor, history
 
 
@@ -194,6 +231,23 @@ def _resolve_joint_tail(cfg: GibbsConfig, plan, rank: int) -> GibbsConfig:
     return cfg
 
 
+def _target(y, cfg: GibbsConfig, dtype, device) -> torch.Tensor:
+    """The chain's target on the device: the encoded integer classes for
+    the ordered task, else y in the chain's dtype (±1 for
+    classification).  Validates the task."""
+    check_task(cfg)
+    if cfg.task == TASK_ORDERED:
+        return torch.as_tensor(np.asarray(y, dtype=np.int64), device=device)
+    return torch.as_tensor(np.asarray(y).astype(dtype), device=device)
+
+
+def _init_uniforms(trainer) -> torch.Tensor:
+    """The ordered task's initial latent uniforms, from the chain's
+    generator after the weights' own draws."""
+    return uniform_open((trainer.y.shape[0],), trainer.generator,
+                        trainer._tdtype, trainer.device)
+
+
 class GibbsTrainer:
     """Gibbs trainer on a compiled row-space design (design.DesignPlan).
     This port runs the merged joint engine; a config that resolves to
@@ -219,9 +273,7 @@ class GibbsTrainer:
         self.dtype = np.dtype(dtype)
         self.device = plan.device
         self._tdtype = torch_dtype(self.dtype)
-        self.y = torch.as_tensor(
-            np.asarray(y).astype(self.dtype), device=self.device
-        )
+        self.y = _target(y, cfg, self.dtype, self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(random_seed)
 
@@ -245,9 +297,14 @@ class GibbsTrainer:
             self.plan, self.rank, self.init_stdev, self.generator,
             self.cfg, self._tdtype, self.device,
         )
-        # e = score − y (the TPU package's init_e)
-        e = predict_score(self.plan, state.w0, state.w, state.V) - self.y
-        return dataclasses.replace(state, e=e)
+        score = predict_score(self.plan, state.w0, state.w, state.V)
+        if self.cfg.task == TASK_ORDERED:
+            # Newton MAP cutpoints, then the latent draw
+            state, _ = initialize_oprobit_core(
+                score, state, self.y, self.cfg, _init_uniforms(self))
+            return state
+        # e = score − y for regression and ±1 classification
+        return dataclasses.replace(state, e=score - self.y)
 
     def run(
         self,
@@ -275,11 +332,6 @@ class CategoricalGibbsTrainer:
         random_seed: int,
         dtype=np.float32,
     ):
-        if cfg.task != TASK_REGRESSION:
-            raise NotImplementedError(
-                f"task {cfg.task!r} on the fast path (probit tasks): "
-                "later slice"
-            )
         require_one_hot(plan)
         self.plan = plan
         self.cfg = _resolve_gram_fast_matmul(cfg)
@@ -289,11 +341,10 @@ class CategoricalGibbsTrainer:
         self.dtype = np.dtype(dtype)
         self.device = plan.group_index.device
         self._tdtype = torch_dtype(self.dtype)
-        self.y = torch.as_tensor(
-            np.asarray(y).astype(self.dtype), device=self.device
-        )
-        # per-table tile-order copies of y
-        self.y_tiles = make_y_tiles(plan, self.y)
+        self.y = _target(y, cfg, self.dtype, self.device)
+        # per-table tile-order copies of y (the regression target; the
+        # probit tasks gather their latent τ every sweep instead)
+        self.y_tiles = make_y_tiles(plan, self.y.to(self._tdtype))
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(random_seed)
 
@@ -319,7 +370,9 @@ class CategoricalGibbsTrainer:
             self.plan, self.rank, self.init_stdev, self.generator,
             self.cfg, self._tdtype, self.device,
         )
-        return init_categorical_state(self.plan, core, self.y, self.cfg)
+        u = (_init_uniforms(self) if self.cfg.task == TASK_ORDERED
+             else None)
+        return init_categorical_state(self.plan, core, self.y, self.cfg, u)
 
     def run(
         self,

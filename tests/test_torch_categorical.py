@@ -358,10 +358,18 @@ def test_plain_flag_runs_the_same_sweep():
 
 
 def test_probit_tasks_raise():
-    blocks, y, grouping = _cf_blocks(n=100)
+    """The probit tasks run on the fast path now (test_torch_probit_sweep);
+    what still raises is a task the sweep does not know, and an ordered
+    task without cutpoint groups."""
+    blocks, y, grouping = _cf_blocks(n=300)
     plan = try_compile_categorical(None, blocks, None, None, np.float64,
                                    "cpu", rank=2)
-    cfg = GibbsConfig(task="classification")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tcat.draw_sweep_variates(plan, cfg, 2, torch.Generator(),
-                                 torch.float64, "cpu")
+    gen = torch.Generator()
+    v = tcat.draw_sweep_variates(plan, GibbsConfig(task="classification"),
+                                 2, gen, torch.float64, "cpu")
+    assert v.gamma_alpha is None and v.u_latent.shape == (plan.n_rows,)
+    assert float(v.u_latent.min()) > 0.0
+    for cfg, match in ((GibbsConfig(task="poisson"), "unknown task"),
+                       (GibbsConfig(task="ordered"), "cutpoint")):
+        with pytest.raises(ValueError, match=match):
+            tcat.draw_sweep_variates(plan, cfg, 2, gen, torch.float64, "cpu")

@@ -544,3 +544,120 @@ def test_vi_fit_on_card_goes_through_both_kernels():
     pred = fm.predict(Xte, bte)
     assert float(np.sqrt(np.mean((pred - te["rating"]) ** 2))) < (
         te["rating"].std())
+
+
+# ---------------------------------------------------------------------------
+# tile_gram (kernel 3), the section levels (kernel 5) and the (slot, τ)
+# probe (kernel 6); one probit sweep through the kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-4),
+                                       (np.float64, 1e-10)])
+@pytest.mark.parametrize("T,S,D", [(16, 2, 5), (256, 8, 34), (1024, 4, 34)])
+def test_tile_gram_kernel_matches_plain(dtype, tol, T, S, D):
+    device = _cuda()
+    rng = np.random.RandomState(T + S)
+    N, B = 20_000, 300
+    ent = rng.randint(0, B, N)
+    ent[: N // 4] = 2
+    tab = compile_categorical_table(ent, B, 0, N, dtype, device,
+                                    fixed_ts=(T, S))
+    z = torch.as_tensor(rng.normal(size=(N + 1, D)).astype(dtype),
+                        device=device)
+    z[N] = 0.0  # pad rows gather the zero row
+    rows = z[tab.src.long()].view(tab.n_tiles, T, D)
+    carry = torch.as_tensor(rng.normal(size=(D, D)).astype(dtype),
+                            device=device)
+    args = (rows, tab.slot.view(tab.n_tiles, T), tab.cont_in, tab.cont_out,
+            tab.last_slot, S)
+    if T * D * np.dtype(dtype).itemsize > gram.SMEM_LIMIT:
+        with pytest.raises(ValueError, match="shared memory"):
+            gram.tile_gram(*args)
+        return
+    before = gram.tile_gram.launches
+    out, c = gram.tile_gram(*args, carry_in=carry)
+    torch.cuda.synchronize()
+    assert gram.tile_gram.launches == before + 1
+    ref, rc = gram.tile_gram_reference(*args, carry_in=carry)
+    scale = max(float(ref.abs().max()), 1.0)
+    assert float((out - ref).abs().max()) <= tol * scale
+    assert float((c - rc).abs().max()) <= tol * scale
+    G = gram.entity_grams(tab, rows, S, D)
+    Gp = gram.entity_grams(tab, rows, S, D, plain=True)
+    assert float((G - Gp).abs().max()) <= tol * max(
+        float(Gp.abs().max()), 1.0)
+
+
+@pytest.mark.cuda
+def test_section_levels_on_the_card():
+    """Every level within tolerance of its plain version, level 3 bit for
+    bit the production kernel (tools/kernel_sections.check_sections)."""
+    from myfm_tpu_torch.tools import kernel_sections as ks
+
+    _cuda()
+    ops = ks.synthetic_operands(256, 4, 32, n_rows=200_000)
+    before = list(gram.gram_section.launches)
+    ks.check_sections(ops, 4)
+    assert [a - b for a, b in zip(gram.gram_section.launches, before)] \
+        == [1, 1, 1, 1]
+    # a real packing with continued entities and pad rows
+    args = _problem(256, 8, 2, seed=3, dtype=np.float32)
+    aux2, gths, wvsl, flags, S, _ = args
+    t = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
+    ks.check_sections([t(aux2), [t(g) for g in gths], t(wvsl),
+                       *[t(f) for f in flags]], S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 2, 256), (300, 2, 256), (7, 2, 3000)])
+def test_interleave_probe_is_the_transpose(shape):
+    from myfm_tpu_torch.tools import kernel_sections as ks
+
+    _cuda()
+    ks.check_probe(torch.randn(shape, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["classification", "ordered"])
+def test_probit_sweep_through_the_kernel_matches_plain(task):
+    """One fast-path sweep of each probit task through kernel 1 vs one
+    through its plain version, same state and variates (fp64)."""
+    device = _cuda()
+    from myfm_tpu_torch import RelationBlock
+    from myfm_tpu_torch.design_categorical import try_compile_categorical
+    from myfm_tpu_torch.ops.categorical import (
+        categorical_sweep,
+        draw_sweep_variates,
+    )
+    from myfm_tpu_torch.ops.gibbs import GibbsConfig
+    from myfm_tpu_torch.trainer import CategoricalGibbsTrainer
+
+    rng = np.random.RandomState(4)
+    n, n_u, n_i = 5000, 80, 50
+    u, i = rng.randint(0, n_u, n), rng.randint(0, n_i, n)
+    z = rng.normal(size=n_u)[u] + rng.normal(size=n_i)[i]
+    y = (np.where(z > 0, 1.0, -1.0) if task == "classification"
+         else np.searchsorted([-1.0, 0.0, 1.0], z).astype(np.float64))
+    blocks = [RelationBlock(u, sps.identity(n_u, format="csr")),
+              RelationBlock(i, sps.identity(n_i, format="csr"))]
+    plan = try_compile_categorical(None, blocks, None, None, np.float64,
+                                   device, rank=4)
+    extra = dict(n_class=4) if task == "ordered" else {}
+    tr = CategoricalGibbsTrainer(plan, y, GibbsConfig(task=task, **extra),
+                                 4, 0.1, 0, np.float64)
+    st = tr._initialize()
+    v = draw_sweep_variates(plan, tr.cfg, 4, tr.generator, torch.float64,
+                            device)
+    before = gram.fused_tile_gram_cross.launches
+    a = categorical_sweep(plan, st, tr.y, tr.y_tiles, v, tr.cfg)
+    assert gram.fused_tile_gram_cross.launches > before
+    b = categorical_sweep(plan, st, tr.y, tr.y_tiles, v, tr.cfg, plain=True)
+    for f in ("w", "V", "e"):
+        x, r = getattr(a.core, f), getattr(b.core, f)
+        assert float((x - r).abs().max()) <= 1e-8 * max(
+            float(r.abs().max()), 1.0), f
+    if task == "ordered":
+        assert torch.allclose(a.core.cutpoints, b.core.cutpoints,
+                              rtol=1e-8)
