@@ -96,7 +96,14 @@ slot-masked operand for the Gram kernels and section levels 1-3,
 transpose(1, 2).contiguous() for the probe; none for the joint tail, a
 chain of ~1k dependent colors, nor for section level 0).  Times are
 summed over the tables (or block tails) of the path, at their first
-chunk.
+chunk; ``fused_tile_gram_cross[vi]`` is kernel 1's VI layout on the
+ML-100k design and ``fused_tile_gram_cross[vi10m]`` the same at the
+ML-10M shape (v10m).  The phase lines of the Gram kernels also give
+``device_ms``, one call's device time by torch.profiler (the median
+duration of each of its kernels; pass 1 and the carry apart), beside
+the event-timed ``ms``; null where no trace held the call whole
+(traces late in this long process can lose events; the fresh process
+of ``python -m myfm_tpu_torch.tools.vi_gram`` is the one to read).
 
 The last line is {"ok": true, "device": {...}}, printed only when
 every phase passed; any failure exits non-zero.  Without a CUDA card,
@@ -105,7 +112,6 @@ or without the package beside this file, it exits non-zero at once.
 
 import contextlib
 import json
-import re
 import subprocess
 import sys
 import time
@@ -195,26 +201,6 @@ def say(phase, message):
     print(f"[{phase}] {message}", flush=True)
 
 
-def ptxas_summary(log):
-    """'kernel<type[, flag]>: N regs' per entry function of an nvcc
-    -Xptxas -v log, plus any line that reports spills."""
-    out, name = [], None
-    for line in log.splitlines():
-        m = re.search(r"entry function '.*?\d([a-z_]+_kernel)I([fd])"
-                      r"(?:Lb([01])E)?E", line)
-        if m:
-            dtype = "float" if m.group(2) == "f" else "double"
-            flag = "" if m.group(3) is None else f", {m.group(3)}"
-            name = f"{m.group(1)}<{dtype}{flag}>"
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            out.append(f"{name}: {m.group(1)} regs")
-            name = None
-        if "spill" in line and " 0 bytes spill stores" not in line:
-            out.append(line.strip())
-    return out
-
-
 def cuda_ms(torch, fn, reps):
     """Mean device milliseconds of ``fn`` over ``reps`` runs after one
     warm-up, timed with CUDA events."""
@@ -241,56 +227,32 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def cast(torch, ops, dtype):
-    """The operands with every float tensor (also inside lists) in
-    ``dtype``; index tensors are kept."""
-    def one(t):
-        return t.to(dtype) if t.is_floating_point() else t
-
-    return [[one(g) for g in o] if isinstance(o, list) else one(o)
-            for o in ops]
-
-
-def compare_gram(torch, kernel, plain, rows_of, ops, S, kw, rows, tol,
-                 label, row_ops=4):
+def compare_gram(torch, kernel, plain, rows_of, ops, S, kw, tol, label,
+                 row_ops=4):
     """One Gram kernel vs its plain version on ``ops`` in fp32 and fp64
-    (max error over max |plain|), then fp32 times: the kernel, the plain
-    version, the one-call yardstick (torch.bmm of the prebuilt
-    slot-masked operand) and the bound of the kernel's work on this
-    chunk's rows (its inputs read once, its outputs written once; per
-    valid row the rectangle's unique entries, two operations each, and
-    ~4 D to build the row)."""
-    from myfm_tpu_torch.ops.gram import masked_rows
+    (max error over max |plain|, at most ``tol``), then fp32 times
+    (``tools.vi_gram.time_kernel``): the kernel by CUDA events (``ms``,
+    the wrapper's host work included) and by the profiler's kernel
+    durations (``device_ms``: pass 1 and the carry apart; None, with the
+    reason, where no trace of this long process held the call whole),
+    the one-call yardstick (torch.bmm of the prebuilt slot-masked
+    operand), the bound of the kernel's work on this chunk's rows
+    (``row_ops`` D operations per row to build it); and the plain
+    version's time."""
+    from myfm_tpu_torch.tools.vi_gram import (cast, check, device_ms,
+                                              time_kernel)
 
-    row = {}
-    for dtype in (torch.float32, torch.float64):
-        o = cast(torch, ops, dtype)
-        out, carry = kernel(*o, S, **kw)
-        ref, ref_carry = plain(*o, S, **kw)
-        torch.cuda.synchronize()
-        err = max(float((out - ref).abs().max()),
-                  float((carry - ref_carry).abs().max()))
-        scale = max(float(ref.abs().max()), 1.0)
-        name = str(dtype).split(".")[1]
-        row[f"err_{name}"] = err
-        row[f"rel_{name}"] = err / scale
-        if not np.isfinite(err) or err > tol[name] * scale:
-            fail(f"{label} {name}: max abs err {err:.3e} > "
-                 f"{tol[name]:.0e} x {scale:.3e}")
-        if dtype != torch.float32:
-            continue
-        row["ms"] = cuda_ms(torch, lambda: kernel(*o, S, **kw), 10)
-        row["plain_ms"] = cuda_ms(torch, lambda: plain(*o, S, **kw), 3)
-        z, m = rows_of(o, S)
-        mz = masked_rows(z, m, rows).transpose(1, 2)
-        row["library_ms"] = cuda_ms(torch, lambda: torch.bmm(mz, z), 10)
-        D = z.shape[2]
-        n_valid = int((m.sum(dim=2) > 0).sum())
-        pairs = rows * (rows + 1) // 2 + rows * (D - rows)
-        flat = [t for x in o for t in (x if isinstance(x, list) else [x])]
-        moved = nbytes(*flat) + nbytes(out, carry) + carry.numel() * 4
-        row["bound_ms"], row["bound_by"] = bound(
-            moved, n_valid * (2 * pairs + row_ops * D))
+    try:
+        row = check(kernel, plain, ops, S, kw, tol)
+    except AssertionError as exc:
+        fail(f"{label}: {exc}")
+    o = cast(ops, torch.float32)
+    row.update(time_kernel(kernel, rows_of, o, S, kw, row_ops))
+    try:
+        row.update(device_ms(lambda: kernel(*o, S, **kw)))
+    except RuntimeError as exc:
+        row.update(device_ms=None, device_ms_error=str(exc))
+    row["plain_ms"] = cuda_ms(torch, lambda: plain(*o, S, **kw), 3)
     return row
 
 
@@ -345,7 +307,7 @@ def kernel_phase(torch, plan, state, y_tiles):
             torch, gram.fused_tile_gram_cross,
             gram.fused_tile_gram_cross_reference,
             lambda o, S: gram.cross_rows(o[0], o[1], o[2], S), ops, S,
-            {}, RANK + 2, KERNEL_TOL, f"kernel vs plain, table {ti}",
+            {}, KERNEL_TOL, f"kernel vs plain, table {ti}",
         ))
         rows.append(row)
     return rows
@@ -437,8 +399,8 @@ def egram_phase(torch, plan, state, y_tiles):
             torch, gram.tile_gram, gram.tile_gram_reference,
             lambda o, S: (o[0], (o[1].long()[:, :, None] == torch.arange(
                 S, device=o[1].device)).to(o[0].dtype)),
-            kops, S, {}, RANK + 2, KERNEL_TOL, f"tile_gram vs plain, table "
-            f"{ti}", row_ops=0,
+            kops, S, {}, KERNEL_TOL, f"tile_gram vs plain, table {ti}",
+            row_ops=0,
         ))
         mine, _ = gram.tile_gram(*kops, S)
         k1, _ = gram.fused_tile_gram_cross(*ops, S)
@@ -772,7 +734,7 @@ def vi_layout_rows(torch, plan, state, y_tiles, rank, tables):
             torch, gram.fused_tile_gram_cross,
             gram.fused_tile_gram_cross_reference,
             lambda o, S: gram.cross_rows(o[0], o[1], o[2], S, 2, 2 * rank),
-            list(ops), t.tile_entities, kw, 2 + rank, VKERNEL_TOL,
+            list(ops), t.tile_entities, kw, VKERNEL_TOL,
             f"VI-layout kernel vs plain, table {ti}",
         ))
         out.append(row)
@@ -804,7 +766,7 @@ def vkernel_phase(torch, plan, trainer, state):
             torch, gram.fused_tile_gram, gram.fused_tile_gram_reference,
             lambda o, S: gram.meta_rows(o[0], o[1], o[2], o[3], S),
             list(ops), t.tile_entities, dict(out_rows=2 + V_RANK),
-            2 + V_RANK, VKERNEL_TOL, f"fused_tile_gram vs plain, table {ti}",
+            VKERNEL_TOL, f"fused_tile_gram vs plain, table {ti}",
         ))
         rows.append(row)
     onehot = [ti for ti, si in enumerate(plan.side) if si is None]
@@ -963,7 +925,8 @@ def main():
     logs = _build.build_all()
     for name in _build.SOURCES:
         _build.load(name)
-    ptxas = [item for log in logs.values() for item in ptxas_summary(log)]
+    ptxas = [item for log in logs.values()
+             for item in _build.ptxas_summary(log)]
     say("build", f"{len(logs)} kernel source(s) built in "
                  f"{time.perf_counter() - t0:.1f} s; " + ", ".join(ptxas))
 
@@ -1369,6 +1332,8 @@ def main():
               [r for r in vrows if r["kernel"] != "fused_tile_gram"]),
         entry("fused_tile_gram", GRAM_SOURCE, META_REPLACES, v_meta,
               [r for r in vrows if r["kernel"] == "fused_tile_gram"]),
+        entry("fused_tile_gram_cross[vi10m]", GRAM_SOURCE, GRAM_REPLACES,
+              v10_launches, k10),
         entry("joint_tail_pass", TAIL_SOURCE, TAIL_REPLACES, jlaunches,
               jrows),
         entry("tile_gram", GRAM_SOURCE, ROWS_REPLACES, e_launches, erows),

@@ -15,6 +15,14 @@ namespace {
 constexpr int kMaxCross = 8;
 constexpr int kMaxSlots = 64;  // the per-thread "slot written" mask is 64 bits
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// Kernel 1's rectangle pass: loads each thread keeps in flight while
+// staging a tile, and blocks per SM its fp32 kernel is compiled for
+// (<= 80 registers; it takes ~110 without the cap, which leaves 2
+// blocks).  Its square kernels ask for no minimum (0), which compiles
+// them exactly as before; a minimum of 1 would not.
+constexpr int kStageBatch = 4;
+constexpr int kRectBlocks = 3;
 constexpr int kSegTiles = 32;
 
 template <typename F>
@@ -96,10 +104,206 @@ __device__ void tile_grams(const F* z, int P, const int* slot, int T, int S,
   }
 }
 
-// Pass 1 of the cross entry point: one block per tile -> its S partial
-// Gram rectangles (no carry).
+// The run list of one chunk of rows: the maximal runs of equal valid slot
+// (in [0, S)) among rows [base, base + kThreads), in row order.  A run
+// that the chunk's edge cuts continues in the next chunk's first run.
+struct RunList {
+  int lo[kThreads];
+  int hi[kThreads];
+  int slot[kThreads];
+  int n_lo[kWarps];
+  int n_hi[kWarps];
+};
+
+// Every thread of the block (blockDim.x == kThreads) calls this; returns
+// the number of runs.  Each thread tests one row for the start and the
+// end of a run, and a ballot per warp plus a prefix over the warps
+// places the runs in row order.
+__device__ int build_runs(const int* slot, int T, int S, int base,
+                          RunList& rl) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int t = base + tid;
+  const int end = min(T, base + kThreads);
+  int s = -1;
+  if (t < end) s = slot[t];
+  const bool valid = t < end && s >= 0 && s < S;
+  const bool first = valid && (t == base || slot[t - 1] != s);
+  const bool last = valid && (t == end - 1 || slot[t + 1] != s);
+  const unsigned m_lo = __ballot_sync(0xffffffffu, first);
+  const unsigned m_hi = __ballot_sync(0xffffffffu, last);
+  if (lane == 0) {
+    rl.n_lo[warp] = __popc(m_lo);
+    rl.n_hi[warp] = __popc(m_hi);
+  }
+  __syncthreads();
+  int off_lo = 0, off_hi = 0, n = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    if (w < warp) {
+      off_lo += rl.n_lo[w];
+      off_hi += rl.n_hi[w];
+    }
+    n += rl.n_lo[w];
+  }
+  const unsigned below = (1u << lane) - 1u;
+  if (first) {
+    const int r = off_lo + __popc(m_lo & below);
+    rl.lo[r] = t;
+    rl.slot[r] = s;
+  }
+  if (last) rl.hi[off_hi + __popc(m_hi & below)] = t + 1;
+  __syncthreads();
+  return n;
+}
+
+// A thread's TM x TN register block into one slot's rectangle o: set, or
+// added where an earlier run of the slot already wrote it (slots out of
+// order).
+template <typename F, int TM, int TN>
+__device__ __forceinline__ void store_block(F* o, const F (&acc)[TM][TN],
+                                            int bi, int bj, int NI, int NJ,
+                                            int out_rows, int D,
+                                            bool again) {
+#pragma unroll
+  for (int m = 0; m < TM; ++m) {
+    const int i = bi + m * NI;
+#pragma unroll
+    for (int n = 0; n < TN; ++n) {
+      const int j = bj + n * NJ;
+      if (i < out_rows && j < D) {
+        F* e = o + (size_t)i * D + j;
+        *e = again ? *e + acc[m][n] : acc[m][n];
+      }
+    }
+  }
+}
+
+// The [out_rows, D] rectangle in TM x TN register blocks.  The block grid
+// is NI x NJ (NI = ceil(out_rows / TM), NJ = ceil(D / TN)); block (bi, bj)
+// owns rows bi + m NI and columns bj + n NJ, so the threads of a warp read
+// consecutive z columns (no bank conflicts) and write consecutive output
+// columns.  Edge entries read a clamped column and are not written.
+template <typename F, int TM, int TN>
+__device__ void rect_grams_tiled(const F* z, int P, const int* slot, int T,
+                                 int S, int D, int out_rows, F* out_tile,
+                                 RunList& rl) {
+  const int NI = (out_rows + TM - 1) / TM;
+  const int NJ = (D + TN - 1) / TN;
+  const int n_blocks = NI * NJ;
+  const size_t per_slot = (size_t)out_rows * D;
+  for (int p0 = 0; p0 < n_blocks; p0 += kThreads) {
+    const int p = p0 + threadIdx.x;
+    const bool owns = p < n_blocks;
+    const int bi = owns ? p / NJ : 0;
+    const int bj = owns ? p % NJ : 0;
+    int ci[TM], cj[TN];
+#pragma unroll
+    for (int m = 0; m < TM; ++m) ci[m] = min(bi + m * NI, out_rows - 1);
+#pragma unroll
+    for (int n = 0; n < TN; ++n) cj[n] = min(bj + n * NJ, D - 1);
+    F acc[TM][TN];
+    uint64_t written = 0;
+    int cur = -1, prev_hi = -1;
+
+    for (int base = 0; base < T; base += kThreads) {
+      const int n_runs = build_runs(slot, T, S, base, rl);
+      if (owns) {
+        for (int r = 0; r < n_runs; ++r) {
+          const int lo = rl.lo[r], hi = rl.hi[r], s = rl.slot[r];
+          if (s != cur || lo != prev_hi) {
+            if (cur >= 0) {
+              store_block(out_tile + cur * per_slot, acc, bi, bj, NI, NJ,
+                          out_rows, D, (written >> cur) & 1ull);
+              written |= 1ull << cur;
+            }
+            cur = s;
+#pragma unroll
+            for (int m = 0; m < TM; ++m) {
+#pragma unroll
+              for (int n = 0; n < TN; ++n) acc[m][n] = F(0);
+            }
+          }
+          // one pointer per operand column, stepped by the row pitch (the
+          // compiler then issues one add per shared load, not index math)
+          const F* pa[TM];
+          const F* pb[TN];
+#pragma unroll
+          for (int m = 0; m < TM; ++m) pa[m] = z + (size_t)lo * P + ci[m];
+#pragma unroll
+          for (int n = 0; n < TN; ++n) pb[n] = z + (size_t)lo * P + cj[n];
+#pragma unroll 4
+          for (int t = lo; t < hi; ++t) {
+            F a[TM], b[TN];
+#pragma unroll
+            for (int m = 0; m < TM; ++m) {
+              a[m] = *pa[m];
+              pa[m] += P;
+            }
+#pragma unroll
+            for (int n = 0; n < TN; ++n) {
+              b[n] = *pb[n];
+              pb[n] += P;
+            }
+#pragma unroll
+            for (int m = 0; m < TM; ++m) {
+#pragma unroll
+              for (int n = 0; n < TN; ++n) {
+                acc[m][n] = fma(a[m], b[n], acc[m][n]);
+              }
+            }
+          }
+          prev_hi = hi;
+        }
+      }
+      __syncthreads();  // the next chunk rebuilds the run list
+    }
+    if (!owns) continue;
+    if (cur >= 0) {
+      store_block(out_tile + cur * per_slot, acc, bi, bj, NI, NJ, out_rows,
+                  D, (written >> cur) & 1ull);
+      written |= 1ull << cur;
+    }
+#pragma unroll
+    for (int m = 0; m < TM; ++m) {
+#pragma unroll
+      for (int n = 0; n < TN; ++n) acc[m][n] = F(0);
+    }
+    for (int s = 0; s < S; ++s) {
+      if (!((written >> s) & 1ull)) {
+        store_block(out_tile + s * per_slot, acc, bi, bj, NI, NJ, out_rows,
+                    D, false);
+      }
+    }
+  }
+}
+
+// tile_grams for a rectangle (out_rows < D), with the same arguments and
+// the same result bit for bit: every entry sums its rows in tile order
+// with fma from 0 at each run of its slot, as tile_grams does, and
+// fma(a, b, c) == fma(b, a, c), so the lower half of the leading square,
+// computed here directly, equals tile_grams's mirror.  Every thread of
+// the block calls it.  4 x 4 blocks where they keep at least half the
+// threads busy (the ML-10M VI shape, [34, 98]: 225 blocks), else 2 x 2
+// (ML-100k, [12, 32]: 96 blocks).
 template <typename F>
-__global__ void __launch_bounds__(kThreads)
+__device__ void rect_grams(const F* z, int P, const int* slot, int T, int S,
+                           int D, int out_rows, F* out_tile) {
+  __shared__ RunList rl;
+  const int n44 = ((out_rows + 3) / 4) * ((D + 3) / 4);
+  if (n44 >= kThreads / 2) {
+    rect_grams_tiled<F, 4, 4>(z, P, slot, T, S, D, out_rows, out_tile, rl);
+  } else {
+    rect_grams_tiled<F, 2, 2>(z, P, slot, T, S, D, out_rows, out_tile, rl);
+  }
+}
+
+// Pass 1 of the cross entry point: one block per tile -> its S partial
+// Gram rectangles (no carry); kRect: out_rows < D (rect_grams), else the
+// full square (tile_grams).
+template <typename F, bool kRect>
+__global__ void __launch_bounds__(kThreads,
+                                  kRect && sizeof(F) == 4 ? kRectBlocks : 0)
 gram_tile_kernel(const F* __restrict__ aux2, CrossPtrs<F> gths, int n_cross,
                  const F* __restrict__ wvsl, F* __restrict__ out, int T,
                  int S, int R, int q_lo, int n_extra, int out_rows) {
@@ -119,13 +323,40 @@ gram_tile_kernel(const F* __restrict__ aux2, CrossPtrs<F> gths, int n_cross,
   // cross sums per row, coalesced over the tile's rows (the unrolled loop
   // indexes the pointer array statically, so it stays in kernel-parameter
   // space instead of a local-memory copy)
-  for (int i = tid; i < T * W; i += blockDim.x) {
-    F acc = F(0);
+  if constexpr (kRect) {
+    // kStageBatch elements per thread at once: their loads are in flight
+    // together (the same sums, in the same order).  Measured only at the
+    // VI shapes, where kernel 2's stage lost to it; the square (Gibbs
+    // layout) keeps its one-at-a-time loop and its code.
+    for (int i0 = tid; i0 < T * W; i0 += kStageBatch * kThreads) {
+      F acc[kStageBatch];
 #pragma unroll
-    for (int c = 0; c < kMaxCross; ++c) {
-      if (c < n_cross) acc += gths.p[c][tile_off + i];
+      for (int u = 0; u < kStageBatch; ++u) acc[u] = F(0);
+#pragma unroll
+      for (int c = 0; c < kMaxCross; ++c) {
+        if (c < n_cross) {
+#pragma unroll
+          for (int u = 0; u < kStageBatch; ++u) {
+            const int i = i0 + u * kThreads;
+            if (i < T * W) acc[u] += gths.p[c][tile_off + i];
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kStageBatch; ++u) {
+        const int i = i0 + u * kThreads;
+        if (i < T * W) z[i] = acc[u];
+      }
     }
-    z[i] = acc;
+  } else {
+    for (int i = tid; i < T * W; i += blockDim.x) {
+      F acc = F(0);
+#pragma unroll
+      for (int c = 0; c < kMaxCross; ++c) {
+        if (c < n_cross) acc += gths.p[c][tile_off + i];
+      }
+      z[i] = acc;
+    }
   }
   for (int i = tid; i < S * Wo; i += blockDim.x) {
     own[i] = wvsl[(size_t)k * S * Wo + i];
@@ -162,13 +393,19 @@ gram_tile_kernel(const F* __restrict__ aux2, CrossPtrs<F> gths, int n_cross,
   }
   __syncthreads();
 
-  tile_grams(z, W, slot, T, S, D, out_rows,
-             out + (size_t)k * S * out_rows * D);
+  if constexpr (kRect) {
+    rect_grams(z, W, slot, T, S, D, out_rows,
+               out + (size_t)k * S * out_rows * D);
+  } else {
+    tile_grams(z, W, slot, T, S, D, out_rows,
+               out + (size_t)k * S * out_rows * D);
+  }
 }
 
 // Pass 1 of the meta entry point: one block per tile -> its S partial
-// Gram rectangles (no carry).
-template <typename F>
+// Gram rectangles (no carry); kRect as in gram_tile_kernel (no register
+// cap here: kernel 2 loses to it, kernel 1 gains).
+template <typename F, bool kRect>
 __global__ void __launch_bounds__(kThreads)
 gram_meta_tile_kernel(const F* __restrict__ meta, const F* __restrict__ qo,
                       const int* __restrict__ slot_in,
@@ -185,7 +422,9 @@ gram_meta_tile_kernel(const F* __restrict__ meta, const F* __restrict__ qo,
   const int tid = threadIdx.x;
   const size_t row0 = (size_t)k * T;
 
-  for (int i = tid; i < T * Rq; i += blockDim.x) {
+  // a compile-time stride (the block is kThreads wide): kernel 2's
+  // rectangle kernel measured faster with it than with blockDim.x
+  for (int i = tid; i < T * Rq; i += kThreads) {
     const int t = i / Rq;
     z[(size_t)t * D + 2 + (i - t * Rq)] = qo[row0 * Rq + i];
   }
@@ -220,8 +459,13 @@ gram_meta_tile_kernel(const F* __restrict__ meta, const F* __restrict__ qo,
   }
   __syncthreads();
 
-  tile_grams(z, D, slot, T, S, D, out_rows,
-             out + (size_t)k * S * out_rows * D);
+  if constexpr (kRect) {
+    rect_grams(z, D, slot, T, S, D, out_rows,
+               out + (size_t)k * S * out_rows * D);
+  } else {
+    tile_grams(z, D, slot, T, S, D, out_rows,
+               out + (size_t)k * S * out_rows * D);
+  }
 }
 
 // Pass 1 of the rows entry point (kernel 3): one block per tile copies its
@@ -356,15 +600,16 @@ int launch_cross_grams(const void* aux2, const void* const* gths,
   const int W = q_lo + R + n_extra + 1;
   const size_t smem = ((size_t)T * W + (size_t)S * (R + 2)) * sizeof(F) +
                       (size_t)T * sizeof(int);
+  const auto kernel = out_rows < D ? gram_tile_kernel<F, true>
+                                    : gram_tile_kernel<F, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      gram_tile_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   CrossPtrs<F> cp;
   for (int c = 0; c < kMaxCross; ++c) {
     cp.p[c] = c < n_cross ? static_cast<const F*>(gths[c]) : nullptr;
   }
-  gram_tile_kernel<F><<<K, kThreads, smem, st>>>(
+  kernel<<<K, kThreads, smem, st>>>(
       static_cast<const F*>(aux2), cp, n_cross, static_cast<const F*>(wvsl),
       static_cast<F*>(out), T, S, R, q_lo, n_extra, out_rows);
   return (int)cudaGetLastError();
@@ -399,12 +644,13 @@ int launch_meta(const void* meta, const void* q_other, const int* slot,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = ((size_t)T * D + (size_t)S * (R + 1)) * sizeof(F) +
                       (size_t)T * sizeof(int);
+  const auto kernel = out_rows < D ? gram_meta_tile_kernel<F, true>
+                                    : gram_meta_tile_kernel<F, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      gram_meta_tile_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   F* o = static_cast<F*>(out);
-  gram_meta_tile_kernel<F><<<K, kThreads, smem, st>>>(
+  kernel<<<K, kThreads, smem, st>>>(
       static_cast<const F*>(meta), static_cast<const F*>(q_other), slot,
       static_cast<const F*>(wvsl), o, T, S, R, Rq, out_rows);
   err = cudaGetLastError();

@@ -112,3 +112,23 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib
     return lib
+
+
+def ptxas_summary(log: str) -> List[str]:
+    """'kernel<type[, flag]>: N regs' per entry function of an nvcc
+    -Xptxas -v log, with its stack frame and spills where it has any."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"entry function '.*?\d([a-z_]+_kernel)I([fd])"
+                      r"(?:Lb([01])E)?E", line)
+        if m:
+            dtype = "float" if m.group(2) == "f" else "double"
+            flag = "" if m.group(3) is None else f", {m.group(3)}"
+            name, spill = f"{m.group(1)}<{dtype}{flag}>", ""
+        if "spill" in line and " 0 bytes spill stores" not in line:
+            spill = f" ({line.strip()})"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} regs{spill}")
+            name = None
+    return out

@@ -1,0 +1,296 @@
+"""Kernel 1's VI layout and kernel 2 at the two VI shapes, on a CUDA card.
+
+The short loop for the Gram-rectangle pass (``rect_grams`` in
+csrc/gram_tile.cuh) that both kernels run wherever ``out_rows < D``:
+``fused_tile_gram_cross(..., q_lo=2, n_extra=2R, out_rows=2+R)`` and
+``fused_tile_gram(..., out_rows=2+R)`` on synthetic operands packed as
+the fast path packs a table (skewed entity counts, T and S from
+``choose_tiling`` at ``rank=3R``, the first chunk of tiles):
+
+  100k  rank 10: D = 32, out_rows 12 (T = 256); 90,000 rows, 943 entities
+  10m   rank 32: D = 98, out_rows 34 (T = 128); one 1M-row chunk
+
+For each kernel and shape it prints one JSON line: the kernel against
+its plain version in float32 (within 1e-5 of the output's scale) and
+float64 (1e-12); in float32 the time by CUDA events around 10 calls
+(host work of the wrapper included), the device time of one call by
+``torch.profiler`` (the median duration of each of the call's kernels:
+pass 1, the three carry kernels, the carry_in fill; a trace that misses
+pass 1 or the carry, or holds far more or fewer events than the calls
+launched, is taken again, and the tool fails if none is whole), the
+least time the card could take (the bytes moved over 3.35 TB/s, or the
+fp32 operations over 67 TFLOP/s if larger) and one ``torch.bmm`` of the
+slot-masked operand as yardstick.  ``chip_smoke.py`` checks and times
+every Gram kernel of the port with ``check``, ``time_kernel`` and
+``device_ms``.
+
+Run it on the card:
+
+    python -m myfm_tpu_torch.tools.vi_gram [100k|10m ...]
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+from typing import Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from ..design_categorical import compile_categorical_table
+from ..ops import _build, gram
+from .kernel_sections import _bound, _nbytes, cuda_ms
+
+SHAPES = {
+    "100k": dict(rank=10, n_rows=90_000, n_entities=943),
+    "10m": dict(rank=32, n_rows=1 << 20, n_entities=7_000),
+}
+# |kernel − plain| over max |plain|: the same sums over up to ~10^4 rows
+# per carried chain in another order
+TOL = {"float32": 1e-5, "float64": 1e-12}
+ZIPF = 0.7  # entity n draws rows in proportion to (n + 1)^-ZIPF
+
+
+def _packing(rank: int, n_rows: int, n_entities: int, seed: int,
+             fixed_ts=None):
+    """A table packed at the VI Gram's width (``rank=3R``) from skewed
+    entity counts, cut to its first chunk of tiles: (table, K, flags)."""
+    rng = np.random.RandomState(seed)
+    p = (1.0 + np.arange(n_entities)) ** -ZIPF
+    counts = rng.multinomial(n_rows, p / p.sum())
+    ent = np.repeat(rng.permutation(n_entities), counts)
+    tab = compile_categorical_table(ent, n_entities, 0, n_rows, np.float32,
+                                    "cpu", rank=3 * rank, fixed_ts=fixed_ts)
+    K = tab.chunk_tiles
+    flags = [f[:K].contiguous() for f in (tab.cont_in, tab.cont_out,
+                                          tab.last_slot)]
+    return tab, K, flags
+
+
+def cross_operands(rank: int, n_rows: int, n_entities: int, seed: int = 0,
+                   device="cuda", fixed_ts=None):
+    """Kernel 1's VI-layout operands in float32: ([aux2, gths, wvsl,
+    cont_in, cont_out, last_slot], S, keywords).  The gathered rows of
+    two other tables (as on ML-10M: user, item, date) are
+    [w | wvar | V | σ | sv | qs] (3 + 3R columns), zero on pad rows;
+    own rows [w | V | qs]."""
+    tab, K, flags = _packing(rank, n_rows, n_entities, seed, fixed_ts)
+    T, S, R = tab.tile_rows, tab.tile_entities, rank
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    slot_f = tab.slot_f[: K * T].reshape(K, T).to(device)
+    valid = (slot_f < S).float()[:, :, None]
+    gths = []
+    for _ in range(2):
+        V = 0.3 * randn(K, T, R)
+        s = 0.1 * torch.rand((K, T, R), generator=g, device=device) + 0.01
+        body = torch.cat([randn(K, T, 1), randn(K, T, 1).abs(), V, s, s * V,
+                          (V * V).sum(dim=2, keepdim=True)], dim=2)
+        gths.append((body * valid).contiguous())
+    wv = 0.3 * randn(K, S, 1 + R)
+    wvsl = torch.cat([wv, (wv[:, :, 1:] ** 2).sum(dim=2, keepdim=True)],
+                     dim=2).contiguous()
+    aux2 = torch.stack([slot_f, 3.0 + randn(K, T) * valid[:, :, 0]], dim=1)
+    ops = [aux2.contiguous(), gths, wvsl] + [f.to(device) for f in flags]
+    return ops, S, dict(q_lo=2, n_extra=2 * R, out_rows=2 + R)
+
+
+def meta_operands(rank: int, n_rows: int, n_entities: int, seed: int = 0,
+                  device="cuda", fixed_ts=None):
+    """Kernel 2's operands in float32 as the VI entity+attribute pass
+    gives them: ([meta, q_other, slot, wvsl, cont_in, cont_out,
+    last_slot], S, keywords), with meta = [ones | lin − τ | qs_other],
+    ones = 0 on pad rows, q_other [K, T, 3R], own rows [w | V]."""
+    tab, K, flags = _packing(rank, n_rows, n_entities, seed, fixed_ts)
+    T, S, R = tab.tile_rows, tab.tile_entities, rank
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    ones = (tab.src[: K * T].reshape(K, T) < n_rows).float().to(device)
+    meta = torch.stack([ones, (3.0 + randn(K, T)) * ones,
+                        torch.rand((K, T), generator=g, device=device)
+                        * ones], dim=2)
+    q_other = 0.3 * randn(K, T, 3 * R) * ones[:, :, None]
+    wvsl = 0.3 * randn(K, S, 1 + R)
+    slot = tab.slot[: K * T].reshape(K, T).contiguous().to(device)
+    ops = [meta.contiguous(), q_other.contiguous(), slot, wvsl.contiguous()]
+    return ops + [f.to(device) for f in flags], S, dict(out_rows=2 + R)
+
+
+# name -> (operand builder, kernel, plain version, z rows and slot mask)
+KERNELS = {
+    "fused_tile_gram_cross[vi]": (
+        cross_operands, gram.fused_tile_gram_cross,
+        gram.fused_tile_gram_cross_reference,
+        lambda o, S: gram.cross_rows(o[0], o[1], o[2], S, 2,
+                                     2 * (o[2].shape[2] - 2)),
+    ),
+    "fused_tile_gram": (
+        meta_operands, gram.fused_tile_gram, gram.fused_tile_gram_reference,
+        lambda o, S: gram.meta_rows(o[0], o[1], o[2], o[3], S),
+    ),
+}
+
+
+def cast(ops, dtype):
+    """The operands with every float tensor (also inside lists) in
+    ``dtype``; index tensors are kept."""
+    def one(t):
+        return t.to(dtype) if t.is_floating_point() else t
+
+    return [[one(g) for g in o] if isinstance(o, list) else one(o)
+            for o in ops]
+
+
+def check(kernel, plain, ops: Sequence, S: int, kw: dict,
+          tol=TOL) -> Dict[str, float]:
+    """A Gram kernel against its plain version in float32 and float64:
+    per dtype the max error of the output and the carry (``err_*``) and
+    that over max |plain| (``rel_*``); raises AssertionError above
+    ``tol`` (by dtype name).  On CPU tensors the wrapper runs the plain
+    version itself."""
+    row = {}
+    for name, t in tol.items():
+        o = cast(ops, getattr(torch, name))
+        out, carry = kernel(*o, S, **kw)
+        ref, ref_carry = plain(*o, S, **kw)
+        if out.is_cuda:
+            torch.cuda.synchronize()
+        err = max(float((out - ref).abs().max()),
+                  float((carry - ref_carry).abs().max()))
+        row[f"err_{name}"] = err
+        row[f"rel_{name}"] = err / max(float(ref.abs().max()), 1.0)
+        if not row[f"rel_{name}"] <= t:
+            raise AssertionError(f"{name}: max error {row[f'rel_{name}']:.3e}"
+                                 f" of scale > {t:.0e}")
+    return row
+
+
+def kernel_split(durations: Dict[str, List[float]], reps: int
+                 ) -> Dict[str, float]:
+    """Device milliseconds per call from each kernel's traced durations
+    (µs) over ``reps`` calls that launch every kernel once: the median
+    duration of each kernel, summed by kind -- pass 1 (``*tile_kernel``),
+    the carry (``carry_*``), everything else (fills) -- and in all.  A
+    median, not a sum over reps, because a trace late in a long process
+    may lose some of the events, or hold a few more; ``captured`` is the
+    share it held.  Raises ValueError for a trace without pass 1 or the
+    carry, or with ``captured`` outside [0.5, 1.5]."""
+    out = dict(pass1_ms=0.0, carry_ms=0.0, other_ms=0.0)
+    seen = set()
+    for name, us in durations.items():
+        key = ("carry" if "carry_" in name
+               else "pass1" if "tile_kernel" in name else "other")
+        out[f"{key}_ms"] += statistics.median(us) / 1e3
+        seen.add(key)
+    out["device_ms"] = sum(out.values())
+    n = sum(len(us) for us in durations.values())
+    out["captured"] = n / (reps * max(len(durations), 1))
+    if not {"pass1", "carry"} <= seen or not 0.5 <= out["captured"] <= 1.5:
+        raise ValueError(f"incomplete trace: kinds {sorted(seen)}, "
+                         f"captured {out['captured']:.2f}")
+    return out
+
+
+def device_ms(fn, reps: int = 10, attempts: int = 3) -> Dict[str, float]:
+    """``kernel_split`` of ``reps`` calls of ``fn`` traced by
+    torch.profiler after one warm-up.  A trace in a process that has
+    traced before can receive kernel events late, or none: a first trace
+    of one call takes what earlier traces left, and a trace that
+    ``kernel_split`` refuses is taken again, up to ``attempts`` times;
+    then RuntimeError."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts):
+        fn()
+        torch.cuda.synchronize()
+    why = None
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        durations: Dict[str, List[float]] = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                durations.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us())
+        try:
+            return kernel_split(durations, reps)
+        except ValueError as exc:
+            why = exc
+    raise RuntimeError(f"device_ms: {attempts} traces, none whole ({why})")
+
+
+def time_kernel(kernel, rows_of, ops: Sequence, S: int, kw: dict,
+                row_ops: int = 4, reps: int = 10) -> dict:
+    """Times of one call on ``ops``: by CUDA events around ``reps`` calls
+    (``ms``, the wrapper's host work included), one ``torch.bmm`` of the
+    slot-masked operand (``library_ms``) and the bound of the work on
+    these rows (inputs read once, outputs written once; per valid row the
+    rectangle's unique entries, two operations each, and ``row_ops`` D to
+    build the row)."""
+    row = dict(ms=cuda_ms(lambda: kernel(*ops, S, **kw), reps))
+    out, carry = kernel(*ops, S, **kw)
+    z, m = rows_of(ops, S)
+    rows, D = out.shape[1], out.shape[2]
+    mz = gram.masked_rows(z, m, rows).transpose(1, 2)
+    row["library_ms"] = cuda_ms(lambda: torch.bmm(mz, z), reps)
+    n_valid = int((m.sum(dim=2) > 0).sum())
+    pairs = rows * (rows + 1) // 2 + rows * (D - rows)
+    flat = [t for x in ops for t in (x if isinstance(x, list) else [x])]
+    moved = _nbytes(*flat, out, carry) + carry.numel() * 4
+    row["bound_ms"], row["bound_by"] = _bound(
+        moved, n_valid * (2 * pairs + row_ops * D))
+    return row
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError) as exc:
+        return f"nvidia-smi unavailable ({exc})"
+
+
+def main(argv: Sequence[str]) -> int:
+    if not torch.cuda.is_available():
+        print("vi_gram: no CUDA device", file=sys.stderr)
+        return 1
+    shapes: List[str] = list(argv) or list(SHAPES)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    logs = _build.build_all(("fused_gram_cross",))
+    print(f"device {torch.cuda.get_device_name(0)} | {card_line()} | "
+          f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    for log in logs.values():
+        print("ptxas: " + ", ".join(_build.ptxas_summary(log)), flush=True)
+    for shape in shapes:
+        for name, (build, kernel, plain, rows_of) in KERNELS.items():
+            ops, S, kw = build(**SHAPES[shape])
+            K = ops[0].shape[0]
+            T = ops[0].shape[2] if name.endswith("[vi]") else ops[0].shape[1]
+            row = dict(kernel=name, shape=shape, K=K, T=T, S=S, **kw)
+            row.update(check(kernel, plain, ops, S, kw))
+            row.update(time_kernel(kernel, rows_of, ops, S, kw))
+            row.update(device_ms(lambda: kernel(*ops, S, **kw)))
+            print(json.dumps(row), flush=True)
+            del ops
+            torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

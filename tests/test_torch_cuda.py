@@ -448,6 +448,94 @@ def test_meta_gram_kernel_matches_plain(dtype, tol, T, S, R, Rq, out_rows):
     assert float((c - ref_c).abs().max()) <= tol * scale
 
 
+def _rect_problem(kernel, R, S, seed, K=70, T=16):
+    """Operands of the Gram-rectangle pass (out_rows = 2 + R < D = 3R + 2)
+    with slots out of order, invalid rows in the middle of every tile
+    (slot S or -1 for kernel 1, ones = 0 for kernel 2) and flags that
+    thread the carry through non-zero last slots.  Where T > 256 the
+    pass lists runs 256 rows at a time: even tiles then hold a run that
+    crosses row 256, odd tiles a slot that recurs after an invalid row
+    256."""
+    rng = np.random.RandomState(seed)
+    slot = rng.randint(0, S, size=(K, T))
+    slot[:, T // 3] = S
+    slot[:, T // 2] = -1
+    if T > 256:
+        for k in range(K):
+            if k % 2 == 0:
+                slot[k, 250:263] = k % S
+            else:
+                slot[k, 255:258] = k % S
+    flags = [rng.randint(0, 2, K).astype(np.int32),
+             rng.randint(0, 2, K).astype(np.int32),
+             rng.randint(0, S, K).astype(np.int32)]
+    D = 3 * R + 2
+    carry = rng.normal(size=(2 + R, D))
+    if kernel == "cross":
+        if T > 256:
+            slot[1::2, 256] = S
+        gths = [rng.normal(size=(K, T, 3 + 3 * R)) for _ in range(2)]
+        aux2 = np.stack([slot.astype(np.float64), rng.normal(size=(K, T))],
+                        axis=1)
+        return [aux2, gths, rng.normal(size=(K, S, 2 + R))] + flags, carry
+    ones = (rng.random((K, T)) < 0.8).astype(np.float64)
+    ones[:, T // 4] = 0.0
+    if T > 256:
+        ones[0::2, 250:263] = 1.0
+        ones[1::2, 255:258] = [1.0, 0.0, 1.0]  # slot 256 kept, row invalid
+    meta = np.stack([ones, rng.normal(size=(K, T)), rng.random((K, T))],
+                    axis=2)
+    slot = np.where(slot < 0, S, slot).astype(np.int32)
+    return [meta, rng.normal(size=(K, T, 3 * R)), slot,
+            rng.normal(size=(K, S, 1 + R))] + flags, carry
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-4),
+                                       (np.float64, 1e-10)])
+@pytest.mark.parametrize("S", [1, 64])
+@pytest.mark.parametrize("R,T", [(1, 16), (3, 16), (10, 16), (32, 16),
+                                 (48, 16), (3, 300), (24, 300)])
+@pytest.mark.parametrize("kernel", ["cross", "meta"])
+def test_rect_gram_pass_matches_plain(kernel, R, T, S, dtype, tol):
+    """Kernel 1's VI layout and kernel 2 through the register-tiled
+    rectangle pass: out_rows and D not multiples of the 2 x 2 or 4 x 4
+    register blocks (R = 48: more blocks than threads; R = 3 and 24 take
+    2 x 2 and 4 x 4 across the run list's 256-row chunks), against the
+    plain version, and two runs bit-equal."""
+    device = _cuda()
+    ops, carry = _rect_problem(kernel, R, S, seed=R * 100 + S + T, T=T)
+
+    def t(a):
+        a = torch.as_tensor(a, device=device)
+        return a.to(tdt) if a.is_floating_point() else a
+
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+
+    ops = [[t(g) for g in o] if isinstance(o, list) else t(o) for o in ops]
+    cy = t(carry)
+    if kernel == "cross":
+        fn, plain, counter = (gram.fused_tile_gram_cross,
+                              gram.fused_tile_gram_cross_reference,
+                              "vi_launches")
+        kw = dict(q_lo=2, n_extra=2 * R, out_rows=2 + R)
+    else:
+        fn, plain, counter = (gram.fused_tile_gram,
+                              gram.fused_tile_gram_reference, "launches")
+        kw = dict(out_rows=2 + R)
+    before = getattr(fn, counter)
+    out, c = fn(*ops, S, cy, **kw)
+    again, c2 = fn(*ops, S, cy, **kw)
+    torch.cuda.synchronize()
+    assert getattr(fn, counter) == before + 2
+    assert torch.equal(out, again) and torch.equal(c, c2)
+    ref, ref_c = plain(*ops, S, cy, **kw)
+    assert out.shape == ref.shape == (70 * S, 2 + R, 3 * R + 2)
+    scale = max(float(ref.abs().max()), 1.0)
+    assert float((out - ref).abs().max()) <= tol * scale
+    assert float((c - ref_c).abs().max()) <= tol * scale
+
+
 @pytest.mark.cuda
 def test_gram_kernels_refuse_tiles_beyond_shared_memory():
     device = _cuda()
@@ -467,6 +555,24 @@ def test_gram_kernels_refuse_tiles_beyond_shared_memory():
             z(K, T, dtype=torch.int32, device=device),
             z(K, S, 1 + R, dtype=torch.float64, device=device), *flags, S,
             out_rows=2 + R)
+    # fp32 rectangle tiles whose dynamic stage fits (229,472 and 229,944
+    # B) but not with the rectangle pass's run list on top
+    R, S = 32, 2
+    for T, launch in ((573, "cross"), (580, "meta")):
+        flags = [z(K, dtype=torch.int32, device=device) for _ in range(3)]
+        with pytest.raises(ValueError, match="shared memory"):
+            if launch == "cross":
+                gram.fused_tile_gram_cross(
+                    z(K, 2, T, device=device),
+                    [z(K, T, 3 + 3 * R, device=device)],
+                    z(K, S, 2 + R, device=device), *flags, S, q_lo=2,
+                    n_extra=2 * R, out_rows=2 + R)
+            else:
+                gram.fused_tile_gram(
+                    z(K, T, 3, device=device), z(K, T, 3 * R, device=device),
+                    z(K, T, dtype=torch.int32, device=device),
+                    z(K, S, 1 + R, device=device), *flags, S,
+                    out_rows=2 + R)
 
 
 def _tiny_vi_plan(device, rank, dtype):
