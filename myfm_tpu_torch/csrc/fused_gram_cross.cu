@@ -52,12 +52,11 @@
 // with 12 rows on ML-100k, D = 98 with 34 rows at rank 32) ~320-2,800 FMAs
 // per ~140-800 B read in fp32, 0.6-3.5 FMA per byte, below the card's
 // ~10 FMA/B balance point (67 TFLOP/s over 3.35 TB/s): by arithmetic
-// intensity they are bound by memory bandwidth.  Neither Gram pass below
-// reaches that bound (PERF.md): the square pass reads two shared-memory
-// values per FMA, and that loop limits it first; the rectangle pass reads
-// (TM + TN) / (TM TN) per FMA, and at the ML-10M VI shape its pass 1
-// alone takes 2.6-2.8x the bound of the whole call (the carry adds a
-// third to a half to it).
+// intensity they are bound by memory bandwidth.  The Gram pass below does
+// not reach that bound (PERF.md): it reads (TM + TN) / (TM TN) shared
+// values per FMA, and at the ML-10M VI shape its pass 1 alone takes
+// 2.6-2.8x the bound of the whole call (the carry adds a third to a half
+// to it); the Gibbs square's pass 1 takes ~2.5x.
 //
 // Kernel 3 reads D values per row and does D (D + 1) / 2 FMAs: at D = 34 in
 // fp32 ~595 FMAs per 136 B, 4.4 FMA per byte, under the balance point as
@@ -68,31 +67,37 @@
 // What the design does about it.  One block per tile streams the tile's
 // rows with coalesced loads (summing the n_cross tables as they arrive), so
 // each input byte is read once and the [T, D] z block lives in shared
-// memory, never in device memory.  Then one of two Gram passes:
-//   the square (out_rows == D: the Gibbs layout, kernel 3, kernel 2's full
-//     square; tile_grams): each thread owns a few entries of the upper
-//     triangle, mirrored, and walks the tile's rows in order, flushing its
-//     running sum whenever the slot changes -- two shared-memory loads
-//     per FMA, which is what bounds it;
-//   the rectangle (out_rows < D: every VI launch of kernels 1 and 2;
-//     rect_grams): the block first lists the tile's maximal runs of equal
-//     valid slot in shared memory (a ballot per warp, 256 rows at a time),
-//     the same for every thread, so walking them does not diverge and the
-//     row loop carries no slot test.  Each thread owns a TM x TN register
-//     block of the whole [out_rows, D] rectangle (its lower-left part
-//     computed directly, not mirrored: ~20% more FMAs at D = 98, no mirror
-//     writes) and per row does TM + TN shared loads and TM TN FMAs: 4 x 4
-//     at the ML-10M VI shape ([34, 98], 225 blocks), 2 x 2 where 4 x 4
-//     would leave most threads idle (ML-100k, [12, 32]: 96 blocks).  Its
-//     rows and columns are strided (bi + m NI, bj + n NJ), so the threads of
-//     a warp load consecutive words (no bank conflicts) and store
-//     consecutive output columns.  Each entry sums its rows in tile order
-//     with fma from 0 at each run, as tile_grams does, and fma(a, b, c) ==
-//     fma(b, a, c): both passes give the same bits.  Kernel 1's
-//     rectangle kernel also stages the tile with 4 loads in flight per
-//     thread, and its fp32 code is held to 80 registers (3 blocks per SM;
-//     its 4 x 4 loop left alone takes more and runs 2); kernel 2's stage
-//     and registers lost to both, so it has neither (PERF.md).
+// memory, never in device memory.  Then one Gram pass (gram_pass): the
+// block first lists the tile's maximal runs of equal valid slot in shared
+// memory (a ballot per warp, 256 rows at a time), the same for every
+// thread, so walking them does not diverge and the row loop carries no
+// slot test.  Each thread owns a register block of the output and per row
+// does TM + TN shared loads and TM TN FMAs; the block's rows and columns
+// are strided (bi + m NI, bj + n NJ), so the threads of a warp load
+// consecutive words (no bank conflicts) and store consecutive output
+// columns.  Two block maps:
+//   the square (out_rows == D: the Gibbs layout, kernel 3, kernel 2's
+//     full square): a triangle of 2 x 2 blocks.  The transpose of block
+//     (bi, bj) is block (bj, bi), so only bi >= bj is computed and each
+//     value is written at (i, j) and (j, i): 153 blocks at D = 34 (595
+//     entries in the triangle, 612 computed), one round of the 256
+//     threads up to D = 44, and 1 shared load per FMA where the pass it
+//     replaced, one entry per thread, read 2 plus the row's slot;
+//   the rectangle (out_rows < D: every VI launch of kernels 1 and 2): the
+//     whole [out_rows, D] (its lower-left part computed directly, not
+//     mirrored: ~20% more FMAs at D = 98, no mirror writes) in 4 x 4
+//     blocks at the ML-10M VI shape ([34, 98], 225 blocks), 2 x 2 where
+//     4 x 4 would leave most threads idle (ML-100k, [12, 32]: 96 blocks).
+// Each entry sums its rows in tile order with fma from 0 at each run, and
+// fma(a, b, c) == fma(b, a, c): an entry and its mirror have the same bits
+// whichever a block computes, and every block map gives the same bits (the
+// square's equal the one-entry-per-thread pass's, PERF.md).  A kernel
+// compiles one of the two maps (the rectangle's registers would bound the
+// square's occupancy).  Kernel 1's rectangle kernel also stages the tile
+// with 4 loads in flight per thread, and its fp32 code is held to 80
+// registers (3 blocks per SM; its 4 x 4 loop left alone takes more and
+// runs 2); kernel 2's stage and registers lost to both, and so did the
+// square's stage in fp32, so they have neither (PERF.md).
 // Every slot's output is written once (zeros included), or added to where
 // a slot recurs later in the tile.  Arithmetic is IEEE fp32 (or fp64) FMA;
 // no tensor cores.
@@ -123,10 +128,9 @@ int myfm_gram_carry_scratch(int K, int E) {
   return nseg * (2 * E + 1);
 }
 
-// Static shared memory of the rectangle pass (its run list), which the
-// pass-1 kernels of out_rows < D launches use on top of their dynamic
-// stage.
-int myfm_gram_rect_static_smem() { return (int)sizeof(RunList); }
+// Static shared memory of the Gram pass (its run list), which every
+// pass-1 kernel uses on top of its dynamic stage.
+int myfm_gram_static_smem() { return (int)sizeof(RunList); }
 
 // Returns 0 or the cudaError_t of the first failed launch.
 int myfm_fused_gram_cross(int is_double, const void* aux2,

@@ -11,9 +11,10 @@
 //          checksum, the own rows, slot and tau -- reads every staged value
 //          back into the checksum and writes the output tile with it (so
 //          the compiler can elide no load);
-//       1  + the Gram loop (tile_grams, the production code) over the
-//          loaded rows taken as z; the checksum is added to entry
-//          [slot 0, 0, 0] of each tile;
+//       1  + the Gram loop (gram_pass, the production pass: the run list
+//          and the triangle of register blocks) over the loaded rows
+//          taken as z; the checksum is added to entry [slot 0, 0, 0] of
+//          each tile;
 //       2  the production Gram pass (launch_cross_grams: cross sums, score
 //          and z build, Gram loop), no carry;
 //       3  the whole production kernel (launch_cross: level 2 + the carry
@@ -110,7 +111,7 @@ gram_section_kernel(const float* __restrict__ aux2, CrossPtrs<float> gths,
   if (kLevel == 0) {
     for (int p = tid; p < S * D * D; p += blockDim.x) out_tile[p] = total;
   } else {
-    tile_grams(z, W, slot, T, S, D, D, out_tile);
+    gram_pass<float, false>(z, W, slot, T, S, D, D, out_tile);
     __syncthreads();
     if (tid == 0) out_tile[0] += total;
   }

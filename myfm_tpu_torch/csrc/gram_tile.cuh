@@ -19,90 +19,20 @@ constexpr int kWarps = kThreads / 32;
 // Kernel 1's rectangle pass: loads each thread keeps in flight while
 // staging a tile, and blocks per SM its fp32 kernel is compiled for
 // (<= 80 registers; it takes ~110 without the cap, which leaves 2
-// blocks).  Its square kernels ask for no minimum (0), which compiles
-// them exactly as before; a minimum of 1 would not.
+// blocks).  Its square kernels ask for no minimum (0): a cap made them
+// slower.  Kernel 3's fp32 kernel is held to kRowsBlocks blocks per SM
+// (<= 48 registers; 59 without), its fp64 kernel is not (PERF.md).
 constexpr int kStageBatch = 4;
 constexpr int kRectBlocks = 3;
+constexpr int kRowsBlocks = 5;
+// The square's register block (2 x 2 beat 3 x 3 and 4 x 4 at D = 34).
+constexpr int kSquareBlock = 2;
 constexpr int kSegTiles = 32;
 
 template <typename F>
 struct CrossPtrs {
   const F* p[kMaxCross];
 };
-
-// The p-th entry a thread owns in the [out_rows, D] rectangle: first the
-// upper triangle of the leading out_rows x out_rows square, then the
-// out_rows x (D - out_rows) block right of it.
-__device__ __forceinline__ void pair_of(int p, int out_rows, int D, int& i,
-                                        int& j) {
-  const int n_sq = out_rows * (out_rows + 1) / 2;
-  if (p < n_sq) {
-    int ii = 0, rem = p;
-    while (rem >= out_rows - ii) {
-      rem -= out_rows - ii;
-      ++ii;
-    }
-    i = ii;
-    j = ii + rem;
-  } else {
-    const int q = p - n_sq;
-    const int w = D - out_rows;
-    i = q / w;
-    j = out_rows + q % w;
-  }
-}
-
-template <typename F>
-__device__ __forceinline__ void flush_slot(F* out_tile, int s, int i, int j,
-                                           int out_rows, int D, F acc,
-                                           uint64_t& written) {
-  const size_t base = (size_t)s * out_rows * D;
-  const bool again = (written >> s) & 1ull;
-  F* ij = out_tile + base + (size_t)i * D + j;
-  *ij = again ? *ij + acc : acc;
-  if (j < out_rows && i != j) {
-    F* ji = out_tile + base + (size_t)j * D + i;
-    *ji = again ? *ji + acc : acc;
-  }
-  written |= 1ull << s;
-}
-
-// Every slot's partial Gram rectangle over the tile's z rows (row pitch P
-// in shared memory).  A row whose slot is outside [0, S) counts nowhere.
-template <typename F>
-__device__ void tile_grams(const F* z, int P, const int* slot, int T, int S,
-                           int D, int out_rows, F* out_tile) {
-  const int n_pairs =
-      out_rows * (out_rows + 1) / 2 + out_rows * (D - out_rows);
-  for (int p = threadIdx.x; p < n_pairs; p += blockDim.x) {
-    int i, j;
-    pair_of(p, out_rows, D, i, j);
-    uint64_t written = 0;
-    int cur = -1;
-    F acc = F(0);
-    for (int t = 0; t < T; ++t) {
-      const int s = slot[t];
-      if (s != cur) {
-        if (cur >= 0 && cur < S) {
-          flush_slot(out_tile, cur, i, j, out_rows, D, acc, written);
-        }
-        cur = s;
-        acc = F(0);
-      }
-      acc = fma(z[(size_t)t * P + i], z[(size_t)t * P + j], acc);
-    }
-    if (cur >= 0 && cur < S) {
-      flush_slot(out_tile, cur, i, j, out_rows, D, acc, written);
-    }
-    for (int s = 0; s < S; ++s) {
-      if (!((written >> s) & 1ull)) {
-        const size_t base = (size_t)s * out_rows * D;
-        out_tile[base + (size_t)i * D + j] = F(0);
-        if (j < out_rows) out_tile[base + (size_t)j * D + i] = F(0);
-      }
-    }
-  }
-}
 
 // The run list of one chunk of rows: the maximal runs of equal valid slot
 // (in [0, S)) among rows [base, base + kThreads), in row order.  A run
@@ -157,52 +87,70 @@ __device__ int build_runs(const int* slot, int T, int S, int base,
   return n;
 }
 
-// A thread's TM x TN register block into one slot's rectangle o: set, or
-// added where an earlier run of the slot already wrote it (slots out of
-// order).
-template <typename F, int TM, int TN>
-__device__ __forceinline__ void store_block(F* o, const F (&acc)[TM][TN],
+// A thread's TB x TB register block into one slot's Gram o: set, or added
+// where an earlier run of the slot already wrote it (slots out of order).
+// In the square an off-diagonal block also writes its transpose.
+template <typename F, int TB, bool kSquare>
+__device__ __forceinline__ void store_block(F* o, const F (&acc)[TB][TB],
                                             int bi, int bj, int NI, int NJ,
                                             int out_rows, int D,
                                             bool again) {
 #pragma unroll
-  for (int m = 0; m < TM; ++m) {
+  for (int m = 0; m < TB; ++m) {
     const int i = bi + m * NI;
 #pragma unroll
-    for (int n = 0; n < TN; ++n) {
+    for (int n = 0; n < TB; ++n) {
       const int j = bj + n * NJ;
       if (i < out_rows && j < D) {
         F* e = o + (size_t)i * D + j;
         *e = again ? *e + acc[m][n] : acc[m][n];
+        if (kSquare && bi != bj) {
+          F* t = o + (size_t)j * D + i;
+          *t = again ? *t + acc[m][n] : acc[m][n];
+        }
       }
     }
   }
 }
 
-// The [out_rows, D] rectangle in TM x TN register blocks.  The block grid
-// is NI x NJ (NI = ceil(out_rows / TM), NJ = ceil(D / TN)); block (bi, bj)
-// owns rows bi + m NI and columns bj + n NJ, so the threads of a warp read
+// Every slot's partial Gram [out_rows, D] over the tile's z rows (row
+// pitch P in shared memory) in TB x TB register blocks; a row whose slot
+// is outside [0, S) counts nowhere.  The block grid is NI x NJ (NI =
+// ceil(out_rows / TB), NJ = ceil(D / TB)); block (bi, bj) owns rows
+// bi + m NI and columns bj + n NJ, so the threads of a warp read
 // consecutive z columns (no bank conflicts) and write consecutive output
 // columns.  Edge entries read a clamped column and are not written.
-template <typename F, int TM, int TN>
-__device__ void rect_grams_tiled(const F* z, int P, const int* slot, int T,
-                                 int S, int D, int out_rows, F* out_tile,
-                                 RunList& rl) {
-  const int NI = (out_rows + TM - 1) / TM;
-  const int NJ = (D + TN - 1) / TN;
-  const int n_blocks = NI * NJ;
+//   kSquare (out_rows == D, so NI == NJ): the transpose of block (bi, bj)
+//     is block (bj, bi), so only the triangle bi >= bj is computed (p =
+//     bi (bi + 1) / 2 + bj) and each value is written at (i, j) and
+//     (j, i); a diagonal block is its own transpose.
+//   else: the whole rectangle, p = bi NJ + bj.
+template <typename F, int TB, bool kSquare>
+__device__ void grams_tiled(const F* z, int P, const int* slot, int T, int S,
+                            int D, int out_rows, F* out_tile, RunList& rl) {
+  const int NI = (out_rows + TB - 1) / TB;
+  const int NJ = (D + TB - 1) / TB;
+  const int n_blocks = kSquare ? NI * (NI + 1) / 2 : NI * NJ;
   const size_t per_slot = (size_t)out_rows * D;
   for (int p0 = 0; p0 < n_blocks; p0 += kThreads) {
     const int p = p0 + threadIdx.x;
     const bool owns = p < n_blocks;
-    const int bi = owns ? p / NJ : 0;
-    const int bj = owns ? p % NJ : 0;
-    int ci[TM], cj[TN];
+    int bi = 0, bj = 0;
+    if (owns) {
+      if constexpr (kSquare) {
+        while ((bi + 1) * (bi + 2) / 2 <= p) ++bi;
+        bj = p - bi * (bi + 1) / 2;
+      } else {
+        bi = p / NJ;
+        bj = p % NJ;
+      }
+    }
+    int ci[TB], cj[TB];
 #pragma unroll
-    for (int m = 0; m < TM; ++m) ci[m] = min(bi + m * NI, out_rows - 1);
+    for (int m = 0; m < TB; ++m) ci[m] = min(bi + m * NI, out_rows - 1);
 #pragma unroll
-    for (int n = 0; n < TN; ++n) cj[n] = min(bj + n * NJ, D - 1);
-    F acc[TM][TN];
+    for (int n = 0; n < TB; ++n) cj[n] = min(bj + n * NJ, D - 1);
+    F acc[TB][TB];
     uint64_t written = 0;
     int cur = -1, prev_hi = -1;
 
@@ -213,42 +161,43 @@ __device__ void rect_grams_tiled(const F* z, int P, const int* slot, int T,
           const int lo = rl.lo[r], hi = rl.hi[r], s = rl.slot[r];
           if (s != cur || lo != prev_hi) {
             if (cur >= 0) {
-              store_block(out_tile + cur * per_slot, acc, bi, bj, NI, NJ,
-                          out_rows, D, (written >> cur) & 1ull);
+              store_block<F, TB, kSquare>(out_tile + cur * per_slot, acc, bi,
+                                          bj, NI, NJ, out_rows, D,
+                                          (written >> cur) & 1ull);
               written |= 1ull << cur;
             }
             cur = s;
 #pragma unroll
-            for (int m = 0; m < TM; ++m) {
+            for (int m = 0; m < TB; ++m) {
 #pragma unroll
-              for (int n = 0; n < TN; ++n) acc[m][n] = F(0);
+              for (int n = 0; n < TB; ++n) acc[m][n] = F(0);
             }
           }
           // one pointer per operand column, stepped by the row pitch (the
           // compiler then issues one add per shared load, not index math)
-          const F* pa[TM];
-          const F* pb[TN];
+          const F* pa[TB];
+          const F* pb[TB];
 #pragma unroll
-          for (int m = 0; m < TM; ++m) pa[m] = z + (size_t)lo * P + ci[m];
+          for (int m = 0; m < TB; ++m) pa[m] = z + (size_t)lo * P + ci[m];
 #pragma unroll
-          for (int n = 0; n < TN; ++n) pb[n] = z + (size_t)lo * P + cj[n];
+          for (int n = 0; n < TB; ++n) pb[n] = z + (size_t)lo * P + cj[n];
 #pragma unroll 4
           for (int t = lo; t < hi; ++t) {
-            F a[TM], b[TN];
+            F a[TB], b[TB];
 #pragma unroll
-            for (int m = 0; m < TM; ++m) {
+            for (int m = 0; m < TB; ++m) {
               a[m] = *pa[m];
               pa[m] += P;
             }
 #pragma unroll
-            for (int n = 0; n < TN; ++n) {
+            for (int n = 0; n < TB; ++n) {
               b[n] = *pb[n];
               pb[n] += P;
             }
 #pragma unroll
-            for (int m = 0; m < TM; ++m) {
+            for (int m = 0; m < TB; ++m) {
 #pragma unroll
-              for (int n = 0; n < TN; ++n) {
+              for (int n = 0; n < TB; ++n) {
                 acc[m][n] = fma(a[m], b[n], acc[m][n]);
               }
             }
@@ -260,47 +209,54 @@ __device__ void rect_grams_tiled(const F* z, int P, const int* slot, int T,
     }
     if (!owns) continue;
     if (cur >= 0) {
-      store_block(out_tile + cur * per_slot, acc, bi, bj, NI, NJ, out_rows,
-                  D, (written >> cur) & 1ull);
+      store_block<F, TB, kSquare>(out_tile + cur * per_slot, acc, bi, bj, NI,
+                                  NJ, out_rows, D, (written >> cur) & 1ull);
       written |= 1ull << cur;
     }
 #pragma unroll
-    for (int m = 0; m < TM; ++m) {
+    for (int m = 0; m < TB; ++m) {
 #pragma unroll
-      for (int n = 0; n < TN; ++n) acc[m][n] = F(0);
+      for (int n = 0; n < TB; ++n) acc[m][n] = F(0);
     }
     for (int s = 0; s < S; ++s) {
       if (!((written >> s) & 1ull)) {
-        store_block(out_tile + s * per_slot, acc, bi, bj, NI, NJ, out_rows,
-                    D, false);
+        store_block<F, TB, kSquare>(out_tile + s * per_slot, acc, bi, bj, NI,
+                                    NJ, out_rows, D, false);
       }
     }
   }
 }
 
-// tile_grams for a rectangle (out_rows < D), with the same arguments and
-// the same result bit for bit: every entry sums its rows in tile order
-// with fma from 0 at each run of its slot, as tile_grams does, and
-// fma(a, b, c) == fma(b, a, c), so the lower half of the leading square,
-// computed here directly, equals tile_grams's mirror.  Every thread of
-// the block calls it.  4 x 4 blocks where they keep at least half the
-// threads busy (the ML-10M VI shape, [34, 98]: 225 blocks), else 2 x 2
-// (ML-100k, [12, 32]: 96 blocks).
-template <typename F>
-__device__ void rect_grams(const F* z, int P, const int* slot, int T, int S,
-                           int D, int out_rows, F* out_tile) {
+// The Gram pass of every pass-1 kernel: each slot's partial Gram [out_rows,
+// D] of the tile's z rows.  Every entry sums its rows in tile order with
+// fma from 0 at each run of its slot, flushed (set, or added where the
+// slot recurs) at the run's end, and fma(a, b, c) == fma(b, a, c): an
+// entry and its mirror have the same bits whichever of them a block
+// computes.  Every thread of the block calls it.  kRect (out_rows < D): 4
+// x 4 blocks where they keep at least half the threads busy (the ML-10M VI
+// shape, [34, 98]: 225 blocks), else 2 x 2 (ML-100k, [12, 32]: 96
+// blocks).  Else the square (out_rows == D) in kSquareBlock x
+// kSquareBlock blocks.  A kernel compiles one of the two: with both, the
+// rectangle's registers would bound the square's occupancy.
+template <typename F, bool kRect>
+__device__ void gram_pass(const F* z, int P, const int* slot, int T, int S,
+                          int D, int out_rows, F* out_tile) {
   __shared__ RunList rl;
-  const int n44 = ((out_rows + 3) / 4) * ((D + 3) / 4);
-  if (n44 >= kThreads / 2) {
-    rect_grams_tiled<F, 4, 4>(z, P, slot, T, S, D, out_rows, out_tile, rl);
+  if constexpr (!kRect) {
+    grams_tiled<F, kSquareBlock, true>(z, P, slot, T, S, D, D, out_tile, rl);
   } else {
-    rect_grams_tiled<F, 2, 2>(z, P, slot, T, S, D, out_rows, out_tile, rl);
+    const int n44 = ((out_rows + 3) / 4) * ((D + 3) / 4);
+    if (n44 >= kThreads / 2) {
+      grams_tiled<F, 4, false>(z, P, slot, T, S, D, out_rows, out_tile, rl);
+    } else {
+      grams_tiled<F, 2, false>(z, P, slot, T, S, D, out_rows, out_tile, rl);
+    }
   }
 }
 
 // Pass 1 of the cross entry point: one block per tile -> its S partial
-// Gram rectangles (no carry); kRect: out_rows < D (rect_grams), else the
-// full square (tile_grams).
+// Grams (no carry).  kRect: out_rows < D (the rectangle, whose fp32 code
+// is held to kRectBlocks blocks per SM), else the full square.
 template <typename F, bool kRect>
 __global__ void __launch_bounds__(kThreads,
                                   kRect && sizeof(F) == 4 ? kRectBlocks : 0)
@@ -325,9 +281,9 @@ gram_tile_kernel(const F* __restrict__ aux2, CrossPtrs<F> gths, int n_cross,
   // space instead of a local-memory copy)
   if constexpr (kRect) {
     // kStageBatch elements per thread at once: their loads are in flight
-    // together (the same sums, in the same order).  Measured only at the
-    // VI shapes, where kernel 2's stage lost to it; the square (Gibbs
-    // layout) keeps its one-at-a-time loop and its code.
+    // together (the same sums, in the same order).  The square's stage
+    // lost to it in fp32 (and kernel 2's at the VI shapes), so it keeps
+    // its one-at-a-time loop.
     for (int i0 = tid; i0 < T * W; i0 += kStageBatch * kThreads) {
       F acc[kStageBatch];
 #pragma unroll
@@ -393,18 +349,13 @@ gram_tile_kernel(const F* __restrict__ aux2, CrossPtrs<F> gths, int n_cross,
   }
   __syncthreads();
 
-  if constexpr (kRect) {
-    rect_grams(z, W, slot, T, S, D, out_rows,
-               out + (size_t)k * S * out_rows * D);
-  } else {
-    tile_grams(z, W, slot, T, S, D, out_rows,
-               out + (size_t)k * S * out_rows * D);
-  }
+  gram_pass<F, kRect>(z, W, slot, T, S, D, out_rows,
+                      out + (size_t)k * S * out_rows * D);
 }
 
 // Pass 1 of the meta entry point: one block per tile -> its S partial
-// Gram rectangles (no carry); kRect as in gram_tile_kernel (no register
-// cap here: kernel 2 loses to it, kernel 1 gains).
+// Grams (no carry); kRect as in gram_tile_kernel (no register cap here:
+// kernel 2 loses to it, kernel 1 gains).
 template <typename F, bool kRect>
 __global__ void __launch_bounds__(kThreads)
 gram_meta_tile_kernel(const F* __restrict__ meta, const F* __restrict__ qo,
@@ -459,20 +410,16 @@ gram_meta_tile_kernel(const F* __restrict__ meta, const F* __restrict__ qo,
   }
   __syncthreads();
 
-  if constexpr (kRect) {
-    rect_grams(z, D, slot, T, S, D, out_rows,
-               out + (size_t)k * S * out_rows * D);
-  } else {
-    tile_grams(z, D, slot, T, S, D, out_rows,
-               out + (size_t)k * S * out_rows * D);
-  }
+  gram_pass<F, kRect>(z, D, slot, T, S, D, out_rows,
+                      out + (size_t)k * S * out_rows * D);
 }
 
 // Pass 1 of the rows entry point (kernel 3): one block per tile copies its
 // [T, D] rows (pad rows are zero rows) and their slots into shared memory
 // -> its S partial Gram squares (no carry).
 template <typename F>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads,
+                                  sizeof(F) == 4 ? kRowsBlocks : 0)
 gram_rows_tile_kernel(const F* __restrict__ rows,
                       const int* __restrict__ slot_in, F* __restrict__ out,
                       int T, int S, int D) {
@@ -488,7 +435,8 @@ gram_rows_tile_kernel(const F* __restrict__ rows,
     slot[t] = slot_in[row0 + t];
   }
   __syncthreads();
-  tile_grams(z, D, slot, T, S, D, D, out + (size_t)k * S * D * D);
+  gram_pass<F, false>(z, D, slot, T, S, D, D,
+                      out + (size_t)k * S * D * D);
 }
 
 // Pass 2a: the composed carry map (A, b) of each segment of tiles, on the

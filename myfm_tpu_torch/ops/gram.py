@@ -222,8 +222,8 @@ def _bind(lib: ctypes.CDLL):
         lib.myfm_fused_gram.restype = ctypes.c_int
         lib.myfm_gram_carry_scratch.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.myfm_gram_carry_scratch.restype = ctypes.c_int
-        lib.myfm_gram_rect_static_smem.argtypes = []
-        lib.myfm_gram_rect_static_smem.restype = ctypes.c_int
+        lib.myfm_gram_static_smem.argtypes = []
+        lib.myfm_gram_static_smem.restype = ctypes.c_int
     return lib
 
 
@@ -262,9 +262,8 @@ def _check_common(name, floats, ints, K, S, rows, D, carry_in, smem):
     if carry_in is not None and tuple(carry_in.shape) != (rows, D):
         raise ValueError(f"{name}: carry_in {tuple(carry_in.shape)} != "
                          f"{(rows, D)}")
-    if rows < D:  # the rectangle pass adds its run list
-        smem += _bind(_build.load("fused_gram_cross")
-                      ).myfm_gram_rect_static_smem()
+    # the Gram pass's run list, on top of the dynamic stage
+    smem += _bind(_build.load("fused_gram_cross")).myfm_gram_static_smem()
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"{name}: needs {smem} B of shared memory per tile (limit "

@@ -1,14 +1,23 @@
-"""Kernel 1's VI layout and kernel 2 at the two VI shapes, on a CUDA card.
+"""The Gram kernels alone at the VI shapes and the Gibbs square, on a CUDA
+card.
 
-The short loop for the Gram-rectangle pass (``rect_grams`` in
-csrc/gram_tile.cuh) that both kernels run wherever ``out_rows < D``:
+The short loop for the Gram pass (``gram_pass`` in csrc/gram_tile.cuh)
+that every pass-1 kernel runs, on synthetic operands packed as the fast
+path packs a table (skewed entity counts, T and S from ``choose_tiling``,
+the first chunk of tiles).  The VI shapes run the rectangle
+(``out_rows < D``): kernel 1's VI layout
 ``fused_tile_gram_cross(..., q_lo=2, n_extra=2R, out_rows=2+R)`` and
-``fused_tile_gram(..., out_rows=2+R)`` on synthetic operands packed as
-the fast path packs a table (skewed entity counts, T and S from
-``choose_tiling`` at ``rank=3R``, the first chunk of tiles):
+kernel 2 ``fused_tile_gram(..., out_rows=2+R)``, packed at ``rank=3R``:
 
-  100k  rank 10: D = 32, out_rows 12 (T = 256); 90,000 rows, 943 entities
-  10m   rank 32: D = 98, out_rows 34 (T = 128); one 1M-row chunk
+  100k      rank 10: D = 32, out_rows 12 (T = 256); 90,000 rows, 943
+            entities
+  10m       rank 32: D = 98, out_rows 34 (T = 128); one 1M-row chunk
+
+The square shape runs the full D x D Gram: kernel 1's Gibbs layout
+(``q_lo=1, n_extra=0``) and kernel 3 ``tile_gram`` on the z rows that
+``gram.cross_rows`` builds from the same operands, packed at ``rank=R``:
+
+  gibbs10m  rank 32: D = 34 (T = 256); one 1M-row chunk
 
 For each kernel and shape it prints one JSON line: the kernel against
 its plain version in float32 (within 1e-5 of the output's scale) and
@@ -26,7 +35,7 @@ every Gram kernel of the port with ``check``, ``time_kernel`` and
 
 Run it on the card:
 
-    python -m myfm_tpu_torch.tools.vi_gram [100k|10m ...]
+    python -m myfm_tpu_torch.tools.vi_gram [100k|10m|gibbs10m ...]
 """
 
 from __future__ import annotations
@@ -48,6 +57,9 @@ SHAPES = {
     "100k": dict(rank=10, n_rows=90_000, n_entities=943),
     "10m": dict(rank=32, n_rows=1 << 20, n_entities=7_000),
 }
+SQUARE_SHAPES = {
+    "gibbs10m": dict(rank=32, n_rows=1 << 20, n_entities=7_000),
+}
 # |kernel − plain| over max |plain|: the same sums over up to ~10^4 rows
 # per carried chain in another order
 TOL = {"float32": 1e-5, "float64": 1e-12}
@@ -55,15 +67,17 @@ ZIPF = 0.7  # entity n draws rows in proportion to (n + 1)^-ZIPF
 
 
 def _packing(rank: int, n_rows: int, n_entities: int, seed: int,
-             fixed_ts=None):
-    """A table packed at the VI Gram's width (``rank=3R``) from skewed
-    entity counts, cut to its first chunk of tiles: (table, K, flags)."""
+             fixed_ts=None, pack_rank=None):
+    """A table packed at the Gram's width (``pack_rank``, by default the
+    VI Gram's ``3R``) from skewed entity counts, cut to its first chunk
+    of tiles: (table, K, flags)."""
     rng = np.random.RandomState(seed)
     p = (1.0 + np.arange(n_entities)) ** -ZIPF
     counts = rng.multinomial(n_rows, p / p.sum())
     ent = np.repeat(rng.permutation(n_entities), counts)
-    tab = compile_categorical_table(ent, n_entities, 0, n_rows, np.float32,
-                                    "cpu", rank=3 * rank, fixed_ts=fixed_ts)
+    tab = compile_categorical_table(
+        ent, n_entities, 0, n_rows, np.float32, "cpu",
+        rank=3 * rank if pack_rank is None else pack_rank, fixed_ts=fixed_ts)
     K = tab.chunk_tiles
     flags = [f[:K].contiguous() for f in (tab.cont_in, tab.cont_out,
                                           tab.last_slot)]
@@ -125,6 +139,60 @@ def meta_operands(rank: int, n_rows: int, n_entities: int, seed: int = 0,
     return ops + [f.to(device) for f in flags], S, dict(out_rows=2 + R)
 
 
+def _gibbs(rank: int, n_rows: int, n_entities: int, seed: int, device,
+           fixed_ts):
+    """Kernel 1's Gibbs-layout operands in float32, packed at ``rank=R``,
+    and the packing's slot per tile row [K, T] (pad rows at slot 0)."""
+    tab, K, flags = _packing(rank, n_rows, n_entities, seed, fixed_ts,
+                             pack_rank=rank)
+    T, S, R = tab.tile_rows, tab.tile_entities, rank
+    g = torch.Generator(device=device).manual_seed(seed + 2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    slot_f = tab.slot_f[: K * T].reshape(K, T).to(device)
+    valid = (slot_f < S).float()[:, :, None]
+    gths = []
+    for _ in range(2):
+        V = 0.3 * randn(K, T, R)
+        body = torch.cat([randn(K, T, 1), V,
+                          (V * V).sum(dim=2, keepdim=True)], dim=2)
+        gths.append((body * valid).contiguous())
+    wv = 0.3 * randn(K, S, 1 + R)
+    wvsl = torch.cat([wv, (wv[:, :, 1:] ** 2).sum(dim=2, keepdim=True)],
+                     dim=2).contiguous()
+    aux2 = torch.stack([slot_f, 3.0 + randn(K, T) * valid[:, :, 0]], dim=1)
+    ops = [aux2.contiguous(), gths, wvsl] + [f.to(device) for f in flags]
+    return ops, S, tab.slot[: K * T].reshape(K, T).contiguous().to(device)
+
+
+def gibbs_operands(rank: int, n_rows: int, n_entities: int, seed: int = 0,
+                   device="cuda", fixed_ts=None):
+    """Kernel 1's Gibbs-layout operands in float32: ([aux2, gths, wvsl,
+    cont_in, cont_out, last_slot], S, {}).  The gathered rows of two
+    other tables are [w | V | qs] (R + 2 columns), zero on pad rows; own
+    rows [w | V | qs]."""
+    ops, S, _ = _gibbs(rank, n_rows, n_entities, seed, device, fixed_ts)
+    return ops, S, {}
+
+
+def rows_operands(rank: int, n_rows: int, n_entities: int, seed: int = 0,
+                  device="cuda", fixed_ts=None):
+    """Kernel 3's operands as ``entity_grams`` gives them: ([rows, slot,
+    cont_in, cont_out, last_slot], S, {}), rows [K, T, R + 2] the z rows
+    that ``gram.cross_rows`` builds from ``gibbs_operands`` (zero on pad
+    rows), slot the packing's."""
+    ops, S, slot = _gibbs(rank, n_rows, n_entities, seed, device, fixed_ts)
+    z, _ = gram.cross_rows(ops[0], ops[1], ops[2], S)
+    return [z.contiguous(), slot] + ops[3:], S, {}
+
+
+def _slot_mask(o, S):
+    return o[0], (o[1].long()[:, :, None] == torch.arange(
+        S, device=o[1].device)).to(o[0].dtype)
+
+
 # name -> (operand builder, kernel, plain version, z rows and slot mask)
 KERNELS = {
     "fused_tile_gram_cross[vi]": (
@@ -136,6 +204,17 @@ KERNELS = {
     "fused_tile_gram": (
         meta_operands, gram.fused_tile_gram, gram.fused_tile_gram_reference,
         lambda o, S: gram.meta_rows(o[0], o[1], o[2], o[3], S),
+    ),
+}
+# the same for the square shapes
+SQUARE_KERNELS = {
+    "fused_tile_gram_cross": (
+        gibbs_operands, gram.fused_tile_gram_cross,
+        gram.fused_tile_gram_cross_reference,
+        lambda o, S: gram.cross_rows(o[0], o[1], o[2], S),
+    ),
+    "tile_gram": (
+        rows_operands, gram.tile_gram, gram.tile_gram_reference, _slot_mask,
     ),
 }
 
@@ -270,7 +349,7 @@ def main(argv: Sequence[str]) -> int:
     if not torch.cuda.is_available():
         print("vi_gram: no CUDA device", file=sys.stderr)
         return 1
-    shapes: List[str] = list(argv) or list(SHAPES)
+    shapes: List[str] = list(argv) or [*SHAPES, *SQUARE_SHAPES]
     torch.backends.cuda.matmul.allow_tf32 = False
     logs = _build.build_all(("fused_gram_cross",))
     print(f"device {torch.cuda.get_device_name(0)} | {card_line()} | "
@@ -278,13 +357,18 @@ def main(argv: Sequence[str]) -> int:
     for log in logs.values():
         print("ptxas: " + ", ".join(_build.ptxas_summary(log)), flush=True)
     for shape in shapes:
-        for name, (build, kernel, plain, rows_of) in KERNELS.items():
-            ops, S, kw = build(**SHAPES[shape])
+        square = shape in SQUARE_SHAPES
+        kernels = SQUARE_KERNELS if square else KERNELS
+        for name, (build, kernel, plain, rows_of) in kernels.items():
+            ops, S, kw = build(**(SQUARE_SHAPES if square else SHAPES)[shape])
             K = ops[0].shape[0]
-            T = ops[0].shape[2] if name.endswith("[vi]") else ops[0].shape[1]
+            # aux2 [K, 2, T] (kernel 1), else [K, T, ...]
+            T = ops[0].shape[2 if name.startswith("fused_tile_gram_cross")
+                             else 1]
             row = dict(kernel=name, shape=shape, K=K, T=T, S=S, **kw)
             row.update(check(kernel, plain, ops, S, kw))
-            row.update(time_kernel(kernel, rows_of, ops, S, kw))
+            row.update(time_kernel(kernel, rows_of, ops, S, kw,
+                                   row_ops=0 if name == "tile_gram" else 4))
             row.update(device_ms(lambda: kernel(*ops, S, **kw)))
             print(json.dumps(row), flush=True)
             del ops

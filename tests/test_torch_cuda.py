@@ -536,6 +536,92 @@ def test_rect_gram_pass_matches_plain(kernel, R, T, S, dtype, tol):
     assert float((c - ref_c).abs().max()) <= tol * scale
 
 
+def _square_problem(kernel, R, S, seed, T, K=70):
+    """Operands of the square Gram pass (the full D x D Gram) for kernel 1's
+    Gibbs layout ("cross", D = R + 2), kernel 2 with out_rows=None
+    ("meta", D = R + 4) and kernel 3 ("rows", D = R + 2), with slots out
+    of order, invalid rows in the middle of every tile (slot S or -1; for
+    kernel 2 also ones = 0) and flags that thread the carry through
+    non-zero last slots.  Where T > 256 even tiles hold a run that
+    crosses row 256 and odd tiles a slot that recurs after an invalid row
+    256.  Returns (operands, carry_in [D, D])."""
+    rng = np.random.RandomState(seed)
+    slot = rng.randint(0, S, size=(K, T))
+    slot[:, T // 3] = S
+    slot[:, T // 2] = -1
+    if T > 256:
+        slot[0::2, 250:263] = (np.arange(0, K, 2) % S)[:, None]
+        slot[1::2, 255:258] = (np.arange(1, K, 2) % S)[:, None]
+        slot[1::2, 256] = S
+    flags = [rng.randint(0, 2, K).astype(np.int32),
+             rng.randint(0, 2, K).astype(np.int32),
+             rng.randint(0, S, K).astype(np.int32)]
+    if kernel == "cross":
+        gths = [rng.normal(size=(K, T, R + 2)) for _ in range(2)]
+        aux2 = np.stack([slot.astype(np.float64), rng.normal(size=(K, T))],
+                        axis=1)
+        ops = [aux2, gths, rng.normal(size=(K, S, R + 2))] + flags
+        return ops, rng.normal(size=(R + 2, R + 2))
+    if kernel == "rows":
+        ops = [rng.normal(size=(K, T, R + 2)), slot.astype(np.int32)] + flags
+        return ops, rng.normal(size=(R + 2, R + 2))
+    ones = (rng.random((K, T)) < 0.8).astype(np.float64)
+    ones[:, T // 4] = 0.0
+    if T > 256:
+        ones[0::2, 250:263] = 1.0
+        ones[1::2, 255:258] = 1.0
+    meta = np.stack([ones, rng.normal(size=(K, T)), rng.random((K, T))],
+                    axis=2)
+    slot = np.where(slot < 0, S, slot).astype(np.int32)
+    ops = [meta, rng.normal(size=(K, T, R + 2)), slot,
+           rng.normal(size=(K, S, 1 + R))] + flags
+    return ops, rng.normal(size=(R + 4, R + 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-4),
+                                       (np.float64, 1e-10)])
+@pytest.mark.parametrize("S", [1, 64])
+@pytest.mark.parametrize("R,T", [(1, 16), (3, 16), (10, 16), (32, 16),
+                                 (48, 16), (3, 300), (32, 300), (1, 1024),
+                                 (10, 1024)])
+@pytest.mark.parametrize("kernel", ["cross", "meta", "rows"])
+def test_square_gram_pass_matches_plain(kernel, R, T, S, dtype, tol):
+    """Kernel 1's Gibbs layout, kernel 2 with out_rows=None and kernel 3
+    through the square pass (the triangle of register blocks): D not a
+    multiple of the block (R = 48: the 4 x 4 triangle), runs cut by the
+    run list's 256-row chunks (T = 300, 1024), against the plain version,
+    and two runs bit-equal."""
+    device = _cuda()
+    ops, carry = _square_problem(kernel, R, S, seed=R * 100 + S + T, T=T)
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+
+    def t(a):
+        a = torch.as_tensor(a, device=device)
+        return a.to(tdt) if a.is_floating_point() else a
+
+    ops = [[t(g) for g in o] if isinstance(o, list) else t(o) for o in ops]
+    cy = t(carry)
+    fn, plain = {
+        "cross": (gram.fused_tile_gram_cross,
+                  gram.fused_tile_gram_cross_reference),
+        "meta": (gram.fused_tile_gram, gram.fused_tile_gram_reference),
+        "rows": (gram.tile_gram, gram.tile_gram_reference),
+    }[kernel]
+    before = fn.launches
+    out, c = fn(*ops, S, cy)
+    again, c2 = fn(*ops, S, cy)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert torch.equal(out, again) and torch.equal(c, c2)
+    ref, ref_c = plain(*ops, S, cy)
+    D = carry.shape[0]
+    assert out.shape == ref.shape == (70 * S, D, D)
+    scale = max(float(ref.abs().max()), 1.0)
+    assert float((out - ref).abs().max()) <= tol * scale
+    assert float((c - ref_c).abs().max()) <= tol * scale
+
+
 @pytest.mark.cuda
 def test_gram_kernels_refuse_tiles_beyond_shared_memory():
     device = _cuda()
@@ -573,6 +659,18 @@ def test_gram_kernels_refuse_tiles_beyond_shared_memory():
                     z(K, T, dtype=torch.int32, device=device),
                     z(K, S, 1 + R, device=device), *flags, S,
                     out_rows=2 + R)
+    # fp32 square tiles (kernel 1's Gibbs layout, kernel 3; R = 32, T =
+    # 1650: 231,272 and 231,000 B of dynamic stage) that fit but not with
+    # the run list on top
+    T = 1650
+    flags = [z(K, dtype=torch.int32, device=device) for _ in range(3)]
+    with pytest.raises(ValueError, match="shared memory"):
+        gram.fused_tile_gram_cross(
+            z(K, 2, T, device=device), [z(K, T, 2 + R, device=device)],
+            z(K, S, 2 + R, device=device), *flags, S)
+    with pytest.raises(ValueError, match="shared memory"):
+        gram.tile_gram(z(K, T, 2 + R, device=device),
+                       z(K, T, dtype=torch.int32, device=device), *flags, S)
 
 
 def _tiny_vi_plan(device, rank, dtype):

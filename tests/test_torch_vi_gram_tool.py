@@ -1,10 +1,12 @@
 """The operand builders and the plain-version check of
-myfm_tpu_torch/tools/vi_gram.py (the card loop of kernel 1's VI layout
-and kernel 2) at a tiny size on the CPU, against the TPU package's jnp
-oracles (myfm_tpu/ops/pallas_gram.py ``fused_tile_gram_cross_reference``
-and ``fused_tile_gram_reference``, the full square Gram of which the
-port's rectangle is the first 2 + R rows).  Tolerance: float64 1e-10 of
-the output's scale (the same sums in another order).
+myfm_tpu_torch/tools/vi_gram.py (the card loop of the Gram kernels: kernel
+1's VI layout and kernel 2 at the VI shapes, kernel 1's Gibbs layout and
+kernel 3 at the square shape) at a tiny size on the CPU, against the TPU
+package's jnp oracles (myfm_tpu/ops/pallas_gram.py
+``fused_tile_gram_cross_reference``, ``fused_tile_gram_reference`` and
+``tile_gram_reference``; the VI rectangle is the first 2 + R rows of
+their full square Gram).  Tolerance: float64 1e-10 of the output's scale
+(the same sums in another order).
 """
 
 import numpy as np
@@ -16,6 +18,7 @@ import jax.numpy as jnp
 from myfm_tpu.ops.pallas_gram import (
     fused_tile_gram_cross_reference as jax_cross_reference,
     fused_tile_gram_reference as jax_meta_reference,
+    tile_gram_reference as jax_rows_reference,
 )
 from myfm_tpu_torch.tools import vi_gram
 
@@ -74,6 +77,55 @@ def test_plain_check_matches_the_jax_oracle(name):
     scale = max(float(np.abs(ref).max()), 1.0)
     assert float(np.abs(out.numpy() - ref).max()) <= 1e-10 * scale
     assert float(np.abs(carry.numpy() - np.asarray(ref_c)[:rows]).max()
+                 ) <= 1e-10 * scale
+
+
+@pytest.mark.parametrize("name", list(vi_gram.SQUARE_KERNELS))
+def test_square_operands_are_a_packed_first_chunk(name):
+    build = vi_gram.SQUARE_KERNELS[name][0]
+    ops, S, kw = build(**TINY)
+    D = TINY["rank"] + 2
+    K = ops[0].shape[0]
+    assert S == 4 and kw == {}
+    assert all(int(f.shape[0]) == K for f in ops[-3:])
+    assert int(ops[-3].sum()) > 0  # an entity continues across tiles
+    if name == "fused_tile_gram_cross":
+        aux2, gths, wvsl = ops[:3]
+        assert aux2.shape == (K, 2, 16) and wvsl.shape == (K, S, D)
+        assert [tuple(g.shape) for g in gths] == [(K, 16, D)] * 2
+        pad = aux2[:, 0] >= S
+        assert bool(pad.any()) and all(
+            float(g[pad].abs().max()) == 0.0 for g in gths)
+    else:
+        rows, slot = ops[:2]
+        assert rows.shape == (K, 16, D) and slot.shape == (K, 16)
+        assert slot.dtype == torch.int32 and int(slot.max()) < S
+        aux2 = vi_gram.gibbs_operands(**TINY)[0][0]
+        pad = aux2[:, 0] >= S
+        assert bool(pad.any()) and float(rows[pad].abs().max()) == 0.0
+        assert torch.equal(slot[~pad].float(), aux2[:, 0][~pad])
+
+
+@pytest.mark.parametrize("name", list(vi_gram.SQUARE_KERNELS))
+def test_square_plain_check_matches_the_jax_oracle(name):
+    build, kernel, plain, _ = vi_gram.SQUARE_KERNELS[name]
+    ops, S, kw = build(seed=3, **TINY)
+    errs = vi_gram.check(kernel, plain, ops, S, kw)
+    assert errs == dict.fromkeys(
+        ["err_float32", "rel_float32", "err_float64", "rel_float64"], 0.0)
+    ops = vi_gram.cast(ops, torch.float64)
+    D = TINY["rank"] + 2
+    out, carry = plain(*ops, S)
+    assert out.shape == (ops[0].shape[0] * S, D, D)
+    zero = jnp.zeros((D, D), jnp.float64)
+    if name == "fused_tile_gram_cross":
+        ref, ref_c = jax_cross_reference(*_jax(ops), S, zero, q_lo=1,
+                                         n_extra=0)
+    else:
+        ref, ref_c = jax_rows_reference(*_jax(ops), S, zero)
+    scale = max(float(np.abs(np.asarray(ref)).max()), 1.0)
+    assert float(np.abs(out.numpy() - np.asarray(ref)).max()) <= 1e-10 * scale
+    assert float(np.abs(carry.numpy() - np.asarray(ref_c)).max()
                  ) <= 1e-10 * scale
 
 
