@@ -58,7 +58,10 @@ Phases, one line each:
   jdata     the ML-100k timeSVD++-flipped design and its joint plan:
             (B, C, Pf) of each block's tail, compile time
   jkernel   joint_tail_pass, kernel vs plain, on each block's real tail
-            stack from the Gram of the initial state, fp32 + fp64
+            stack from the Gram of the initial state, fp32 + fp64, with
+            its µs per color and each of its two kernels' device ms;
+            the prep kernel's lists (tail_lists) bit-equal to their
+            plain version on each tail's segb
   jsweep    one gibbs_sweep with the tail kernel vs one with the plain
             tail, same state and variates, deterministic torch ops
   jfit      the estimator through "auto"; must resolve to "joint" and
@@ -94,7 +97,11 @@ which of the two bounds it, and the time of the one PyTorch call that
 computes the same function where there is one (the torch.bmm of the
 slot-masked operand for the Gram kernels and section levels 1-3,
 transpose(1, 2).contiguous() for the probe; none for the joint tail, a
-chain of ~1k dependent colors, nor for section level 0).  Times are
+chain of ~1k dependent colors, for its prep kernel's lists (a stable sort
+gives the grouped rows but not the live slots and their starts), nor for
+section level 0).  ``joint_tail_pass[lists]`` is that prep kernel, which
+every joint_tail_pass call launches before the chain, timed alone on the
+tail's real operands as the call launches it.  Times are
 summed over the tables (or block tails) of the path, at their first
 chunk; ``fused_tile_gram_cross[vi]`` is kernel 1's VI layout on the
 ML-100k design and ``fused_tile_gram_cross[vi10m]`` the same at the
@@ -603,10 +610,17 @@ def jkernel_phase(torch, plan, trainer, state):
         build_block_gram,
         dense_tail_operands,
     )
+    from myfm_tpu_torch.ops import _build
     from myfm_tpu_torch.ops.joint_tail import (
+        _bind,
+        _prep,
         joint_tail_pass,
         joint_tail_pass_reference,
+        tail_lists,
+        tail_lists_reference,
     )
+    from myfm_tpu_torch.tools.joint_tail import TAIL_KINDS
+    from myfm_tpu_torch.tools.vi_gram import device_ms
 
     # the initial state's hyperparameters drawn as a sweep draws them
     v = draw_gibbs_variates(plan, trainer.cfg, J_RANK, trainer.generator,
@@ -617,12 +631,22 @@ def jkernel_phase(torch, plan, trainer, state):
     mu = torch.cat([h.mu_w[:, None], h.mu_V], dim=1)
     q = factor_q(plan, h.V)
     D = J_RANK + 2
-    rows = []
+    rows, lrows = [], []
     for bi, b in enumerate(plan.blocks):
         ds = b.dense_stack
         if ds is None:
             continue
         C, B = ds.xw.shape
+        # the prep kernel's lists, bit-equal to their plain version
+        Pf = int(ds.feat.shape[1])
+        lists = tail_lists(ds.segb, Pf)
+        want = tail_lists_reference(ds.segb, Pf)
+        for name, g, w in zip(("rows", "lstart", "live"), lists, want):
+            if not torch.equal(g, w):
+                fail(f"jkernel block {bi}: prep kernel's {name} differ "
+                     "from the plain version")
+        lrow = dict(block=bi, err_float32=max(
+            float((g - w).abs().max()) for g, w in zip(lists, want)))
         G = build_block_gram(b, h.e, q, flat=True).T.contiguous()
         ops32 = [G, G.new_zeros((J_RANK, B)), G.new_zeros((B,)), ds.xw,
                  ds.segb, *dense_tail_operands(b, U, lam, mu, v.noise,
@@ -652,6 +676,33 @@ def jkernel_phase(torch, plan, trainer, state):
                 row["ms"] = cuda_ms(
                     torch, lambda: joint_tail_pass(*o, alpha, D), 5
                 )
+                row["us_per_color"] = row["ms"] * 1e3 / C
+                # the device time of each of the call's two kernels
+                try:
+                    split = device_ms(lambda: joint_tail_pass(*o, alpha, D),
+                                      reps=5, kinds=TAIL_KINDS)
+                    row.update(prep_device_ms=split["prep_ms"],
+                               chain_device_ms=split["chain_ms"],
+                               captured=split["captured"])
+                except RuntimeError as exc:
+                    row.update(prep_device_ms=None, chain_device_ms=None,
+                               device_ms_error=str(exc))
+                # the prep kernel alone as the call launches it: the same
+                # operands at this D, into a new workspace sized for the
+                # chain (events: its host work included, and here, under
+                # deterministic ops, a fill of that workspace)
+                lib = _bind(_build.load("joint_tail"))
+                a_t, u_out = alpha.reshape(1), torch.empty_like(o[5])
+                ws = _prep(lib, *o[3:], a_t, u_out, D)
+                lrow.update(
+                    ms=cuda_ms(torch, lambda: _prep(lib, *o[3:], a_t, u_out,
+                                                    D), 10),
+                    device_ms=row["prep_device_ms"],
+                    plain_ms=cuda_ms(
+                        torch, lambda: tail_lists_reference(o[4], Pf), 5),
+                    library_ms=None,
+                    **dict(zip(("bound_ms", "bound_by"), bound(
+                        nbytes(*o[3:], ws, u_out), 0))))
                 row["plain_ms"] = cuda_ms(
                     torch, lambda: joint_tail_pass_reference(*o, alpha, D),
                     1,
@@ -659,7 +710,6 @@ def jkernel_phase(torch, plan, trainer, state):
                 # the work this tail's data needs: per touched row its
                 # Gram statistics and its rank-two update (~6 D² ops), per
                 # live slot an (R+1)-dim Cholesky and two solves
-                Pf = row["Pf"]
                 segb = o[4].long()
                 touched = int((segb < Pf).sum())
                 live = int((torch.nn.functional.one_hot(segb, Pf + 1)
@@ -670,9 +720,10 @@ def jkernel_phase(torch, plan, trainer, state):
                     touched * 6 * D * D + live * (r1**3 // 3 + 4 * r1 * r1),
                 )
         rows.append(row)
+        lrows.append(lrow)
     if not rows:
         fail("jkernel: no block of the plan has a tail stack")
-    return rows
+    return rows, lrows
 
 
 def jsweep_phase(torch, plan, trainer, state):
@@ -1093,9 +1144,11 @@ def main():
         fail("the joint trainer did not resolve to the tail kernel")
     with deterministic(torch):
         jstate = jtrainer._initialize()
-        jrows = jkernel_phase(torch, jplan, jtrainer, jstate)
+        jrows, jlrows = jkernel_phase(torch, jplan, jtrainer, jstate)
     for r in jrows:
         say("jkernel", json.dumps(r))
+    for r in jlrows:
+        say("jkernel", json.dumps(dict(lists=True, **r)))
     say("jsweep", json.dumps(jsweep_phase(torch, jplan, jtrainer, jstate)))
     del jplan, jtrainer, jstate
     torch.cuda.empty_cache()
@@ -1103,6 +1156,7 @@ def main():
     stamps.clear()
     torch.cuda.reset_peak_memory_stats()
     joint_tail.joint_tail_pass.launches = 0
+    joint_tail.tail_lists.launches = 0
     t_fit = time.perf_counter()
     jfm = MyFMGibbsRegressor(
         rank=J_RANK, random_seed=SEED, device="cuda"
@@ -1111,11 +1165,13 @@ def main():
     torch.cuda.synchronize()
     t_fit_end = time.perf_counter()
     jlaunches = joint_tail.joint_tail_pass.launches
+    jl_launches = joint_tail.tail_lists.launches
     jpeak = torch.cuda.max_memory_allocated()
     if jfm.history_.engine != "joint":
         fail(f"joint fit resolved to {jfm.history_.engine!r}, not 'joint'")
-    if jlaunches <= 0:
-        fail("the joint path never launched joint_tail_pass")
+    if jlaunches <= 0 or jl_launches <= 0:
+        fail("the joint path never launched joint_tail_pass's kernels "
+             f"(chain {jlaunches}, lists {jl_launches})")
     ttfs = stamps[0] - t_fit
     sweeps_per_s = (len(stamps) - 1) / (stamps[-1] - stamps[0])
     say("jfit", f"engine {jfm.history_.engine}, {len(stamps)} sweeps, "
@@ -1336,6 +1392,8 @@ def main():
               v10_launches, k10),
         entry("joint_tail_pass", TAIL_SOURCE, TAIL_REPLACES, jlaunches,
               jrows),
+        entry("joint_tail_pass[lists]", TAIL_SOURCE, TAIL_REPLACES,
+              jl_launches, jlrows),
         entry("tile_gram", GRAM_SOURCE, ROWS_REPLACES, e_launches, erows),
     ] + [
         entry(f"gram_section[{r['level']}]", SECTIONS_SOURCE,

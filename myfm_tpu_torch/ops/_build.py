@@ -7,7 +7,8 @@ repository root, named by a hash of the source, of every header it
 includes from ``csrc/`` and of the flags, so an edited source or header
 rebuilds and an unchanged one loads as it is.  Nothing is
 built at import time: ``load`` builds on first use, and ``build_all``
-starts one ``nvcc`` per source at once.
+starts one ``nvcc`` per source at once.  ``VARIANTS`` names libraries
+built from a source with extra flags, for measurement tools only.
 """
 
 from __future__ import annotations
@@ -24,6 +25,10 @@ from typing import Dict, List, Tuple
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "myfm_tpu_torch"
 SOURCES = ("fused_gram_cross", "joint_tail", "gram_sections")
+# library name -> (source, extra nvcc flags); built only when asked for
+VARIANTS = {
+    "joint_tail_timed": ("joint_tail", ("-DMYFM_JOINT_TAIL_TIMED",)),
+}
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -61,9 +66,16 @@ def source_files(name: str) -> List[Path]:
     return seen
 
 
+def _recipe(name: str) -> Tuple[str, Tuple[str, ...]]:
+    """The source of library ``name`` and its flags."""
+    source, extra = VARIANTS.get(name, (name, ()))
+    return source, NVCC_FLAGS + extra
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in source_files(name):
+    source, flags = _recipe(name)
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path in source_files(source):
         digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
@@ -71,7 +83,8 @@ def library_path(name: str) -> Path:
 def _start(name: str) -> Tuple[subprocess.Popen, Path, Path]:
     lib = library_path(name)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    source, flags = _recipe(name)
+    cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{source}.cu")]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
@@ -103,7 +116,8 @@ def build_all(names=SOURCES) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built if missing."""
+    """The loaded library ``name`` (``csrc/<name>.cu`` or one of
+    ``VARIANTS``), built if missing."""
     lib = _loaded.get(name)
     if lib is None:
         path = library_path(name)
@@ -120,11 +134,12 @@ def ptxas_summary(log: str) -> List[str]:
     out, name, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"entry function '.*?\d([a-z_]+_kernel)I([fd])"
-                      r"(?:Lb([01])E)?E", line)
+                      r"((?:Lb[01]E|Li\d+E)*)E", line)
         if m:
             dtype = "float" if m.group(2) == "f" else "double"
-            flag = "" if m.group(3) is None else f", {m.group(3)}"
-            name, spill = f"{m.group(1)}<{dtype}{flag}>", ""
+            flags = "".join(f", {f}" for f in re.findall(r"L[bi](\d+)E",
+                                                         m.group(3)))
+            name, spill = f"{m.group(1)}<{dtype}{flags}>", ""
         if "spill" in line and " 0 bytes spill stores" not in line:
             spill = f" ({line.strip()})"
         m = re.search(r"Used (\d+) registers", line)

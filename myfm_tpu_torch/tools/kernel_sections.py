@@ -189,18 +189,61 @@ def check_probe(x: torch.Tensor) -> None:
                                  "bit-equal to transpose(1, 2).contiguous()")
 
 
+L2_BYTES = 50 * 2**20  # H100 SXM's L2
+
+
+def probe_device_ms(fn, x: torch.Tensor, part: str) -> dict:
+    """Device ms of the kernel of ``fn(x)`` whose name holds ``part``, by
+    ``tools/vi_gram.device_ms`` (each kernel's median duration, a trace
+    that lost or repeated calls' events taken again): ``device_ms`` with
+    the same ``x`` every call (it stays in L2 after the first), and
+    ``device_ms_cold`` with every call on a copy of ``x`` written 100 MB
+    before it (so read from device memory).  None, with
+    ``device_ms_error``, where no trace was whole."""
+    from .vi_gram import device_ms
+
+    kinds = (("probe", part),)
+    calls = 2 + 10 * 3  # device_ms's warm-up, first trace, 3 traces of 10
+    n = calls + -(-2 * L2_BYTES // x.nbytes)
+    copies = x.expand(n, *x.shape).contiguous()
+    turn = iter(range(calls))
+    try:
+        return dict(
+            device_ms=device_ms(lambda: fn(x), kinds=kinds)["probe_ms"],
+            device_ms_cold=device_ms(lambda: fn(copies[next(turn)]),
+                                     kinds=kinds)["probe_ms"])
+    except RuntimeError as exc:
+        return dict(device_ms=None, device_ms_cold=None,
+                    device_ms_error=str(exc))
+
+
 def time_probe(x: torch.Tensor, reps: int = 50) -> List[dict]:
-    """Per variant: kernel ms, plain ms, the transpose yardstick and the
-    bound (2 × 4 B in and out per row)."""
+    """Per variant: kernel ms by CUDA events around ``reps`` calls (the
+    wrapper's host work included) and its device ms, warm and cold
+    (``probe_device_ms``), the same for the transpose yardstick
+    (``library_*``), the plain version's event ms, and the bound (2 × 4 B
+    in and out per row, from device memory)."""
     K, _, T = x.shape
-    lib_ms = cuda_ms(lambda: x.transpose(1, 2).contiguous(), reps)
+
+    def transpose(t):
+        return t.transpose(1, 2).contiguous()
+
+    lib_ms = cuda_ms(lambda: transpose(x), reps)
+    lib_dev = probe_device_ms(transpose, x, "")
     plain_ms = cuda_ms(lambda: gram.interleave_probe_reference(x), reps)
     b_ms, b_by = _bound(2 * _nbytes(x), 0)
-    return [dict(variant=v, shape=[K, 2, T],
-                 ms=cuda_ms(lambda: gram.interleave_probe(x, v), reps),
-                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                 bound_by=b_by)
-            for v in gram.PROBE_VARIANTS]
+    rows = []
+    for v in gram.PROBE_VARIANTS:
+        def run(t):
+            return gram.interleave_probe(t, v)
+
+        rows.append(dict(
+            variant=v, shape=[K, 2, T], ms=cuda_ms(lambda: run(x), reps),
+            **probe_device_ms(run, x, f"interleave_{v}"),
+            plain_ms=plain_ms, library_ms=lib_ms,
+            **{f"library_{k}": val for k, val in lib_dev.items()},
+            bound_ms=b_ms, bound_by=b_by))
+    return rows
 
 
 def main(argv: Sequence[str]) -> int:
@@ -228,9 +271,12 @@ def main(argv: Sequence[str]) -> int:
         check_probe(x)
         for r in time_probe(x):
             print(f"probe {r['variant']} {r['shape']}: {r['ms']:.4f} ms; "
-                  f"plain {r['plain_ms']:.4f} ms; transpose "
-                  f"{r['library_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms",
-                  flush=True)
+                  f"device {r['device_ms']} ms, cold {r['device_ms_cold']}"
+                  f" ms; plain {r['plain_ms']:.4f} ms; transpose "
+                  f"{r['library_ms']:.4f} ms, device "
+                  f"{r['library_device_ms']} ms, cold "
+                  f"{r['library_device_ms_cold']} ms; bound "
+                  f"{r['bound_ms']:.4f} ms", flush=True)
     return 0
 
 

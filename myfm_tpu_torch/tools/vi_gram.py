@@ -44,7 +44,7 @@ import json
 import statistics
 import subprocess
 import sys
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -253,35 +253,44 @@ def check(kernel, plain, ops: Sequence, S: int, kw: dict,
     return row
 
 
-def kernel_split(durations: Dict[str, List[float]], reps: int
+# the Gram kernels' kinds: the carry (``carry_*``), pass 1 (``*tile_kernel``)
+GRAM_KINDS = (("carry", "carry_"), ("pass1", "tile_kernel"))
+
+
+def kernel_split(durations: Dict[str, List[float]], reps: int,
+                 kinds: Sequence[Tuple[str, str]] = GRAM_KINDS
                  ) -> Dict[str, float]:
     """Device milliseconds per call from each kernel's traced durations
     (µs) over ``reps`` calls that launch every kernel once: the median
-    duration of each kernel, summed by kind -- pass 1 (``*tile_kernel``),
-    the carry (``carry_*``), everything else (fills) -- and in all.  A
-    median, not a sum over reps, because a trace late in a long process
-    may lose some of the events, or hold a few more; ``captured`` is the
-    share it held.  Raises ValueError for a trace without pass 1 or the
-    carry, or with ``captured`` outside [0.5, 1.5]."""
-    out = dict(pass1_ms=0.0, carry_ms=0.0, other_ms=0.0)
+    duration of each kernel, summed by kind -- the first (key, part) of
+    ``kinds`` whose part is in the kernel's name, else "other" (fills)
+    -- as ``<key>_ms``, and in all.  A median, not a sum over reps,
+    because a trace late in a long process may lose some of the events,
+    or hold a few more; ``captured`` is the share it held.  Raises
+    ValueError for a trace without a kind of ``kinds``, or with
+    ``captured`` outside [0.5, 1.5]."""
+    out = {f"{key}_ms": 0.0 for key, _ in kinds}
+    out["other_ms"] = 0.0
     seen = set()
     for name, us in durations.items():
-        key = ("carry" if "carry_" in name
-               else "pass1" if "tile_kernel" in name else "other")
+        key = next((k for k, part in kinds if part in name), "other")
         out[f"{key}_ms"] += statistics.median(us) / 1e3
         seen.add(key)
     out["device_ms"] = sum(out.values())
     n = sum(len(us) for us in durations.values())
     out["captured"] = n / (reps * max(len(durations), 1))
-    if not {"pass1", "carry"} <= seen or not 0.5 <= out["captured"] <= 1.5:
+    if (not {key for key, _ in kinds} <= seen
+            or not 0.5 <= out["captured"] <= 1.5):
         raise ValueError(f"incomplete trace: kinds {sorted(seen)}, "
                          f"captured {out['captured']:.2f}")
     return out
 
 
-def device_ms(fn, reps: int = 10, attempts: int = 3) -> Dict[str, float]:
-    """``kernel_split`` of ``reps`` calls of ``fn`` traced by
-    torch.profiler after one warm-up.  A trace in a process that has
+def device_ms(fn, reps: int = 10, attempts: int = 3,
+              kinds: Sequence[Tuple[str, str]] = GRAM_KINDS
+              ) -> Dict[str, float]:
+    """``kernel_split`` (by ``kinds``) of ``reps`` calls of ``fn`` traced
+    by torch.profiler after one warm-up.  A trace in a process that has
     traced before can receive kernel events late, or none: a first trace
     of one call takes what earlier traces left, and a trace that
     ``kernel_split`` refuses is taken again, up to ``attempts`` times;
@@ -305,7 +314,7 @@ def device_ms(fn, reps: int = 10, attempts: int = 3) -> Dict[str, float]:
                 durations.setdefault(e.name, []).append(
                     e.time_range.elapsed_us())
         try:
-            return kernel_split(durations, reps)
+            return kernel_split(durations, reps, kinds)
         except ValueError as exc:
             why = exc
     raise RuntimeError(f"device_ms: {attempts} traces, none whole ({why})")

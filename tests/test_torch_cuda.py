@@ -149,9 +149,13 @@ def test_fit_on_card_goes_through_the_kernel():
 # ---------------------------------------------------------------------------
 
 
-def _tail_problem(C, B, Pf, R, seed, dtype, single_row=False, pad_slot=False):
+def _tail_problem(C, B, Pf, R, seed, dtype, single_row=False, pad_slot=False,
+                  edge=None):
     """A structurally valid tail stack: per color each block row holds at
-    most one feature slot, and the Gram is a genuine sum of z zᵀ."""
+    most one feature slot, and the Gram is a genuine sum of z zᵀ.
+    ``edge``: "empty_color" leaves every other color without rows (all its
+    slots pads); "all_rows" gives slot 0 of every third color every block
+    row."""
     rng = np.random.RandomState(seed)
     D = R + 2
     z = rng.normal(size=(8 * B, D))
@@ -174,6 +178,12 @@ def _tail_problem(C, B, Pf, R, seed, dtype, single_row=False, pad_slot=False):
     if pad_slot:
         xw[segb == Pf - 1] = 0.0
         segb[segb == Pf - 1] = Pf
+    if edge == "empty_color":
+        xw[::2] = 0.0
+        segb[::2] = Pf
+    elif edge == "all_rows":
+        segb[::3] = 0
+        xw[::3] = rng.choice([-1.0, 0.5], size=xw[::3].shape)
     ops = [G.reshape(B, D * D).T.copy(),
            0.05 * rng.normal(size=(R, B)), 0.05 * rng.normal(size=B),
            xw, segb,
@@ -193,24 +203,35 @@ def _tail(fn, ops, device, alpha, D):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(np.float32, 2e-4),
                                        (np.float64, 1e-10)])
-@pytest.mark.parametrize("C,B,Pf,R,single_row,pad_slot", [
-    (7, 37, 4, 3, False, False),
-    (20, 101, 8, 10, False, True),
-    (15, 70, 1, 10, True, False),
-    (6, 45, 8, 32, False, True),
-    (9, 943, 8, 10, True, True),
+@pytest.mark.parametrize("C,B,Pf,R,single_row,pad_slot,edge", [
+    (7, 37, 4, 3, False, False, None),
+    (20, 101, 8, 10, False, True, None),
+    (15, 70, 1, 10, True, False, None),
+    (6, 45, 8, 32, False, True, None),
+    (9, 943, 8, 10, True, True, None),
     # per-slot arrays beyond shared memory: the workspace variant
-    (4, 200, 40, 32, False, True),
-    (5, 943, 300, 10, True, False),
+    (4, 200, 40, 32, False, True, None),
+    (5, 943, 300, 10, True, False, None),
+    # colors whose slots own no rows at all
+    (8, 64, 4, 10, False, False, "empty_color"),
+    # one slot owning every block row (touched = B, beyond a warp's rows)
+    (6, 300, 4, 10, False, False, "all_rows"),
+    (4, 943, 8, 32, False, False, "all_rows"),
+    # one slot per color
+    (12, 90, 1, 4, False, False, None),
+    # D = 34: Dp = 33 rows over 32 lanes, several live slots per color
+    (5, 300, 12, 32, False, False, None),
+    # the real tail's size: C = 1,068 colors at B = 943
+    (1068, 943, 8, 10, False, True, None),
 ])
 def test_joint_tail_kernel_matches_plain(dtype, tol, C, B, Pf, R,
-                                         single_row, pad_slot):
+                                         single_row, pad_slot, edge):
     from myfm_tpu_torch.ops import joint_tail
 
     device = _cuda()
     D = R + 2
     ops = _tail_problem(C, B, Pf, R, seed=C + B, dtype=dtype,
-                        single_row=single_row, pad_slot=pad_slot)
+                        single_row=single_row, pad_slot=pad_slot, edge=edge)
     before = joint_tail.joint_tail_pass.launches
     got = _tail(joint_tail.joint_tail_pass, ops, device, 1.3, D)
     torch.cuda.synchronize()
@@ -238,16 +259,68 @@ def test_joint_tail_kernel_matches_plain(dtype, tol, C, B, Pf, R,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("Pf,R", [(8, 10), (40, 32)])
-def test_joint_tail_kernel_is_deterministic(dtype, Pf, R):
+@pytest.mark.parametrize("C,B,Pf,R,edge", [
+    (40, 300, 8, 10, None), (40, 300, 40, 32, None),
+    (40, 300, 1, 4, None), (40, 300, 12, 32, None),
+    (12, 300, 4, 10, "all_rows"), (12, 64, 4, 10, "empty_color"),
+    (1068, 943, 8, 10, None),
+])
+def test_joint_tail_kernel_is_deterministic(dtype, C, B, Pf, R, edge):
     from myfm_tpu_torch.ops import joint_tail
 
     device = _cuda()
-    ops = _tail_problem(40, 300, Pf, R, seed=4, dtype=dtype)
+    ops = _tail_problem(C, B, Pf, R, seed=4, dtype=dtype, edge=edge)
     a = _tail(joint_tail.joint_tail_pass, ops, device, 0.9, R + 2)
     b = _tail(joint_tail.joint_tail_pass, ops, device, 0.9, R + 2)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,B,Pf,R", [(40, 300, 8, 10), (5, 943, 300, 10)])
+def test_joint_tail_timed_build_matches_production(C, B, Pf, R):
+    """The chain's timed instantiation (the "joint_tail_timed" library)
+    gives the production kernel's bits and counts cycles in every phase;
+    per-slot arrays in shared memory (Pf 8) and in the workspace (Pf 300)."""
+    from myfm_tpu_torch.ops import joint_tail
+
+    device = _cuda()
+    ops = _tail_problem(C, B, Pf, R, seed=7, dtype=np.float32)
+    t = [torch.as_tensor(o, device=device) for o in ops]
+    alpha = torch.tensor(0.9, device=device)
+    want = joint_tail.joint_tail_pass(*t, alpha, R + 2)
+    got, cycles = joint_tail.joint_tail_phases(*t, alpha, R + 2)
+    for name, g, w in zip(("G", "Atot", "Ct", "u_new"), got, want):
+        assert torch.equal(g, w), name
+    assert (cycles[:len(joint_tail.PHASES)] > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,B,Pf,edge", [
+    (7, 37, 4, None), (1, 1, 1, None), (5, 31, 3, "empty_color"),
+    (6, 300, 4, "all_rows"), (1068, 943, 8, None), (5, 943, 300, None),
+    (3, 200, 1656, None),
+])
+def test_tail_lists_kernel_matches_plain(C, B, Pf, edge):
+    """The prep kernel's lists (rows grouped by slot, live-slot starts,
+    live ids and count) bit-equal to ``tail_lists_reference``, with colors
+    whose segb is Pf everywhere."""
+    from myfm_tpu_torch.ops import joint_tail
+
+    device = _cuda()
+    segb = _tail_problem(C, B, min(Pf, B), 2, seed=C + B + Pf,
+                         dtype=np.float32, edge=edge)[4]
+    segb[segb == min(Pf, B)] = Pf
+    segb[C // 2] = Pf  # one color without rows
+    sg = torch.as_tensor(segb, device=device)
+    before = joint_tail.tail_lists.launches
+    got = joint_tail.tail_lists(sg, Pf)
+    torch.cuda.synchronize()
+    assert joint_tail.tail_lists.launches == before + 1
+    want = joint_tail.tail_lists_reference(sg, Pf)
+    for name, g, w in zip(("rows", "lstart", "live"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), name
 
 
 @pytest.mark.cuda

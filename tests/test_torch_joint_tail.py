@@ -181,3 +181,108 @@ def test_tail_kernel_gate(choice, device, rank, want):
             _resolve_joint_tail(cfg, plan, rank)
     else:
         assert _resolve_joint_tail(cfg, plan, rank).joint_tail_kernel is want
+
+
+def lists_oracle(segb, Pf):
+    """The prep kernel's lists written out color by color in numpy."""
+    C, B = segb.shape
+    rows = np.full((C, B), -1, np.int32)
+    lstart = np.zeros((C, Pf + 1), np.int32)
+    live = np.full((C, Pf + 1), -1, np.int32)
+    for c in range(C):
+        grouped = [[b for b in range(B) if segb[c, b] == p]
+                   for p in range(Pf)]
+        flat = [b for g in grouped for b in g]
+        rows[c, :len(flat)] = flat
+        ids = [p for p in range(Pf) if grouped[p]]
+        live[c, :len(ids)] = ids
+        live[c, Pf] = len(ids)
+        at = 0
+        for l, p in enumerate(ids):
+            lstart[c, l] = at
+            at += len(grouped[p])
+        lstart[c, len(ids):] = len(flat)
+    return rows, lstart, live
+
+
+@pytest.mark.parametrize("C,B,Pf,edge", [
+    (7, 37, 4, None), (1, 1, 1, None), (3, 40, 1, None),
+    (5, 31, 3, "empty"), (6, 50, 4, "all_rows"), (4, 120, 30, None),
+])
+def test_tail_lists_plain_matches_numpy_oracle(C, B, Pf, edge):
+    """``tail_lists_reference`` (the plain version the prep kernel is held
+    to bit for bit on the card) against a per-color numpy oracle, on
+    ``tail_problem`` stacks with colors whose segb is Pf everywhere and a
+    slot owning every block row."""
+    segb = tail_problem(C, B, Pf, 2, seed=C * B + Pf)[4]
+    segb[C // 2] = Pf
+    if edge == "empty":
+        segb[::2] = Pf
+    elif edge == "all_rows":
+        segb[::3] = 0
+    got = joint_tail.tail_lists(torch.as_tensor(segb), Pf)
+    for name, g, w in zip(("rows", "lstart", "live"), got,
+                          lists_oracle(segb, Pf)):
+        assert g.dtype == torch.int32, name
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+
+
+def test_tail_tool_distribution_and_check_on_cpu():
+    """The card tool's per-color distribution against numpy, its
+    kernel-vs-plain check (on CPU tensors the wrapper is the plain
+    version, so every error is zero) and its device split of a call by
+    the tail's kernel names."""
+    from myfm_tpu_torch.tools import joint_tail as tool
+    from myfm_tpu_torch.tools import vi_gram
+
+    C, B, Pf, R = 9, 40, 4, 3
+    ops = tail_problem(C, B, Pf, R, seed=3, dtype=np.float32)
+    segb = ops[4]
+    segb[2] = Pf
+    got = tool.distribution(torch.as_tensor(segb), Pf)
+    touched = (segb < Pf).sum(axis=1)
+    live = np.array([len(set(r[r < Pf])) for r in segb])
+    assert got["touched_mean"] == pytest.approx(touched.mean())
+    assert got["touched_median"] == pytest.approx(np.median(touched))
+    assert got["touched_p90"] == pytest.approx(np.percentile(touched, 90))
+    assert got["touched_max"] == touched.max()
+    assert got["live_mean"] == pytest.approx(live.mean())
+    assert got["live_max"] == live.max()
+    t = [torch.as_tensor(o) for o in ops]
+    row = tool.check(joint_tail.joint_tail_pass, t,
+                     torch.tensor(1.2, dtype=torch.float32), R + 2)
+    assert row == {"err_float32": 0.0, "rel_float32": 0.0,
+                   "err_float64": 0.0, "rel_float64": 0.0}
+    # the device split of a call: prep and chain by name, the working
+    # copies (one name launched twice per call) as "other"
+    prep = "void (anonymous namespace)::tail_prep_kernel<float>(int const*)"
+    chain = ("void (anonymous namespace)::joint_tail_kernel<float, true, "
+             "false>(float*, float*, int)")
+    copy = "void at::native::elementwise_kernel<128, 4>(int)"
+    split = vi_gram.kernel_split(
+        {prep: [30.0] * 5, chain: [12_000.0] * 4 + [90_000.0],
+         copy: [4.0] * 10}, reps=5, kinds=tool.TAIL_KINDS)
+    assert split["prep_ms"] == pytest.approx(0.03)
+    assert split["chain_ms"] == pytest.approx(12.0)
+    assert split["other_ms"] == pytest.approx(0.004)
+    assert split["captured"] == pytest.approx(20 / 15)
+    with pytest.raises(ValueError, match="incomplete trace"):
+        vi_gram.kernel_split({chain: [12_000.0] * 5}, reps=5,
+                             kinds=tool.TAIL_KINDS)
+
+
+def test_tail_tool_operands_are_the_smoke_tails():
+    """``tail_operands`` builds chip_smoke.py's two ML-100k tails: the
+    (C, B, Pf) that the smoke's jdata line reports, with a symmetric
+    block Gram per row."""
+    from myfm_tpu_torch.tools import joint_tail as tool
+
+    tails = tool.tail_operands(10, device="cpu")
+    shapes = [(t["ops"][3].shape[0], t["ops"][3].shape[1],
+               t["ops"][5].shape[1]) for t in tails]
+    assert shapes == [(1068, 943, 8), (928, 1649, 8)]
+    for t in tails:
+        G = t["ops"][0]
+        assert G.shape[0] == 144 and G.dtype == torch.float32
+        G3 = G.T.reshape(-1, 12, 12)
+        assert torch.allclose(G3, G3.transpose(1, 2), rtol=1e-6, atol=1e-3)
