@@ -18,6 +18,12 @@ holds every CUDA kernel of each against its plain PyTorch version:
   with entity+attribute tables (kernel 2 and kernel 1's VI layout), and
   on the ML-10M-shaped design at rank 32, 3 sweeps (kernel 1's VI
   layout);
+* the Gibbs fast path with entity+attribute tables: the same ML-100k
+  design through ``MyFMGibbsRegressor`` (rank 10, 20 sweeps) and
+  ``MyFMOrderedProbit`` (10 sweeps), which "auto" resolves below 200
+  sweeps to the fast path: kernel 1 over each table (an entity+attribute
+  table's own rows are its effective rows) and kernel 4 for the side
+  features' color scan;
 * the probit tasks: ``MyFMOrderedProbit`` and ``MyFMGibbsClassifier``
   (rank 32, 6 sweeps) on the ML-10M-shaped design's fast path (kernel 1)
   and ``MyFMOrderedProbit`` (rank 10, 20 sweeps, the joint engine) on the
@@ -66,10 +72,26 @@ Phases, one line each:
             tail, same state and variates, deterministic torch ops
   jfit      the estimator through "auto"; must resolve to "joint" and
             launch the tail kernel
-  jpredict  held-out RMSE through row-space serving, below std(y_test)
+  jpredict  held-out RMSE through serving (entity space, with the side
+            tables), below std(y_test)
   jofit     MyFMOrderedProbit(rank=10, sweep_strategy="joint"), 20
             sweeps; the tail kernel must launch
   jopredict the ofit / opredict checks on the held-out rows
+  eakernel  the same design's Gibbs plan with entity+attribute tables:
+            kernel 1 vs plain at each table's first chunk (fp32 + fp64),
+            then kernel 4 vs plain on each side table's color stack as
+            a first sweep's EA pass hands it over (fp64 within
+            JTAIL_TOL; fp32 within it, or no farther from the fp64
+            result than twice the plain fp32 version), with its µs per
+            color, its two kernels' device ms and the plain time
+  eafit     MyFMGibbsRegressor(rank=10) through "auto", 20 sweeps; must
+            resolve to "fastpath" and launch kernels 1 and 4
+  eapredict held-out RMSE below std(y_test), served by the entity-space
+            plan (its scorer's calls counted) and equal to the row-space
+            scorer's mean of the same samples
+  eaofit    MyFMOrderedProbit(rank=10) through "auto", 10 sweeps, on the
+            fast path; kernels 1 and 4 must launch; then the ofit /
+            opredict checks (eaopredict)
   vdata     the same ML-100k design's VI plan, with entity+attribute
             tables: (B, K, T, S) per table, (C, Pf) per side table
   vkernel   fused_tile_gram (each EA table, all its tiles) and
@@ -99,7 +121,9 @@ slot-masked operand for the Gram kernels and section levels 1-3,
 transpose(1, 2).contiguous() for the probe; none for the joint tail, a
 chain of ~1k dependent colors, for its prep kernel's lists (a stable sort
 gives the grouped rows but not the live slots and their starts), nor for
-section level 0).  ``joint_tail_pass[lists]`` is that prep kernel, which
+section level 0).  ``fused_tile_gram_cross[ea]`` and ``joint_tail_pass[ea]``
+are kernels 1 and 4 on the entity+attribute fast path (eakernel, eafit).
+``joint_tail_pass[lists]`` is the prep kernel, which
 every joint_tail_pass call launches before the chain, timed alone on the
 tail's real operands as the call launches it.  Times are
 summed over the tables (or block tails) of the path, at their first
@@ -170,6 +194,13 @@ JTAIL_TOL = {"float32": 1e-3, "float64": 1e-10}
 # deterministic: max |Δw|, |ΔV| on O(1) weights (measured 8e-6, 1.5e-5)
 JSWEEP_TOL = 1e-3
 TAIL_REPLACES = "myfm_tpu/ops/pallas_joint_tail.py:368"
+# the ML-100k design through the Gibbs fast path with entity+attribute
+# tables ("auto" below 200 sweeps)
+EA_N_ITER = 20
+EAO_N_ITER = 10
+# entity-space vs row-space posterior mean of the same fp32 samples, max
+# |Δ| on ratings 1-5: the same sums in another order (~1e-6)
+SERVE_TOL = 1e-4
 TAIL_SOURCE = "myfm_tpu_torch/csrc/joint_tail.cu"
 META_REPLACES = "myfm_tpu/ops/pallas_gram.py:384"
 
@@ -299,7 +330,7 @@ def build_design(seed):
     return design(perm[n_test:]), design(perm[:n_test]), grouping, shape
 
 
-def kernel_phase(torch, plan, state, y_tiles):
+def kernel_phase(torch, plan, state, y_tiles, label="kernel"):
     """Kernel vs plain at each table's first chunk of tiles."""
     from myfm_tpu_torch.ops import gram
 
@@ -314,7 +345,7 @@ def kernel_phase(torch, plan, state, y_tiles):
             torch, gram.fused_tile_gram_cross,
             gram.fused_tile_gram_cross_reference,
             lambda o, S: gram.cross_rows(o[0], o[1], o[2], S), ops, S,
-            {}, KERNEL_TOL, f"kernel vs plain, table {ti}",
+            {}, KERNEL_TOL, f"{label} vs plain, table {ti}",
         ))
         rows.append(row)
     return rows
@@ -372,9 +403,10 @@ def table_chunks(torch, plan, ti, w, V, y_tiles):
         table_gram_operands,
     )
 
-    return table_gram_operands(plan, ti, w, V, eff_tables(plan, w, V),
-                               own_rows(torch, w, V, plan.tables[ti]),
-                               y_tiles[ti])
+    eff = eff_tables(plan, w, V)
+    own = (own_rows(torch, w, V, plan.tables[ti]) if eff[ti] is None
+           else eff[ti])  # an entity+attribute table's effective rows
+    return table_gram_operands(plan, ti, w, V, eff, own, y_tiles[ti])
 
 
 def first_chunk_ops(torch, plan, ti, w, V, y_tiles):
@@ -760,6 +792,73 @@ def jsweep_phase(torch, plan, trainer, state):
     return res
 
 
+def eakernel_phase(torch, plan, trainer, state):
+    """Kernel 4 vs its plain version on each side table's color stack, on
+    the operands ``_ea_table_pass`` hands it in a first sweep from the
+    initial state (``tools/joint_tail.ea_stacks``; the caller runs it
+    under ``deterministic``): float64 within ``JTAIL_TOL``, float32
+    within it or no farther from the float64 result than twice the plain
+    float32 version (``tools/joint_tail.check``); float32 times of the
+    kernel (events, and each of its two kernels' device time), of the
+    plain version (one call) and the bound."""
+    from myfm_tpu_torch.ops.joint_tail import (
+        joint_tail_pass,
+        joint_tail_pass_reference,
+    )
+    from myfm_tpu_torch.tools.joint_tail import TAIL_KINDS, check, ea_stacks
+    from myfm_tpu_torch.tools.vi_gram import device_ms
+
+    D = J_RANK + 2
+    rows = []
+    for st in ea_stacks(plan, trainer, state, J_RANK):
+        o, alpha = st["ops"], st["alpha"]
+        C, B = o[3].shape
+        Pf = int(o[5].shape[1])
+        row = dict(table=st["block"], C=C, B=B, Pf=Pf)
+        try:
+            row.update(check(joint_tail_pass, o, alpha, D))
+        except AssertionError as exc:
+            fail(f"eakernel table {st['block']}: {exc}")
+
+        def scan():
+            return joint_tail_pass(*o, alpha, D)
+
+        row["ms"] = cuda_ms(torch, scan, 5)
+        row["us_per_color"] = row["ms"] * 1e3 / C
+        try:
+            split = device_ms(scan, reps=5, kinds=TAIL_KINDS)
+            row.update(prep_device_ms=split["prep_ms"],
+                       chain_device_ms=split["chain_ms"],
+                       captured=split["captured"])
+        except RuntimeError as exc:
+            row.update(prep_device_ms=None, chain_device_ms=None,
+                       device_ms_error=str(exc))
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        joint_tail_pass_reference(*o, alpha, D)
+        stop.record()
+        torch.cuda.synchronize()
+        row["plain_ms"] = start.elapsed_time(stop)
+        # as jkernel: per touched row its statistics and rank-two update,
+        # per live slot an (R+1)-dim Cholesky and two solves
+        segb = o[4].long()
+        touched = int((segb < Pf).sum())
+        live = int((torch.nn.functional.one_hot(segb, Pf + 1)
+                    [..., :Pf].sum(dim=1) > 0).sum())
+        r1 = J_RANK + 1
+        row["touched"], row["live"] = touched, live
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes(*o) + nbytes(*scan()),
+            touched * 6 * D * D + live * (r1**3 // 3 + 4 * r1 * r1),
+        )
+        row["library_ms"] = None
+        rows.append(row)
+    if not rows:
+        fail("eakernel: the plan has no entity+attribute table")
+    return rows
+
+
 def vi_layout_rows(torch, plan, state, y_tiles, rank, tables):
     """fused_tile_gram_cross in its VI layout vs plain at the first chunk
     of each one-hot table in ``tables``, on the state's operands."""
@@ -936,6 +1035,166 @@ def vsections_phase(torch, plan, trainer, state):
     res["sweep_ms_with_syncs"] = total * 1e3
     res["device_ops_per_color"] = probe.get("launches")
     return res
+
+
+def ea_phases(torch, train, test, jgroup, timer, stamps):
+    """The eakernel, eafit, eapredict, eaofit and eaopredict phases on
+    the ML-100k design; returns (kernel 1 rows, kernel 4 rows, and the
+    two kernels' launches in eafit)."""
+    from myfm_tpu_torch import MyFMGibbsRegressor, MyFMOrderedProbit
+    from myfm_tpu_torch import predictor as predictor_mod
+    from myfm_tpu_torch.design import compile_design
+    from myfm_tpu_torch.design_categorical import try_compile_categorical
+    from myfm_tpu_torch.ops import gram, joint_tail
+    from myfm_tpu_torch.ops.forward_categorical import (
+        compile_categorical_inference,
+    )
+    from myfm_tpu_torch.ops.gibbs import GibbsConfig
+    from myfm_tpu_torch.ops.oprobit import _newton_minimize
+    from myfm_tpu_torch.trainer import CategoricalGibbsTrainer
+
+    jX_tr, jb_tr, jy_tr = train
+    jX_te, jb_te, jy_te = test
+    jstd = float(jy_te.std())
+    jyo_tr = (np.asarray(jy_tr) - 1).astype(np.int64)
+    jyo_te = (np.asarray(jy_te) - 1).astype(np.int64)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eplan = try_compile_categorical(
+        jX_tr, jb_tr, np.asarray(jgroup, np.int32), None, np.float32,
+        "cuda", rank=J_RANK, allow_side=True,
+    )
+    t_eplan = time.perf_counter() - t0
+    if eplan is None or not eplan.has_side:
+        fail("eakernel: no entity+attribute plan for the ML-100k design")
+    etrainer = CategoricalGibbsTrainer(
+        eplan, jy_tr, GibbsConfig(task="regression"), J_RANK, 0.1, SEED,
+    )
+    if etrainer.cfg.joint_tail_kernel is not True:
+        fail("eakernel: the EA trainer did not resolve to the tail kernel")
+    with deterministic(torch):
+        estate = etrainer._initialize()
+        ekrows = kernel_phase(torch, eplan, estate, etrainer.y_tiles,
+                              label="eakernel kernel 1")
+        earows = eakernel_phase(torch, eplan, etrainer, estate)
+    etiling = [(t.n_cols, t.n_tiles, t.tile_rows, t.tile_entities)
+               for t in eplan.tables]
+    say("eakernel", json.dumps(dict(
+        plan_tables=etiling, plan_s=t_eplan,
+        side=[tuple(si.stack_feat.shape) for si in eplan.side
+              if si is not None])))
+    for r in ekrows:
+        say("eakernel", json.dumps(dict(kernel="fused_tile_gram_cross", **r)))
+    for r in earows:
+        say("eakernel", json.dumps(dict(kernel="joint_tail_pass", **r)))
+    del eplan, etrainer, estate
+    torch.cuda.empty_cache()
+
+    stamps.clear()
+    torch.cuda.reset_peak_memory_stats()
+    gram.fused_tile_gram_cross.launches = 0
+    joint_tail.joint_tail_pass.launches = 0
+    joint_tail.tail_lists.launches = 0
+    t_fit = time.perf_counter()
+    efm = MyFMGibbsRegressor(
+        rank=J_RANK, random_seed=SEED, device="cuda"
+    ).fit(jX_tr, jy_tr, X_rel=jb_tr, n_iter=EA_N_ITER, grouping=jgroup,
+          callback=timer)
+    torch.cuda.synchronize()
+    t_fit_end = time.perf_counter()
+    ea_gram = gram.fused_tile_gram_cross.launches
+    ea_tail = joint_tail.joint_tail_pass.launches
+    ea_lists = joint_tail.tail_lists.launches
+    if efm.history_.engine != "fastpath":
+        fail(f"eafit: resolved to {efm.history_.engine!r}, not 'fastpath'")
+    if ea_gram <= 0 or ea_tail <= 0:
+        fail(f"eafit: kernel 1 launched {ea_gram} times, kernel 4 "
+             f"{ea_tail} times")
+    ttfs, rate = fit_rates(stamps, t_fit)
+    say("eafit", json.dumps(dict(
+        engine=efm.history_.engine, sweeps=len(stamps),
+        time_to_first_sweep_s=ttfs, sweeps_per_s=rate,
+        fit_s=t_fit_end - t_fit, gram_launches=ea_gram,
+        tail_launches=ea_tail, lists_launches=ea_lists,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )))
+
+    # serving must take the entity-space plan: count its scorer's calls,
+    # and hold its mean to the row-space scorer's on the same samples
+    splan = compile_categorical_inference(jX_te, jb_te, np.float32, "cuda")
+    if splan is None or all(t.xs is None for t in splan.tables):
+        fail("eapredict: no entity-space plan with side tables")
+    served = []
+    scorer = predictor_mod.scores_samples_reduce
+
+    def counted(*a, **k):
+        served.append(1)
+        return scorer(*a, **k)
+
+    predictor_mod.scores_samples_reduce = counted
+    try:
+        t0 = time.perf_counter()
+        epred = efm.predict(jX_te, jb_te)
+        t_pred = time.perf_counter() - t0
+    finally:
+        predictor_mod.scores_samples_reduce = scorer
+    rplan = compile_design(jX_te, jb_te, dtype=np.float32,
+                           for_training=False, device="cuda")
+    P = efm.predictor_
+    rows_sum = sum(
+        predictor_mod._rows_reduce(rplan, w0s, ws, vs, "sum", None)
+        .double().cpu().numpy()
+        for _, w0s, ws, vs in P._sample_chunks())
+    d_rows = float(np.abs(epred - rows_sum / len(P.samples)).max())
+    ermse = float(np.sqrt(np.mean((epred - jy_te) ** 2)))
+    if not served:
+        fail("eapredict: serving did not go through the entity-space plan")
+    if not (epred.shape == jy_te.shape and np.isfinite(epred).all()
+            and ermse < jstd and d_rows <= SERVE_TOL):
+        fail(f"eapredict: rmse {ermse} vs std(y_test) {jstd}, entity-space "
+             f"vs row-space scores {d_rows}")
+    say("eapredict", json.dumps(dict(
+        rows=int(jy_te.size), samples=len(P.samples), predict_s=t_pred,
+        entity_space_calls=len(served), max_vs_row_space=d_rows,
+        rmse=ermse, std_y_test=jstd,
+        side_tables=sum(t.xs is not None for t in splan.tables),
+    )))
+    del efm, P, rplan, splan
+    torch.cuda.empty_cache()
+
+    stamps.clear()
+    torch.cuda.reset_peak_memory_stats()
+    gram.fused_tile_gram_cross.launches = 0
+    joint_tail.joint_tail_pass.launches = 0
+    syncs = _newton_minimize.syncs
+    t_fit = time.perf_counter()
+    eofm = MyFMOrderedProbit(
+        rank=J_RANK, random_seed=SEED, device="cuda"
+    ).fit(jX_tr, jyo_tr, X_rel=jb_tr, n_iter=EAO_N_ITER, grouping=jgroup,
+          callback=timer)
+    torch.cuda.synchronize()
+    t_fit_end = time.perf_counter()
+    eo_gram = gram.fused_tile_gram_cross.launches
+    eo_tail = joint_tail.joint_tail_pass.launches
+    if eofm.history_.engine != "fastpath" or eo_gram <= 0 or eo_tail <= 0:
+        fail(f"eaofit: engine {eofm.history_.engine!r}, kernel 1 launches "
+             f"{eo_gram}, kernel 4 launches {eo_tail}")
+    ttfs, rate = fit_rates(stamps, t_fit)
+    say("eaofit", json.dumps(dict(
+        engine=eofm.history_.engine, sweeps=len(stamps),
+        time_to_first_sweep_s=ttfs, sweeps_per_s=rate,
+        fit_s=t_fit_end - t_fit, gram_launches=eo_gram,
+        tail_launches=eo_tail,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        newton_syncs=_newton_minimize.syncs - syncs,
+        cutpoints_last=cutpoint_checks("eaofit", eofm),
+        mh_accepts=eofm.history_.n_mh_accept,
+    )))
+    say("eaopredict", json.dumps(probit_checks(
+        "eaopredict", eofm, jX_te, jb_te, jyo_te, jyo_tr,
+        int(jyo_tr.max()) + 1)))
+    del eofm
+    return ekrows, earows, ea_gram, ea_tail
 
 
 def fit_rates(stamps, t_fit):
@@ -1228,6 +1487,10 @@ def main():
         int(jyo_tr.max()) + 1)))
     del jofm
 
+    ea = ea_phases(torch, (jX_tr, jb_tr, jy_tr), (jX_te, jb_te, jy_te),
+                   jgroup, timer, stamps)
+    say("ea", f"so far {time.perf_counter() - t_start:.1f} s")
+
     # ---- VI: the same ML-100k design, entity+attribute fast path ----
     torch.cuda.empty_cache()
     from myfm_tpu_torch import VariationalFMRegressor
@@ -1394,6 +1657,10 @@ def main():
               jrows),
         entry("joint_tail_pass[lists]", TAIL_SOURCE, TAIL_REPLACES,
               jl_launches, jlrows),
+        entry("fused_tile_gram_cross[ea]", GRAM_SOURCE, GRAM_REPLACES,
+              ea[2], ea[0]),
+        entry("joint_tail_pass[ea]", TAIL_SOURCE, TAIL_REPLACES, ea[3],
+              ea[1]),
         entry("tile_gram", GRAM_SOURCE, ROWS_REPLACES, e_launches, erows),
     ] + [
         entry(f"gram_section[{r['level']}]", SECTIONS_SOURCE,

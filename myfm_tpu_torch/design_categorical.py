@@ -18,9 +18,8 @@ With ``allow_side`` a block of [one-hot | per-entity side feature] column
 groups compiles too: its one-hot groups become ordinary tables, and its
 side columns an *entity+attribute* table over the block rows, whose
 ``SideInfo`` holds the dense side matrix and the per-color operands of
-the side features (``compile_side_info``).  The VI fast path
-(ops/categorical_vi.py) runs such plans; the Gibbs fast path does not
-yet and raises on them.
+the side features (``compile_side_info``).  The Gibbs and the VI fast
+paths (ops/categorical.py, ops/categorical_vi.py) run such plans.
 """
 
 from __future__ import annotations
@@ -301,6 +300,10 @@ class CategoricalPlan:
     @property
     def has_side(self) -> bool:
         return any(si is not None for si in self.side)
+
+    @property
+    def device(self) -> torch.device:
+        return self.group_index.device
 
     @property
     def n_real(self) -> int:

@@ -1,10 +1,9 @@
 """Entity-space Gibbs sweep for all-categorical designs (fast path).
 
-PyTorch counterpart of ``myfm_tpu/ops/categorical.py`` on one-hot
-tables, for the regression, classification (probit) and ordered-probit
-tasks.  Because every table is one-hot per
-row, the residual and the factor sums are functions of the small
-per-entity weight tables,
+PyTorch counterpart of ``myfm_tpu/ops/categorical.py``, for the
+regression, classification (probit) and ordered-probit tasks.  Because
+every table is one-hot per row, the residual and the factor sums are
+functions of the small per-entity weight tables,
 
     score_n = w0 + Σ_t w_t[c_t(n)] + ½ Σ_r (Q_nr² − QS_nr),
     Q_n = Σ_t V_t[c_t(n)],  QS_n = Σ_t V_t[c_t(n)]²,  e_n = score_n − y_n,
@@ -24,6 +23,12 @@ The probit tasks fix α = 1 and regress on a latent target τ instead of
 y: after the table passes they score every row, redraw τ (and, ordered,
 the cutpoints by MH first) and take the moments from the new residual;
 each table pass reads τ gathered into its tile order.
+
+An entity+attribute table (``plan.side[t]``: a block's rows as entities,
+with per-entity side features) enters the other tables' passes through
+its effective rows [w̃ | Ṽ | qs̃] (``eff_tables``), and its own pass
+(``_ea_table_pass``) draws the side features' joint [w_j | V_j] rows
+color by color from its Gram, through kernel 4 on the card.
 
 A sweep is two steps: ``draw_sweep_variates`` draws every standard
 variate of the sweep from a ``torch.Generator``, and
@@ -54,7 +59,10 @@ from .gibbs import (
     std_gamma,
     std_normal,
 )
+from .forward import matmul_fp32, take
 from .gram import fused_tile_gram_cross, fused_tile_gram_cross_reference
+from .joint import _scatter_rows
+from .joint_tail import joint_tail_pass, joint_tail_pass_reference
 from .oprobit import OprobitVariates, initialize_oprobit_core
 
 
@@ -155,33 +163,42 @@ def _wv_rows(w, V, t2: CategoricalTable, idx: torch.Tensor):
     return _wv_source(w, V, t2)[idx]
 
 
-_GIBBS_SIDE = (
-    "entity+attribute (side-feature) tables on the Gibbs fast path: "
-    "later slice"
-)
-
-
-def require_one_hot(plan: CategoricalPlan):
-    """The Gibbs fast path runs all-one-hot plans; a plan with
-    entity+attribute tables raises (the TPU package would run its
-    ``_ea_table_pass`` there, so no other engine may take its place)."""
-    if plan.has_side:
-        raise NotImplementedError(_GIBBS_SIDE)
+def _side_eff(si, w, V) -> torch.Tensor:
+    """One entity+attribute table's effective rows [B, 2+R] (eff_tables)."""
+    fc = si.feat_cols.long()
+    w_s, V_s = w[fc], V[fc]
+    xs = si.xs
+    return torch.cat(
+        [
+            matmul_fp32(xs, w_s[:, None]),
+            matmul_fp32(xs, V_s),
+            matmul_fp32(xs * xs, V_s * V_s).sum(dim=1, keepdim=True),
+        ],
+        dim=1,
+    )
 
 
 def eff_tables(plan: CategoricalPlan, w, V):
-    """Per-table effective entity rows: ``None`` for a one-hot table,
-    whose [w_t | V_t] slices are the per-entity rows.  Entity+attribute
-    tables, the only kind with other rows, raise (``require_one_hot``)."""
-    require_one_hot(plan)
-    return [None for _ in plan.tables]
+    """Per-table effective entity rows.
+
+    ``None`` for a one-hot table, whose [w_t | V_t] slices are the
+    per-entity rows.  For an entity+attribute table (plan.side[t]) the
+    dense per-entity reduction of the side weights,
+
+        w̃_u = Xs[u,:]·w_s,  Ṽ_u = Xs[u,:]@V_s,
+        qs_u = Σ_r Σ_i Xs²[u,i] V_s²[i,r]   (the true per-entity Σ x²V²),
+
+    packed as [B, 2+R] = [w̃ | Ṽ | qs], the layout ``_wv_source`` gives
+    one-hot tables."""
+    return [None if si is None else _side_eff(si, w, V) for si in plan.side]
 
 
 def _eff_source(w, V, t2: CategoricalTable, eff2) -> torch.Tensor:
-    """Table t2's gather source of [w | V | qs] rows ([B+1, 2+R])."""
-    if eff2 is not None:
-        raise NotImplementedError(_GIBBS_SIDE)
-    return _wv_source(w, V, t2)
+    """Table t2's gather source of [w | V | qs] rows ([B+1, 2+R], zero
+    pad row last): its own slices, or its effective rows ``eff2``."""
+    if eff2 is None:
+        return _wv_source(w, V, t2)
+    return _pad_zero_row(eff2)
 
 
 def _eff_rows(w, V, t2: CategoricalTable, eff2, idx: torch.Tensor):
@@ -216,11 +233,12 @@ def score_rows(plan: CategoricalPlan, w0, w, V,
     """Forward pass in main row order, chunked over rows so peak memory
     stays O(row_chunk · R)."""
     t0 = plan.tables[0]
+    eff = eff_tables(plan, w, V)
     out = []
     for r0 in range(0, plan.n_rows, row_chunk):
         ms = [t.ent_main[r0 : r0 + row_chunk] for t in plan.tables]
         ones = (ms[0] < t0.n_cols).to(V.dtype)
-        s, _ = _score_parts(plan, w, V, w0, ms, ones)
+        s, _ = _score_parts(plan, w, V, w0, ms, ones, eff)
         out.append(s)
     return torch.cat(out)
 
@@ -456,6 +474,144 @@ def _entity_draws(G, w0, w_t, V_t, g_t, alpha, lambda_w, mu_w,
     return w_new, V_new, parts
 
 
+def ea_flat_gram(G: torch.Tensor, w0, own: torch.Tensor) -> torch.Tensor:
+    """An entity+attribute table's kernel Gram [B, D, D] over
+    z = [1 | e⁰ | φ_other] as the color scan's flat lanes-major Gram
+    [D², B] over [1 | e | Q]: G' = M G Mᵀ with M = I + v e₀ᵀ and
+    v = [0, w0, Ṽ_u] (the kernel's e⁰ lacks w0, and Q = φ + Ṽ), both
+    rank-1 additions of the z₀ column.  ``own`` is the table's
+    effective rows [w̃ | Ṽ | qs̃].  The result is symmetrized: the
+    additions round Ĝ[i, j] and Ĝ[j, i] in different orders, and the
+    tail kernel reads the upper triangle where the plain steps read both
+    (as ``ops/joint.build_block_gram``)."""
+    B = own.shape[0]
+    v = torch.cat(
+        [own.new_zeros((B, 1)),
+         torch.as_tensor(w0, dtype=own.dtype, device=own.device).expand(B, 1),
+         own[:, 1:-1]],
+        dim=1,
+    )  # [B, D]
+    G = (
+        G
+        + v[:, :, None] * G[:, 0:1, :]
+        + G[:, :, 0:1] * v[:, None, :]
+        + (v[:, :, None] * v[:, None, :]) * G[:, 0:1, 0:1]
+    )
+    G = 0.5 * (G + G.transpose(1, 2))
+    return G.reshape(B, -1).T.contiguous()
+
+
+def ea_scan_operands(si, w, V, lambda_w, mu_w, lambda_V, mu_V,
+                     group_index, noise_w, noise_V):
+    """The side features' pre-gathered (u0, lam, mu, xi), [C, Pf, R+1]
+    each, over the color stack ``si.stack_feat`` (pad id F gathers the
+    last row, as JAX's clamped gathers do; its draws are dropped)."""
+    feat = si.stack_feat
+    gidx = take(group_index, feat)
+    return (
+        take(torch.cat([w[:, None], V], dim=1), feat),
+        take(torch.cat([lambda_w[:, None], lambda_V], dim=1), gidx),
+        take(torch.cat([mu_w[:, None], mu_V], dim=1), gidx),
+        take(torch.cat([noise_w[:, None], noise_V], dim=1), feat),
+    )
+
+
+def ea_color_scan(Gf, xw, segb, u0, lam, mu, xi, alpha, D,
+                  kernel: bool = False):
+    """The side features' colors in order on the flat Gram Gf [D², B]:
+    each color draws its features' (R+1)-rows, then Ĝ ← T Ĝ Tᵀ — the
+    joint engine's tail (``joint_tail_pass``, the CUDA kernel, when
+    ``kernel``; else its plain version) with a zero Atot/Ct carry, which
+    the Gram's evolution does not read and whose results are dropped.
+    Returns (Gf, u_new [C, Pf, R+1])."""
+    tail = joint_tail_pass if kernel else joint_tail_pass_reference
+    B = Gf.shape[1]
+    Gf, _, _, u_all = tail(Gf, Gf.new_zeros((D - 2, B)), Gf.new_zeros((B,)),
+                           xw, segb, u0, lam, mu, xi, alpha, D)
+    return Gf, u_all
+
+
+def _ea_table_pass(
+    plan: CategoricalPlan,
+    ti: int,
+    w: torch.Tensor,  # [F]
+    V: torch.Tensor,  # [F, R]
+    w0,
+    alpha,
+    lambda_w,
+    mu_w,
+    lambda_V,
+    mu_V,
+    group_index,
+    noise_w,  # [F]
+    noise_V,  # [F, R]
+    tau_tile,  # [NT] target in this table's tile order (pad 0)
+    cfg: GibbsConfig,
+    plain: bool = False,
+    want_moments: bool = False,
+    eff=None,
+    scan_kernel: bool = False,
+):
+    """Entity+attribute table pass: every side feature's [w_j | V_j] row
+    drawn from its (R+1)-dim joint conditional, one color of the side
+    columns at a time, in entity space; returns (w, V, moments).
+
+    Kernel 1 builds the per-entity Gram over z = [1 | e⁰ | φ_other] with
+    the table's effective rows as its own rows (``plain``: its plain
+    version); ``ea_flat_gram`` turns it into the per-block-row Gram over
+    [1 | e | Q] that the joint engine's dense color machinery evolves,
+    Ĝ ← T Ĝ Tᵀ per color, so later colors and the returned moments see
+    the exact post-draw statistics.  ``scan_kernel`` runs the colors
+    through kernel 4 (``ea_color_scan``).  ``moments`` (the sweep's last
+    table) is (Σe, Σe²) of the scanned Gram: flat rows 1 and D+1."""
+    si = plan.side[ti]
+    rank = V.shape[1]
+    D = rank + 2
+    if eff is None:
+        eff = eff_tables(plan, w, V)
+    own = eff[ti]  # [B, 2+R] = [w̃ | Ṽ | qs̃]
+    G = _build_table_gram(plan, ti, w, V, eff, own, tau_tile, plain)
+    Gf = ea_flat_gram(G, w0, own)
+    ops = ea_scan_operands(si, w, V, lambda_w, mu_w, lambda_V, mu_V,
+                           group_index, noise_w, noise_V)
+    alpha_t = torch.as_tensor(alpha, dtype=V.dtype, device=V.device)
+    Gf, u_all = ea_color_scan(Gf, si.stack_xw, si.stack_segb, *ops,
+                              alpha_t, D, kernel=scan_kernel)
+    U = _scatter_rows(torch.cat([w[:, None], V], dim=1),
+                      si.stack_feat.reshape(-1), u_all.reshape(-1, rank + 1))
+    moments = None
+    if want_moments:
+        moments = (Gf[1].sum(), Gf[D + 1].sum())
+    return U[:, 0], U[:, 1:], moments
+
+
+def sweep_hypers(plan: CategoricalPlan, state: CategoricalState,
+                 v: SweepVariates, cfg: GibbsConfig):
+    """A sweep's draws before its table passes, in the TPU package's
+    order: α (1 for the probit tasks) from the carried Σe², w0 from Σe,
+    then λ_w, μ_w, λ_V, μ_V.  Returns (alpha, w0, lambda_w, mu_w,
+    lambda_V, mu_V)."""
+    core = state.core
+    n = plan.n_real
+    if cfg.task == TASK_REGRESSION:
+        # α | e ~ Gamma((α₀+n)/2, rate=(β₀+Σe²)/2) from the carried moment
+        alpha = v.gamma_alpha / ((cfg.beta_0 + state.sum_e2) / 2.0)
+    else:
+        alpha = torch.ones_like(core.w0)
+    w0 = core.w0
+    if cfg.fit_w0:
+        quad = alpha * n + cfg.reg_0
+        lin = alpha * (n * w0 - state.sum_e)
+        w0 = _draw_normal(quad, lin, v.normal_w0)
+    gi, gc = plan.group_index, plan.group_counts
+    lambda_w = draw_lambda(core.w, core.mu_w, gi, gc, cfg, v.gamma_lambda_w)
+    mu_w = draw_mu(core.w, lambda_w, gi, gc, cfg, v.normal_mu_w)
+    lambda_V = draw_lambda(core.V, core.mu_V, gi, gc, cfg,
+                           v.gamma_lambda_V)
+    mu_V = draw_mu(core.V, lambda_V, gi, gc, cfg, v.normal_mu_V)
+    return alpha, w0, lambda_w, mu_w, lambda_V, mu_V
+
+
 def categorical_sweep(
     plan: CategoricalPlan,
     state: CategoricalState,
@@ -470,40 +626,18 @@ def categorical_sweep(
     table t's tile order (make_y_tiles, once per fit; the probit tasks
     gather their latent τ instead, every sweep).  ``y`` holds ±1 for
     classification and the encoded integer classes for the ordered
-    task.  The input state is not modified."""
+    task.  ``plain`` builds every Gram with kernel 1's plain version;
+    ``cfg.joint_tail_kernel`` (resolved by the trainer) runs the
+    entity+attribute color scans through kernel 4.  The input state is
+    not modified."""
     core = state.core
-    n = plan.n_real
     v = variates
 
-    sum_e = state.sum_e
-    sum_e2 = state.sum_e2
-    if cfg.task == TASK_REGRESSION:
-        # α | e ~ Gamma((α₀+n)/2, rate=(β₀+Σe²)/2) from the carried moment
-        rate = (cfg.beta_0 + sum_e2) / 2.0
-        alpha = v.gamma_alpha / rate
-        tau_tiles = y_tiles
-    else:
-        alpha = torch.ones_like(core.w0)
-        tau_tiles = make_y_tiles(plan, state.tau)
-
-    w0 = core.w0
-    if cfg.fit_w0:
-        # w0 conditional from Σe; moments updated exactly for the
-        # constant shift Δ = w0' − w0
-        quad = alpha * n + cfg.reg_0
-        lin = alpha * (n * w0 - sum_e)
-        w0_new = _draw_normal(quad, lin, v.normal_w0)
-        d0 = w0_new - w0
-        sum_e2 = sum_e2 + 2.0 * d0 * sum_e + n * d0 * d0
-        sum_e = sum_e + n * d0
-        w0 = w0_new
-
-    gi, gc = plan.group_index, plan.group_counts
-    lambda_w = draw_lambda(core.w, core.mu_w, gi, gc, cfg, v.gamma_lambda_w)
-    mu_w = draw_mu(core.w, lambda_w, gi, gc, cfg, v.normal_mu_w)
-    lambda_V = draw_lambda(core.V, core.mu_V, gi, gc, cfg,
-                           v.gamma_lambda_V)
-    mu_V = draw_mu(core.V, lambda_V, gi, gc, cfg, v.normal_mu_V)
+    alpha, w0, lambda_w, mu_w, lambda_V, mu_V = sweep_hypers(
+        plan, state, v, cfg)
+    gi = plan.group_index
+    tau_tiles = (y_tiles if cfg.task == TASK_REGRESSION
+                 else make_y_tiles(plan, state.tau))
 
     w, V = core.w, core.V
     n_tables = len(plan.tables)
@@ -511,11 +645,21 @@ def categorical_sweep(
     regression = cfg.task == TASK_REGRESSION
     eff = eff_tables(plan, w, V)
     for ti in range(n_tables):
-        w, V, moments = _table_pass(
-            plan, ti, w, V, w0, alpha, lambda_w, mu_w, lambda_V, mu_V,
-            gi, v.noise_w, v.noise_V, tau_tiles[ti], cfg, plain,
-            want_moments=regression and ti == n_tables - 1, eff=eff,
+        last = ti == n_tables - 1
+        args = (plan, ti, w, V, w0, alpha, lambda_w, mu_w, lambda_V, mu_V,
+                gi, v.noise_w, v.noise_V, tau_tiles[ti], cfg, plain)
+        if plan.side[ti] is None:
+            w, V, moments = _table_pass(
+                *args, want_moments=regression and last, eff=eff)
+            continue
+        w, V, moments = _ea_table_pass(
+            *args, want_moments=regression and last, eff=eff,
+            scan_kernel=bool(cfg.joint_tail_kernel),
         )
+        if not last:
+            # this table's effective rows for the passes still to come
+            eff = list(eff)
+            eff[ti] = _side_eff(plan.side[ti], w, V)
 
     new_core = GibbsState(
         w0=w0, w=w, V=V, e=core.e, alpha=alpha,

@@ -32,6 +32,15 @@ def take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return a[idx.clamp(max=a.shape[0] - 1).long()]
 
 
+def matmul_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` at full float32 precision whatever the process's TF32
+    settings (JAX's ``Precision.HIGHEST``): float32 operands multiply in
+    float64 and round once; float64 as it is."""
+    if a.dtype == torch.float32:
+        return (a.double() @ b.double()).float()
+    return a @ b
+
+
 def _table_matvec(coo_row, coo_col, coo_val, n_rows_local, vcols):
     contrib = coo_val[:, None] * take(vcols, coo_col)
     out = vcols.new_zeros((n_rows_local, vcols.shape[1]))

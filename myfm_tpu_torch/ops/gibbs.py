@@ -55,7 +55,8 @@ class GibbsConfig:
     n_class: int = 0
     n_classes: Tuple[int, ...] = ()
     joint_rows: bool = False
-    # run the joint sweep's stacked color tail through the CUDA kernel
+    # run the joint sweep's stacked color tail, and the fast path's
+    # entity+attribute color scans, through the CUDA kernel
     # (ops/joint_tail.py) instead of its plain loop — the counterpart of
     # joint_pallas_tail.  None = auto: the trainer resolves it to the
     # kernel when the plan is on CUDA and D = rank + 2 <= 34

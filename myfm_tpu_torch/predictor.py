@@ -4,9 +4,10 @@ with the converged variational weights.
 PyTorch counterpart of ``myfm_tpu/predictor.py`` ``Predictor`` and
 ``VariationalPredictor``.  Gibbs samples are stacked on the device in
 memory-bounded chunks and scored with ops/forward_categorical when every
-table is one-hot, else with the row-space forward (ops/forward.py) over
-a compiled design; both scorers serve the regression mean, the probit
-classifier's Φ and the ordered probit's class probabilities.  The
+table is one-hot or entity+attribute, else with the row-space forward
+(ops/forward.py) over a compiled design; both scorers serve the
+regression mean, the probit classifier's Φ and the ordered probit's
+class probabilities.  The
 variational weight set is scored on the device with the row-space
 forward.  ``n_workers`` is accepted for API parity and ignored.
 """
@@ -96,8 +97,8 @@ class Predictor:
 
     def _reduce(self, X, X_rel, mode: str, cutpoint_index) -> np.ndarray:
         """The posterior sum of ``mode`` over every kept sample, on the
-        entity-space scorer when every table is one-hot and on the
-        row-space one otherwise, divided by the sample count."""
+        entity-space scorer when the design compiles to its plan and on
+        the row-space one otherwise, divided by the sample count."""
         if not self.samples:
             raise RuntimeError("Predictor has no samples.")
         fast = compile_categorical_inference(

@@ -29,7 +29,6 @@ from .ops.categorical import (
     draw_sweep_variates,
     init_categorical_state,
     make_y_tiles,
-    require_one_hot,
 )
 from .ops.forward import predict_score
 from .ops.gibbs import (
@@ -318,9 +317,12 @@ class GibbsTrainer:
 
 
 class CategoricalGibbsTrainer:
-    """Gibbs trainer on the entity-space fast path (all tables one-hot;
-    see ops/categorical.py).  Runs on the plan's device; one
-    ``torch.Generator`` seeded with ``random_seed`` drives the chain."""
+    """Gibbs trainer on the entity-space fast path (one-hot and
+    entity+attribute tables; see ops/categorical.py).  Runs on the
+    plan's device; one ``torch.Generator`` seeded with ``random_seed``
+    drives the chain.  A plan with entity+attribute tables resolves
+    ``joint_tail_kernel`` as the joint engine does: its color scans run
+    through kernel 4 where that engine's tail would."""
 
     def __init__(
         self,
@@ -332,14 +334,15 @@ class CategoricalGibbsTrainer:
         random_seed: int,
         dtype=np.float32,
     ):
-        require_one_hot(plan)
         self.plan = plan
         self.cfg = _resolve_gram_fast_matmul(cfg)
+        if plan.has_side:
+            self.cfg = _resolve_joint_tail(self.cfg, plan, rank)
         self.rank = rank
         self.init_stdev = init_stdev
         self.random_seed = random_seed
         self.dtype = np.dtype(dtype)
-        self.device = plan.group_index.device
+        self.device = plan.device
         self._tdtype = torch_dtype(self.dtype)
         self.y = _target(y, cfg, self.dtype, self.device)
         # per-table tile-order copies of y (the regression target; the

@@ -127,8 +127,10 @@ def test_choose_tiling_rule():
 
 def test_side_feature_table_raises():
     """A multi-hot block compiles to an entity+attribute table with
-    ``allow_side`` (the VI fast path runs it); the Gibbs fast path raises
-    on such a plan instead of taking another route."""
+    ``allow_side``, and the Gibbs fast path runs it (it raised before the
+    entity+attribute pass was ported; the name is kept): the trainer is
+    built, its effective rows exist, and its chain takes a sweep.
+    Without ``allow_side`` the block still compiles to no plan."""
     rng = np.random.RandomState(0)
     N = 50
     Xs = sps.csr_matrix(rng.random((6, 3)))  # a multi-hot block
@@ -139,11 +141,18 @@ def test_side_feature_table_raises():
     assert plan.has_side and plan.side[0].n_cols == 3
     from myfm_tpu_torch.trainer import CategoricalGibbsTrainer
 
-    with pytest.raises(NotImplementedError, match="later slice"):
-        CategoricalGibbsTrainer(plan, rng.normal(size=N),
-                                GibbsConfig(task="regression"), 2, 0.1, 0)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tcat.eff_tables(plan, None, None)
+    tr = CategoricalGibbsTrainer(plan, rng.normal(size=N),
+                                 GibbsConfig(task="regression"), 2, 0.1, 0,
+                                 np.float64)
+    assert tr.engine_name == "fastpath"
+    assert tr.cfg.joint_tail_kernel is False  # the plain scan on the CPU
+    w = torch.zeros(plan.n_features, dtype=torch.float64)
+    (eff,) = tcat.eff_tables(plan, w, torch.ones(plan.n_features, 2,
+                                                 dtype=torch.float64))
+    assert eff.shape == (6, 4)
+    pred, hist = tr.run(1, 1)
+    assert hist.engine == "fastpath" and len(hist.hypers) == 1
+    assert np.isfinite(pred.samples[0].w).all()
     assert try_compile_categorical(None, blocks, None, None, np.float64,
                                    "cpu", rank=2) is None
 

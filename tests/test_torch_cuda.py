@@ -824,6 +824,183 @@ def test_vi_fit_on_card_goes_through_both_kernels():
 
 
 # ---------------------------------------------------------------------------
+# the Gibbs fast path's entity+attribute tables: the side features' color
+# scan through joint_tail_pass (kernel 4)
+# ---------------------------------------------------------------------------
+
+
+def _tiny_ea_gibbs(device, rank, dtype):
+    """The tiny timeSVD++ design's Gibbs plan with entity+attribute tables
+    (implicit columns 1/√n), a trainer on it and its initial state."""
+    from myfm_tpu_torch.design_categorical import try_compile_categorical
+    from myfm_tpu_torch.ops.gibbs import GibbsConfig
+    from myfm_tpu_torch.trainer import CategoricalGibbsTrainer
+    from myfm_tpu_torch.utils.ml_features import (
+        build_feature_blocks,
+        load_synthetic_movielens,
+    )
+
+    tr, te = load_synthetic_movielens("tiny", 0)
+    X, _, blocks, _, grouping = build_feature_blocks(tr, te,
+                                                     "timesvdpp_flipped")
+    plan = try_compile_categorical(
+        X, blocks, np.asarray(grouping, np.int32), None, dtype, device,
+        rank=rank, allow_side=True)
+    assert plan is not None and plan.has_side
+    trainer = CategoricalGibbsTrainer(plan, tr["rating"],
+                                      GibbsConfig(task="regression"), rank,
+                                      0.1, 2, dtype)
+    assert trainer.cfg.joint_tail_kernel is (rank + 2 <= 34)
+    return plan, trainer, trainer._initialize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [10, 32])
+def test_ea_scan_through_tail_kernel_matches_plain(rank):
+    """Each side table's color scan on the operands a first sweep's EA
+    pass builds (``tools/joint_tail.ea_stacks``: the sweep's drawn
+    hyperparameters, the Gram from kernel 1 over the effective rows as
+    [1 | e | Q], the side features' rows), ``ea_color_scan`` through
+    kernel 4 against the plain loop: the scanned Gram (whose rows 1 and
+    D+1 give the moments) and the drawn rows.  float64 within 1e-10 of
+    scale; float32 (the same operands rounded) held, as the joint tail's
+    tests hold it, to the float64 result within 1e-3 of scale or twice
+    the plain float32 loop's own distance from it."""
+    from myfm_tpu_torch.ops import joint_tail
+    from myfm_tpu_torch.ops.categorical import ea_color_scan
+    from myfm_tpu_torch.tools.joint_tail import ea_stacks
+
+    device = _cuda()
+    D = rank + 2
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        plan, tr, st = _tiny_ea_gibbs(device, rank, np.float64)
+        stacks = ea_stacks(plan, tr, st, rank)
+        assert len(stacks) == 2
+        for s in stacks:
+            ops = [s["ops"][0], *s["ops"][3:]]  # no Atot / Ct
+            exact = ea_color_scan(*ops, s["alpha"], D)
+            for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-3)):
+                o = [t if t.dtype == torch.int32 else t.to(dtype)
+                     for t in ops]
+                alpha = s["alpha"].to(dtype)
+                before = joint_tail.joint_tail_pass.launches
+                got = ea_color_scan(*o, alpha, D, kernel=True)
+                torch.cuda.synchronize()
+                assert joint_tail.joint_tail_pass.launches == before + 1
+                want = ea_color_scan(*o, alpha, D)
+                for name, g, w, x in zip(("G", "u"), got, want, exact):
+                    assert bool(torch.isfinite(g).all()), name
+                    scale = max(float(x.abs().max()), 1.0)
+                    err = float((g.double() - x).abs().max())
+                    if dtype == torch.float64:
+                        assert err <= tol * scale, (name, err, scale)
+                    else:
+                        plain_err = float((w.double() - x).abs().max())
+                        assert err <= max(tol * scale, 2.0 * plain_err), (
+                            name, err, plain_err, scale)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["regression", "classification", "ordered"])
+def test_ea_sweep_through_tail_kernel_matches_plain(task):
+    """One float64 fast-path sweep on the tiny entity+attribute plan with
+    the scans through kernel 4 against one with the plain loop, from one
+    state and one set of variates: w, V, the moments and (probit tasks)
+    the residual within 1e-10 of scale; kernel 4 launched once per side
+    table."""
+    import dataclasses
+
+    from myfm_tpu_torch.ops import joint_tail
+    from myfm_tpu_torch.ops.categorical import (
+        categorical_sweep,
+        draw_sweep_variates,
+    )
+    from myfm_tpu_torch.ops.gibbs import GibbsConfig
+    from myfm_tpu_torch.trainer import CategoricalGibbsTrainer
+
+    device = _cuda()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        plan, tr, _ = _tiny_ea_gibbs(device, 4, np.float64)
+        y = tr.y.cpu().numpy()
+        extra = {}
+        if task == "classification":
+            y = np.where(y >= 4, 1.0, -1.0)
+        elif task == "ordered":
+            y, extra = y - 1, dict(n_class=5)
+        tr = CategoricalGibbsTrainer(plan, y, GibbsConfig(task=task, **extra),
+                                     4, 0.1, 2, np.float64)
+        st = tr._initialize()
+        v = draw_sweep_variates(plan, tr.cfg, 4, tr.generator, torch.float64,
+                                device)
+        before = joint_tail.joint_tail_pass.launches
+        got = categorical_sweep(plan, st, tr.y, tr.y_tiles, v, tr.cfg)
+        assert joint_tail.joint_tail_pass.launches == before + 2
+        want = categorical_sweep(plan, st, tr.y, tr.y_tiles, v,
+                                 dataclasses.replace(tr.cfg,
+                                                     joint_tail_kernel=False))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    fields = [(f, getattr(got.core, f), getattr(want.core, f))
+              for f in ("w", "V", "e")]
+    fields += [(f, getattr(got, f), getattr(want, f))
+               for f in ("sum_e", "sum_e2")]
+    for f, g, w in fields:
+        if task == "regression" and f == "e":
+            continue  # regression carries moments, not the residual
+        assert bool(torch.isfinite(g).all()), f
+        scale = max(float(w.abs().max()), 1.0)
+        assert float((g - w).abs().max()) <= 1e-10 * scale, f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("est", ["MyFMGibbsRegressor", "MyFMGibbsClassifier",
+                                 "MyFMOrderedProbit"])
+def test_ea_fit_on_card_goes_through_both_kernels(est):
+    """The three Gibbs estimators on the tiny timeSVD++ design, "auto" at
+    20 sweeps: the fast path, kernel 1 launched, kernel 4 launched twice
+    a sweep (one scan per side table), and serving on the entity-space
+    plan."""
+    import myfm_tpu_torch
+    from myfm_tpu_torch.ops import joint_tail
+    from myfm_tpu_torch.ops.forward_categorical import (
+        compile_categorical_inference,
+    )
+    from myfm_tpu_torch.utils.ml_features import (
+        build_feature_blocks,
+        load_synthetic_movielens,
+    )
+
+    device = _cuda()
+    tr, te = load_synthetic_movielens("tiny", 0)
+    Xtr, Xte, btr, bte, grouping = build_feature_blocks(
+        tr, te, "timesvdpp_flipped")
+    r_tr, r_te = np.asarray(tr["rating"]), np.asarray(te["rating"])
+    y = {"MyFMGibbsRegressor": r_tr,
+         "MyFMGibbsClassifier": (r_tr >= 4).astype(np.int64),
+         "MyFMOrderedProbit": (r_tr - 1).astype(np.int64)}[est]
+    before = (gram.fused_tile_gram_cross.launches,
+              joint_tail.joint_tail_pass.launches)
+    fm = getattr(myfm_tpu_torch, est)(rank=4, device=device).fit(
+        Xtr, y, X_rel=btr, n_iter=20, grouping=grouping)
+    assert fm.history_.engine == "fastpath"
+    assert gram.fused_tile_gram_cross.launches > before[0]
+    assert joint_tail.joint_tail_pass.launches == before[1] + 2 * 20
+    splan = compile_categorical_inference(Xte, bte, np.float32, device)
+    assert sum(t.xs is not None for t in splan.tables) == 2
+    if est == "MyFMGibbsRegressor":
+        pred = fm.predict(Xte, bte)
+        assert np.isfinite(pred).all()
+        assert float(np.sqrt(np.mean((pred - r_te) ** 2))) < r_te.std()
+    else:
+        P = fm.predict_proba(Xte, bte)
+        assert np.isfinite(P).all()
+
+
+# ---------------------------------------------------------------------------
 # tile_gram (kernel 3), the section levels (kernel 5) and the (slot, τ)
 # probe (kernel 6); one probit sweep through the kernels
 # ---------------------------------------------------------------------------

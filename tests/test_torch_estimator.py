@@ -109,14 +109,16 @@ def test_long_chain_small_design_raises_where_jax_picks_joint(
 
 def test_short_chain_side_features_raise(tiny_timesvdpp):
     """At n_iter=3 JAX takes the fast path with entity+attribute
-    tables; the port names that slice instead of taking another
-    route."""
+    tables, and so does the port now (it raised before that pass was
+    ported; the name is kept): the fit resolves to "fastpath" and
+    predicts finite values."""
     X, blocks, grouping, y = tiny_timesvdpp
     fm = MyFMGibbsRegressor(rank=4, random_seed=3, dtype=np.float64,
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="side-feature"):
-        fm.fit(X, y, X_rel=blocks, n_iter=3, n_kept_samples=1,
-               grouping=grouping)
+    fm.fit(X, y, X_rel=blocks, n_iter=3, n_kept_samples=1,
+           grouping=grouping)
+    assert fm.history_.engine == "fastpath"
+    assert np.isfinite(fm.predict(X, blocks)).all()
 
 
 @pytest.mark.parametrize("strategy,error", [

@@ -286,3 +286,27 @@ def test_tail_tool_operands_are_the_smoke_tails():
         assert G.shape[0] == 144 and G.dtype == torch.float32
         G3 = G.T.reshape(-1, 12, 12)
         assert torch.allclose(G3, G3.transpose(1, 2), rtol=1e-6, atol=1e-3)
+
+
+def test_tail_tool_ea_operands_are_the_ea_stacks():
+    """``ea_operands`` (``--stacks ea``) builds the ML-100k Gibbs fast
+    path's two side-feature color stacks, as chip_smoke.py's eakernel
+    phase does: the user table's (Pf 8, the widest greedy color) and the
+    item table's (Pf 2), each on its flat [1 | e | Q] Gram (symmetric,
+    its card row the block rows' counts) with a zero Atot/Ct carry.  The
+    Gram is symmetric bit for bit: the tail kernel reads its upper
+    triangle and the plain version both (an asymmetry of one float32
+    ulp put the two 1.4e-7 of scale apart in float64 on the card)."""
+    from myfm_tpu_torch.tools import joint_tail as tool
+
+    tails = tool.ea_operands(10, device="cpu")
+    shapes = [(t["ops"][3].shape[0], t["ops"][3].shape[1],
+               t["ops"][5].shape[1]) for t in tails]
+    assert shapes == [(1083, 943, 8), (943, 1649, 2)]
+    for t in tails:
+        G, Atot, Ct = t["ops"][:3]
+        assert G.shape[0] == 144 and G.dtype == torch.float32
+        G3 = G.T.reshape(-1, 12, 12)
+        assert torch.equal(G3, G3.transpose(1, 2))
+        assert float(G3[:, 0, 0].sum()) == 90_000.0
+        assert not Atot.any() and not Ct.any()

@@ -130,12 +130,13 @@ def test_non_categorical_design_raises(strategy, error):
 
 def test_gibbs_auto_on_ea_design_raises_before_any_sweep(tiny):
     """Below 200 sweeps JAX's Gibbs "auto" takes the fast path with the
-    entity+attribute tables (its _ea_table_pass); the port raises there
-    rather than run another engine."""
+    entity+attribute tables (its _ea_table_pass), and the port runs the
+    same pass now (it raised before that pass was ported; the name is
+    kept): the fit resolves to "fastpath" and its first sweep runs."""
     X, blocks, y, _, _, _, grouping = tiny
     seen = []
     fm = MyFMGibbsRegressor(rank=4, random_seed=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="side-feature"):
-        fm.fit(X, y, X_rel=blocks, n_iter=199, grouping=grouping,
-               callback=lambda *a: seen.append(a[0]) or (False, None))
-    assert seen == []
+    fm.fit(X, y, X_rel=blocks, n_iter=199, grouping=grouping,
+           callback=lambda *a: seen.append(a[0]) or (True, None))
+    assert seen == [0]
+    assert fm.history_.engine == "fastpath"
