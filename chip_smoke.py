@@ -14,10 +14,14 @@ holds every CUDA kernel of each against its plain PyTorch version:
   blocks of one-hot ids plus N-hot implicit columns), rank 10, 200
   sweeps, which "auto" resolves to the joint engine;
 * variational inference (``VariationalFMRegressor``) on the same ML-100k
-  design at rank 10, 20 sweeps, which "auto" resolves to the fast path
+  design at rank 10, 10 sweeps, which "auto" resolves to the fast path
   with entity+attribute tables (kernel 2 and kernel 1's VI layout), and
   on the ML-10M-shaped design at rank 32, 3 sweeps (kernel 1's VI
-  layout);
+  layout); ``VariationalFMClassifier`` (rating >= 4) on the ML-10M-shaped
+  design, rank 32, 3 sweeps (kernel 1's VI layout with the latent means
+  τ as its target column); and both VI estimators on the ML-100k design
+  through the row-space colored sweep (``sweep_strategy="colored"``,
+  plain PyTorch: the TPU package runs no Pallas kernel there);
 * the Gibbs fast path with entity+attribute tables: the same ML-100k
   design through ``MyFMGibbsRegressor`` (rank 10, 20 sweeps) and
   ``MyFMOrderedProbit`` (10 sweeps), which "auto" resolves below 200
@@ -100,6 +104,8 @@ Phases, one line each:
             fp32 + fp64
   vsweep    one categorical_vi_sweep through the kernels vs one through
             the plain versions, same state
+  vcsweep   the same for the classification task (rating >= 4), one
+            sweep in, so both kernels carry latent means τ
   vsections where one VI sweep's time goes, section by section, and the
             device operations of one entity+attribute color step
   vfit      VariationalFMRegressor(rank=10) through "auto"; must resolve
@@ -109,6 +115,20 @@ Phases, one line each:
   v10m      the ML-10M-shaped design through VariationalFMRegressor
             (rank 32, 3 sweeps) -> predict; kernel 1's VI layout vs plain
             at each table's first chunk first
+  vcfit10m  VariationalFMClassifier(rank=32) on the same design, rating
+            >= 4, 3 sweeps: "auto" must resolve to "fastpath" and launch
+            kernel 1's VI layout, the ELBO keep from decreasing,
+            predict_proba lie in (0, 1) and the held-out log-loss fall
+            below the base rate's; kernel 1's VI layout vs plain at each
+            table's first chunk one classification sweep in
+  vrfit     row-space CAVI on the ML-100k design: launches per sweep
+            counted by torch.profiler on one sweep's parts, then
+            VariationalFMRegressor and VariationalFMClassifier (rating
+            >= 4) with sweep_strategy="colored", each stopped by its
+            callback once VR_FIT_S seconds have passed (s/sweep from its
+            own sweeps): each must resolve to "colored" and keep the
+            ELBO check; RMSE below std(y_test), log-loss below the base
+            rate's
 
 The kernels line gives, for every kernel, its launches in its path's
 fit, its largest fp32 error against the plain version, its fp32 time,
@@ -129,7 +149,9 @@ tail's real operands as the call launches it.  Times are
 summed over the tables (or block tails) of the path, at their first
 chunk; ``fused_tile_gram_cross[vi]`` is kernel 1's VI layout on the
 ML-100k design and ``fused_tile_gram_cross[vi10m]`` the same at the
-ML-10M shape (v10m).  The phase lines of the Gram kernels also give
+ML-10M shape (v10m), ``fused_tile_gram_cross[vic10m]`` the same as
+the VI classifier launches it (vcfit10m).  The phase lines of the Gram
+kernels also give
 ``device_ms``, one call's device time by torch.profiler (the median
 duration of each of its kernels; pass 1 and the carry apart), beside
 the event-timed ``ms``; null where no trace held the call whole
@@ -210,7 +232,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 
 V_RANK = 10
-V_N_ITER = 20
+V_N_ITER = 10  # cut from 20 for the row-space phase (vrfit)
 V10M_RANK = 32
 V10M_N_ITER = 3
 # |kernel − plain| over max|plain| of each VI Gram chunk (the same sums
@@ -228,6 +250,12 @@ VSWEEP_ELBO_TOL = 1e-4
 # the ELBO's magnitude (every CAVI update is an exact coordinate
 # maximiser; fp32 sums over ~10^5 rows round at ~1e-7 relative)
 ELBO_DROP_TOL = 1e-5
+# row-space CAVI (vrfit): each fit stops after the sweep that would take
+# it past VR_FIT_S seconds at its own rate, after VR_MIN_ITER sweeps at
+# least and VR_MAX_ITER at most
+VR_FIT_S = 30.0
+VR_MIN_ITER = 2
+VR_MAX_ITER = 20
 
 
 def fail(message):
@@ -859,9 +887,11 @@ def eakernel_phase(torch, plan, trainer, state):
     return rows
 
 
-def vi_layout_rows(torch, plan, state, y_tiles, rank, tables):
+def vi_layout_rows(torch, plan, state, y_tiles, rank, tables,
+                   name="fused_tile_gram_cross[vi]"):
     """fused_tile_gram_cross in its VI layout vs plain at the first chunk
-    of each one-hot table in ``tables``, on the state's operands."""
+    of each one-hot table in ``tables``, on the state's operands
+    (``y_tiles``: the target column, y or the latent means τ)."""
     from myfm_tpu_torch.ops import gram
     from myfm_tpu_torch.ops.categorical_vi import (
         vi_eff_tables,
@@ -876,7 +906,7 @@ def vi_layout_rows(torch, plan, state, y_tiles, rank, tables):
         t = plan.tables[ti]
         ops = next(vi_gram_operands(plan, ti, c.w, c.w_var, c.V, c.V_var,
                                     y_tiles[ti], eff))
-        row = dict(kernel="fused_tile_gram_cross[vi]", table=ti,
+        row = dict(kernel=name, table=ti,
                    K=ops[0].shape[0], T=t.tile_rows, S=t.tile_entities,
                    n_cross=len(ops[1]))
         kw = dict(q_lo=2, n_extra=2 * rank, out_rows=2 + rank)
@@ -925,13 +955,15 @@ def vkernel_phase(torch, plan, trainer, state):
     return rows
 
 
-def vsweep_phase(torch, plan, plan64, trainer, state):
+def vsweep_phase(torch, plan, plan64, trainer, state, phase="vsweep"):
     """One VI sweep through both kernels vs one through their plain
     versions, from the same state; CAVI draws nothing, and every other
     op runs deterministically, so the difference is the kernels'.  Both
     fp32 sweeps are also held against a float64 plain sweep from the same
     state (on ``plan64``, the design compiled in float64), which tells
-    the kernels' share from fp32's own rounding along the color scans."""
+    the kernels' share from fp32's own rounding along the color scans.
+    The trainer's task decides the target column (y, or the latent
+    means τ of the classification task)."""
     import dataclasses
 
     from myfm_tpu_torch.ops.categorical import make_y_tiles
@@ -942,7 +974,8 @@ def vsweep_phase(torch, plan, plan64, trainer, state):
     y64 = trainer.y.double()
     st64 = dataclasses.replace(state, core=type(state.core)(**{
         f.name: getattr(state.core, f.name).double()
-        for f in dataclasses.fields(state.core)}))
+        for f in dataclasses.fields(state.core)}),
+        tau=None if state.tau is None else state.tau.double())
     with deterministic(torch):
         for plain in (False, True):
             t0 = time.perf_counter()
@@ -960,7 +993,7 @@ def vsweep_phase(torch, plan, plan64, trainer, state):
         x, z, x64 = getattr(a, f), getattr(b, f), getattr(exact, f)
         if not (bool(torch.isfinite(x).all())
                 and bool(torch.isfinite(z).all())):
-            fail(f"vsweep: non-finite {f}")
+            fail(f"{phase}: non-finite {f}")
         scale = max(float(z.abs().max()), 1.0)
         res[f"d{f}"] = float((x - z).abs().max()) / scale
         res[f"{f}_kernel_vs_f64"] = float(
@@ -969,8 +1002,12 @@ def vsweep_phase(torch, plan, plan64, trainer, state):
             (z.double() - x64).abs().max()) / scale
         tol = VSWEEP_ELBO_TOL if f == "elbo" else VSWEEP_TOL
         if not res[f"d{f}"] <= tol:
-            fail(f"vsweep: max |Δ{f}| {res[f'd{f}']:.3e} of scale > "
+            fail(f"{phase}: max |Δ{f}| {res[f'd{f}']:.3e} of scale > "
                  f"{tol:.0e}")
+    if outs[0].tau is not None and not (
+            bool(torch.isfinite(outs[0].tau).all())
+            and bool(torch.isfinite(outs[1].tau).all())):
+        fail(f"{phase}: non-finite latent means τ")
     return res
 
 
@@ -1195,6 +1232,172 @@ def ea_phases(torch, train, test, jgroup, timer, stamps):
         int(jyo_tr.max()) + 1)))
     del eofm
     return ekrows, earows, ea_gram, ea_tail
+
+
+def elbo_check(phase, elbos):
+    """The largest ELBO decrease between two sweeps; fails above
+    ELBO_DROP_TOL of the smallest |ELBO| or on a non-finite ELBO."""
+    elbos = np.asarray(elbos, dtype=np.float64)
+    drop = float(max(-np.diff(elbos).min(), 0.0)) if elbos.size > 1 else 0.0
+    if not (np.isfinite(elbos).all()
+            and drop <= ELBO_DROP_TOL * np.abs(elbos).min()):
+        fail(f"{phase}: the ELBO fell by {drop} (trace {elbos.tolist()})")
+    return drop
+
+
+def count_launches(torch, fn):
+    """Device kernels that ``fn`` launches, counted from
+    torch.profiler's CUDA activity (the raw kineto events: building the
+    profiler's event tree for a million-launch sweep takes longer than
+    the sweep); memsets and copies are not kernels and are not
+    counted."""
+    act = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(
+        1 for ev in prof.profiler.kineto_results.events()
+        if ev.device_type() == cuda
+        and not ev.name().startswith(("Memset", "Memcpy"))
+    )
+
+
+def vcfit10m_phase(torch, train, test, grouping, timer, stamps):
+    """VariationalFMClassifier(rank=32) on the ML-10M-shaped design,
+    rating >= 4, V10M_N_ITER sweeps: "auto" must take the fast path and
+    launch kernel 1's VI layout, the ELBO keep from decreasing,
+    predict_proba lie in (0, 1) and the held-out log-loss fall below the
+    base rate's.  Returns (the phase's numbers, the kernel's launches)."""
+    from myfm_tpu_torch import VariationalFMClassifier
+    from myfm_tpu_torch.ops import gram
+
+    (X_tr, b_tr, y_tr), (X_te, b_te, y_te) = train, test
+    yc_tr, yc_te = (y_tr >= 4).astype(float), (y_te >= 4).astype(int)
+    stamps.clear()
+    torch.cuda.reset_peak_memory_stats()
+    gram.fused_tile_gram_cross.vi_launches = 0
+    t_fit = time.perf_counter()
+    fm = VariationalFMClassifier(
+        rank=V10M_RANK, random_seed=SEED, device="cuda"
+    ).fit(X_tr, yc_tr, X_rel=b_tr, n_iter=V10M_N_ITER, grouping=grouping,
+          callback=timer)
+    torch.cuda.synchronize()
+    launches = gram.fused_tile_gram_cross.vi_launches
+    peak = torch.cuda.max_memory_allocated()
+    if fm.history_.engine != "fastpath" or launches <= 0:
+        fail(f"vcfit10m: engine {fm.history_.engine!r}, VI-layout "
+             f"launches {launches}")
+    drop = elbo_check("vcfit10m", fm.history_.elbos)
+    ttfs, rate = fit_rates(stamps, t_fit)
+    P = fm.predict_proba(X_te, b_te)
+    if not (np.isfinite(P).all() and ((P > 0) & (P < 1)).all()):
+        fail("vcfit10m: predict_proba outside (0, 1)")
+    out = dict(
+        sweeps=len(stamps), time_to_first_sweep_s=ttfs, sweeps_per_s=rate,
+        vi_launches=launches, peak_gib=peak / 2**30,
+        elbo_first=fm.history_.elbos[0], elbo_last=fm.history_.elbos[-1],
+        elbo_largest_drop=drop,
+        **probit_checks("vcfit10m", fm, X_te, b_te, yc_te,
+                        yc_tr.astype(int), 2),
+    )
+    del fm
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def vrfit_phase(torch, train, test, grouping, stamps):
+    """Row-space CAVI (the colored sweep, plain PyTorch) on the ML-100k
+    design.  Launches per sweep, counted by torch.profiler on one
+    sweep's parts through the trainer: the hyperparameter and linear
+    stage, one factor of the V sweep (every factor launches the same
+    kernels: no step of it depends on the data), and the refresh.  Then
+    VariationalFMRegressor and VariationalFMClassifier (rating >= 4)
+    with sweep_strategy="colored", each timed sweep by sweep and
+    stopped by its callback once VR_FIT_S have passed (at least
+    VR_MIN_ITER sweeps, at most VR_MAX_ITER)."""
+    from myfm_tpu_torch import VariationalFMClassifier, VariationalFMRegressor
+    from myfm_tpu_torch.design import compile_design
+    from myfm_tpu_torch.ops import variational as tv
+    from myfm_tpu_torch.vi_trainer import VariationalTrainer
+
+    (X_tr, b_tr, y_tr), (X_te, b_te, y_te) = train, test
+    t0 = time.perf_counter()
+    plan = compile_design(X_tr, b_tr, grouping=grouping, dtype=np.float32,
+                          device="cuda")
+    t_plan = time.perf_counter() - t0
+    colors = [(len(b.colors), 0 if b.color_stack is None
+               else int(b.color_stack.rows.shape[0])) for b in plan.blocks]
+    cfg = tv.VariationalConfig()
+    trainer = VariationalTrainer(plan, y_tr, cfg, V_RANK, 0.1, SEED)
+    state = trainer._initialize()
+    t0 = time.perf_counter()
+    st_a = tv.vi_sweep_stage_a(plan, state, cfg)
+    n_stage_a = count_launches(
+        torch, lambda: tv.vi_sweep_stage_a(plan, state, cfg))
+    n_factor = count_launches(torch, lambda: tv.vi_V_factor(
+        plan, st_a.e, st_a.V[:, 0], st_a.V_var[:, 0], st_a.alpha,
+        st_a.lambda_V[:, 0], st_a.mu_V[:, 0]))
+    n_refresh = count_launches(
+        torch, lambda: tv.vi_update_e(plan, st_a, trainer.y, cfg))
+    t_count = time.perf_counter() - t0
+    del plan, trainer, state, st_a
+    torch.cuda.empty_cache()
+    out = dict(plan_s=t_plan, block_colors_unrolled_stacked=colors,
+               launches_per_sweep=n_stage_a + V_RANK * n_factor + n_refresh,
+               launches_stage_a=n_stage_a, launches_per_factor=n_factor,
+               launches_refresh=n_refresh, count_s=t_count)
+
+    def budget(i, fm, hyper, history):
+        """Stop once one more sweep at the fit's own rate would pass
+        VR_FIT_S (after VR_MIN_ITER sweeps)."""
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        spent = stamps[-1] - t_fit
+        return (i + 1 >= VR_MIN_ITER
+                and spent + spent / (i + 1) > VR_FIT_S), None
+
+    for task, est in (("regression", VariationalFMRegressor),
+                      ("classification", VariationalFMClassifier)):
+        yt = y_tr if task == "regression" else (y_tr >= 4).astype(float)
+        stamps.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t_fit = time.perf_counter()
+        fm = est(rank=V_RANK, random_seed=SEED, sweep_strategy="colored",
+                 device="cuda").fit(X_tr, yt, X_rel=b_tr,
+                                    n_iter=VR_MAX_ITER, grouping=grouping,
+                                    callback=budget)
+        torch.cuda.synchronize()
+        t_fit_s = time.perf_counter() - t_fit
+        if fm.history_.engine != "colored":
+            fail(f"vrfit: the {task} fit resolved to "
+                 f"{fm.history_.engine!r}, not 'colored'")
+        row = dict(engine=fm.history_.engine, sweeps=len(stamps),
+                   fit_s=t_fit_s,
+                   time_to_first_sweep_s=stamps[0] - t_fit,
+                   s_per_sweep=(stamps[-1] - stamps[0]) / (len(stamps) - 1),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   elbo_first=fm.history_.elbos[0],
+                   elbo_last=fm.history_.elbos[-1],
+                   elbo_largest_drop=elbo_check(f"vrfit {task}",
+                                                fm.history_.elbos))
+        if task == "regression":
+            pred = fm.predict(X_te, b_te)
+            rmse = float(np.sqrt(np.mean((pred - y_te) ** 2)))
+            if not (np.isfinite(pred).all() and rmse < float(y_te.std())):
+                fail(f"vrfit: rmse {rmse} vs std(y_test) {y_te.std()}")
+            row.update(rmse=rmse, std_y_test=float(y_te.std()))
+        else:
+            P = fm.predict_proba(X_te, b_te)
+            if not (np.isfinite(P).all() and ((P > 0) & (P < 1)).all()):
+                fail("vrfit: predict_proba outside (0, 1)")
+            row.update(probit_checks(
+                "vrfit", fm, X_te, b_te, (y_te >= 4).astype(int),
+                (y_tr >= 4).astype(int), 2))
+        out[task] = row
+        del fm
+        torch.cuda.empty_cache()
+    return out
 
 
 def fit_rates(stamps, t_fit):
@@ -1495,19 +1698,15 @@ def main():
     torch.cuda.empty_cache()
     from myfm_tpu_torch import VariationalFMRegressor
     from myfm_tpu_torch.ops.variational import VariationalConfig
+    from myfm_tpu_torch.variational import compile_vi_fast_plan
     from myfm_tpu_torch.vi_trainer import CategoricalVITrainer
 
     vgroup = np.asarray(jgroup, np.int32)
     t0 = time.perf_counter()
-    # "auto" tries the one-hot plan first; this design needs the EA one
-    # (both tiled for the VI Gram's 3R+2 columns)
-    if try_compile_categorical(jX_tr, jb_tr, vgroup, None, np.float32,
-                               "cuda", rank=3 * V_RANK) is not None:
-        fail("vdata: the ML-100k design compiled to an all-one-hot plan")
-    vplan = try_compile_categorical(
-        jX_tr, jb_tr, vgroup, None, np.float32, "cuda", rank=3 * V_RANK,
-        allow_side=True,
-    )
+    # the estimators' own compile: the one-hot plan first, which this
+    # design does not take, then the entity+attribute plan
+    vplan = compile_vi_fast_plan(jX_tr, jb_tr, vgroup, np.float32, "cuda",
+                                 V_RANK)
     t_vplan = time.perf_counter() - t0
     if vplan is None or not vplan.has_side:
         fail("vdata: no entity+attribute plan for the ML-100k design")
@@ -1526,13 +1725,20 @@ def main():
         vrows = vkernel_phase(torch, vplan, vtrainer, vstate)
     for r in vrows:
         say("vkernel", json.dumps(r))
-    vplan64 = try_compile_categorical(
-        jX_tr, jb_tr, vgroup, None, np.float64, "cuda", rank=3 * V_RANK,
-        allow_side=True,
-    )
+    vplan64 = compile_vi_fast_plan(jX_tr, jb_tr, vgroup, np.float64, "cuda",
+                                   V_RANK)
     say("vsweep", json.dumps(
         vsweep_phase(torch, vplan, vplan64, vtrainer, vstate)))
-    del vplan64
+    # the classification task (rating >= 4 as ±1) from one sweep in, so
+    # the kernels' target column carries latent means τ, not ±1
+    vctrainer = CategoricalVITrainer(
+        vplan, np.where(jy_tr >= 4, 1.0, -1.0),
+        VariationalConfig(task="classification"), V_RANK, 0.1, SEED)
+    with deterministic(torch):
+        vcstate = vctrainer._sweep(vctrainer._initialize())
+    say("vcsweep", json.dumps(vsweep_phase(
+        torch, vplan, vplan64, vctrainer, vcstate, phase="vcsweep")))
+    del vplan64, vctrainer, vcstate
     say("vsections", json.dumps(
         vsections_phase(torch, vplan, vtrainer, vstate)))
     del vplan, vtrainer, vstate
@@ -1558,10 +1764,7 @@ def main():
         fail(f"the VI fit launched fused_tile_gram_cross[vi] {v_vi} and "
              f"fused_tile_gram {v_meta} times")
     elbos = np.asarray(vfm.history_.elbos, dtype=np.float64)
-    drop = float(max(-np.diff(elbos).min(), 0.0))
-    if not (np.isfinite(elbos).all()
-            and drop <= ELBO_DROP_TOL * np.abs(elbos).min()):
-        fail(f"vfit: the ELBO fell by {drop} (trace {elbos.tolist()})")
+    drop = elbo_check("vfit", elbos)
     ttfs, rate = fit_rates(stamps, t_fit)
     say("vfit", f"engine {vfm.history_.engine}, {len(stamps)} sweeps, "
                 f"time to first sweep {ttfs:.2f} s, {rate:.3f} sweeps/s, "
@@ -1586,21 +1789,31 @@ def main():
 
     # ---- VI at the ML-10M shape (the fast-path design), rank 32 ----
     t0 = time.perf_counter()
-    p10 = try_compile_categorical(
-        X_tr, blocks_tr, np.asarray(grouping, np.int32), None, np.float32,
-        "cuda", rank=3 * V10M_RANK,
-    )
-    if p10 is None:
-        fail("v10m: the ML-10M design did not compile for VI")
+    p10 = compile_vi_fast_plan(X_tr, blocks_tr,
+                               np.asarray(grouping, np.int32), np.float32,
+                               "cuda", V10M_RANK)
+    if p10 is None or p10.has_side:
+        fail("v10m: the ML-10M design did not compile to a one-hot VI plan")
     t_p10 = time.perf_counter() - t0
     tr10 = CategoricalVITrainer(p10, y_tr, VariationalConfig(), V10M_RANK,
                                 0.1, SEED)
     st10 = tr10._initialize()
     k10 = vi_layout_rows(torch, p10, st10, tr10.y_tiles, V10M_RANK,
                          range(len(p10.tables)))
+    # the classifier's launches of the same kernel, one sweep in (the
+    # target column then holds the latent means τ)
+    from myfm_tpu_torch.ops.categorical import make_y_tiles
+
+    tr10c = CategoricalVITrainer(
+        p10, np.where(y_tr >= 4, 1.0, -1.0),
+        VariationalConfig(task="classification"), V10M_RANK, 0.1, SEED)
+    st10c = tr10c._sweep(tr10c._initialize())
+    kc10 = vi_layout_rows(torch, p10, st10c, make_y_tiles(p10, st10c.tau),
+                          V10M_RANK, range(len(p10.tables)),
+                          name="fused_tile_gram_cross[vic10m]")
     t10 = [(t.n_cols, t.n_tiles, t.tile_rows, t.tile_entities)
            for t in p10.tables]
-    del p10, tr10, st10
+    del p10, tr10, st10, tr10c, st10c
     torch.cuda.empty_cache()
     stamps.clear()
     torch.cuda.reset_peak_memory_stats()
@@ -1629,6 +1842,21 @@ def main():
         rmse=rmse10, std_y_test=std,
         whole_run_s=time.perf_counter() - t_start,
     )))
+    del v10
+    torch.cuda.empty_cache()
+
+    # ---- the VI classifier at the ML-10M shape, rank 32 ----
+    vc10, vc10_launches = vcfit10m_phase(
+        torch, (X_tr, blocks_tr, y_tr), (X_te, blocks_te, y_te), grouping,
+        timer, stamps)
+    vc10["kernel"] = kc10
+    say("vcfit10m", json.dumps(vc10))
+
+    # ---- row-space CAVI (the colored sweep) on the ML-100k design ----
+    say("vrfit", json.dumps(vrfit_phase(
+        torch, (jX_tr, jb_tr, jy_tr), (jX_te, jb_te, jy_te), vgroup,
+        stamps)))
+    say("vrfit", f"whole run so far {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, rows):
         lib = [r.get("library_ms") for r in rows]
@@ -1653,6 +1881,8 @@ def main():
               [r for r in vrows if r["kernel"] == "fused_tile_gram"]),
         entry("fused_tile_gram_cross[vi10m]", GRAM_SOURCE, GRAM_REPLACES,
               v10_launches, k10),
+        entry("fused_tile_gram_cross[vic10m]", GRAM_SOURCE, GRAM_REPLACES,
+              vc10_launches, kc10),
         entry("joint_tail_pass", TAIL_SOURCE, TAIL_REPLACES, jlaunches,
               jrows),
         entry("joint_tail_pass[lists]", TAIL_SOURCE, TAIL_REPLACES,

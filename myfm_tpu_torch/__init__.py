@@ -14,16 +14,25 @@ resolves them, whatever the task:
   hand-written CUDA kernel (ops/joint_tail.py, csrc/joint_tail.cu), and
   row-space serving.
 
-``VariationalFMRegressor.fit`` → ``predict`` runs deterministic CAVI on
-the entity-space fast path, on all-one-hot designs and on designs whose
-blocks carry per-entity side features (entity+attribute tables), with
-the Gram statistics computed by the same CUDA source in its VI layout
-and by its separate-meta variant (ops/gram.py ``fused_tile_gram``).
+The categorical fast path also takes designs whose blocks carry
+per-entity side features (entity+attribute tables), their side-feature
+color scans run by the same tail kernel.
 
-The colored engines (Gibbs and row-space VI), the VI classifier,
-entity+attribute tables on the Gibbs fast path and multiple devices are
-later slices and raise ``NotImplementedError``.  The package imports neither JAX nor
-``myfm_tpu``.
+``VariationalFMRegressor`` and ``VariationalFMClassifier`` (probit) run
+deterministic CAVI ``fit`` → ``predict`` / ``predict_proba`` on two
+engines, resolved as the TPU package resolves them:
+
+* the entity-space fast path, on all-one-hot and entity+attribute
+  designs, with the Gram statistics computed by the same CUDA source in
+  its VI layout and by its separate-meta variant (ops/gram.py
+  ``fused_tile_gram``);
+* the row-space colored sweep (ops/variational.py ``vi_sweep``, plain
+  PyTorch) on every other design, or with ``sweep_strategy`` "colored"
+  or "serial".
+
+The colored Gibbs engine, the split and bf16 Gram modes and multiple
+devices are later slices and raise ``NotImplementedError``.  The package
+imports neither JAX nor ``myfm_tpu``.
 """
 
 from .base import ConfigBuilder, MyFMBase, std_cdf

@@ -12,7 +12,11 @@ The layout is packed on the host in numpy and uploaded once; every
 layout array is bit-equal to the TPU package's at the same (T, S).
 What differs is how (T, S) is chosen: the TPU package ranks tilings by a
 VMEM-gated cost model of its Pallas kernel, while this port uses a rule
-of its own fitted to the CUDA kernel (``choose_tiling``).
+of its own fitted to the CUDA kernel (``choose_tiling``).  Whether a
+table is accepted at all is the TPU package's decision: its ranking's
+winner must pad the rows by at most ``max_inflation``
+(``reference_tiling``, a host-only copy of that arithmetic), so "auto"
+resolves to the same engine in both packages.
 
 With ``allow_side`` a block of [one-hot | per-entity side feature] column
 groups compiles too: its one-hot groups become ordinary tables, and its
@@ -55,28 +59,138 @@ SIDE_MAX_COLORS = 2048
 
 
 def _packed_rows(counts: np.ndarray, T: int, S: int) -> int:
-    """Exact padded row count of the greedy packing, computed from the
-    cardinality sequence without materializing the layout."""
+    """Exact padded row count of the greedy packing (``_pack_tiles``),
+    computed from the cardinality sequence without materializing the
+    layout: one step per entity, an entity longer than the room left in
+    its tile closing that tile and ``(rest - 1) // T`` full ones."""
+    counts = np.asarray(counts)
     total = 0
     row_fill = 0
     ent_fill = 0
-    for c in counts:
-        c = int(c)
-        if c == 0:
-            continue
-        taken = 0
-        while taken < c:
-            if row_fill >= T or ent_fill >= S:
-                total += T
-                row_fill = 0
-                ent_fill = 0
-            take = min(c - taken, T - row_fill)
-            taken += take
-            row_fill += take
+    for c in counts[counts > 0].tolist():
+        if row_fill >= T or ent_fill >= S:
+            total += T
+            row_fill = 0
+            ent_fill = 0
+        room = T - row_fill
+        if c <= room:
+            row_fill += c
             ent_fill += 1
+            continue
+        rest = c - room
+        full = (rest - 1) // T
+        total += T * (1 + full)
+        row_fill = rest - T * full
+        ent_fill = 1
     if row_fill:
         total += T
     return total
+
+
+# The TPU package's acceptance rule, copied as host arithmetic (its
+# tiling ranking in myfm_tpu/design_categorical.py, its Gram kernel's
+# VMEM model in myfm_tpu/ops/pallas_gram.py).  Only the decision is
+# taken from it: an accepted table is packed at this port's own (T, S).
+REF_TILE_ROWS = 1024  # the TPU package's DEFAULT_TILE_ROWS
+REF_TILE_ENTITIES = 8  # its DEFAULT_TILE_ENTITIES
+REF_GRAM_VMEM_BUDGET = 14 << 20  # its GRAM_VMEM_BUDGET
+_REF_CLOCK_HZ = 0.94e9
+_REF_HBM_BPS = 8.19e11
+_REF_VPU_S_SLOPE_NS = 0.45
+_REF_TILE_OVERHEAD_NS = 450.0
+
+
+def _ref_tile_bytes(r: int, c: int, itemsize: int = 4) -> int:
+    """One [r, c] buffer padded to (8, 128) tiles."""
+    return (-(-r // 8) * 8) * (-(-c // 128) * 128) * itemsize
+
+
+def _ref_vmem_bytes(T: int, S: int, rank: int) -> int:
+    """The TPU package's modeled VMEM bytes of one Gram grid step
+    (``fused_gram_vmem_bytes(T, S, rank)`` at its defaults: float32,
+    two cross tables, one tile per step)."""
+    D = rank + 2
+    Dp = -(-D // 8) * 8
+    w_cols = 1 + rank
+    tile = _ref_tile_bytes
+    dd = tile(D, D)
+    in_meta = tile(T, 1) + tile(T, 3) + tile(T, rank)
+    in_cross = tile(2, T) + 2 * tile(T, w_cols + 1)
+    double_buffered = (
+        max(in_meta, in_cross) + tile(S, w_cols) + dd
+        + tile(S * Dp, D) + dd
+    )
+    scratch = tile(T, S * Dp) + tile(T, Dp) + dd
+    return 2 * double_buffered + scratch
+
+
+def _ref_ns_per_row(T: int, S: int, rank: int) -> float:
+    """The TPU package's modeled Gram time per row (``_gram_ns_per_row``
+    with two cross tables)."""
+    D = rank + 2
+    Dp = -(-D // 8) * 8
+    n_mm = 1 if rank >= 64 else 3
+    cycles = n_mm * -(-T // 128) * -(-D // 128) * max(S * Dp, 128)
+    mxu = cycles / _REF_CLOCK_HZ / T * 1e9
+    dma = 3 * -(-(rank + 1) // 128) * (4 * 128) / _REF_HBM_BPS * 1e9
+    return (mxu + dma + _REF_VPU_S_SLOPE_NS * S
+            + _REF_TILE_OVERHEAD_NS / T)
+
+
+def reference_tiling(counts: np.ndarray, rank: int):
+    """(T, S, inflation) that the TPU package tiles a table with off
+    the TPU: the cheapest of its ranking (``rank_tilings(counts,
+    REF_TILE_ROWS, REF_TILE_ENTITIES, rank)[0]``), whose inflation its
+    compile gates on.  ``rank`` is the width that package passes: R on
+    the Gibbs path, 3R for one-hot VI plans, 4R for entity+attribute VI
+    plans.
+
+    The candidates are visited in order of a lower bound of their cost
+    (each tile holds at most T rows and S entities) and the walk stops
+    once that bound exceeds the best exact cost, so most candidates are
+    never packed; the winner is the ranking's, ties included."""
+    counts = np.asarray(counts)
+    n = max(int(counts.sum()), 1)
+    n_ent = int((counts > 0).sum())
+    cands = {(Tc, Sc) for Tc in (128, 256, 512, 1024, 2048, 4096)
+             for Sc in TILE_ENTITIES_CANDIDATES}
+    cands.add((REF_TILE_ROWS, REF_TILE_ENTITIES))  # the caller's fallback
+    bounded = []
+    for Tc, Sc in sorted(cands):
+        if _ref_vmem_bytes(Tc, Sc, rank) > REF_GRAM_VMEM_BUDGET:
+            continue
+        ns = _ref_ns_per_row(Tc, Sc, rank)
+        tiles = max(-(-n // Tc), -(-n_ent // Sc))
+        bounded.append(((tiles * Tc) / n * ns, Tc, Sc, ns))
+    if not bounded:  # very large D: the smallest config
+        return 128, 1, _packed_rows(counts, 128, 1) / n
+    bounded.sort()
+    best = None
+    for lower, Tc, Sc, ns in bounded:
+        if best is not None and lower > best[0]:
+            break
+        infl = _packed_rows(counts, Tc, Sc) / n
+        cand = (infl * ns, Tc, Sc, infl)
+        if best is None or cand < best:
+            best = cand
+    return best[1], best[2], best[3]
+
+
+def _fitting_tile_rows(rank: int, itemsize: int) -> Tuple[int, ...]:
+    """The tile heights whose z stage T·(rank+2)·itemsize fits
+    GRAM_ZTILE_BYTES, largest first (the smallest candidate when none
+    does)."""
+    fit = tuple(T for T in TILE_ROWS_CANDIDATES
+                if T * (rank + 2) * itemsize <= GRAM_ZTILE_BYTES)
+    return fit or TILE_ROWS_CANDIDATES[-1:]
+
+
+def _tiling_cost(counts: np.ndarray, T: int, S: int, D: int,
+                 n_cross: int, n: int):
+    """(modeled bytes, inflation) of one (T, S) on the CUDA kernel."""
+    packed = _packed_rows(counts, T, S)
+    tiles = packed // T
+    return tiles * (T * (n_cross * D + 2) + S * D * D), packed / n
 
 
 def choose_tiling(counts: np.ndarray, rank: int, itemsize: int,
@@ -97,21 +211,33 @@ def choose_tiling(counts: np.ndarray, rank: int, itemsize: int,
     tiles); a large S writes Grams for slots that a dense table never
     fills."""
     D = rank + 2
-    T = TILE_ROWS_CANDIDATES[-1]
-    for Tc in TILE_ROWS_CANDIDATES:
-        if Tc * D * itemsize <= GRAM_ZTILE_BYTES:
-            T = Tc
-            break
+    T = _fitting_tile_rows(rank, itemsize)[0]
     n = max(int(counts.sum()), 1)
     best = None
     for S in TILE_ENTITIES_CANDIDATES:
-        packed = _packed_rows(counts, T, S)
-        tiles = packed // T
-        cost = tiles * (T * (n_cross * D + 2) + S * D * D)
+        cost, infl = _tiling_cost(counts, T, S, D, n_cross, n)
         if best is None or cost < best[0]:
-            best = (cost, S, packed / n)
+            best = (cost, S, infl)
     _, S, inflation = best
     return T, S, inflation
+
+
+def least_inflating_tiling(counts: np.ndarray, rank: int, itemsize: int,
+                           n_cross: int = 2):
+    """(T, S, inflation) with the least padding among every fitting T
+    and every S (ties to the fewer modeled bytes): the port's tiling of
+    a table that the TPU package accepts but ``choose_tiling`` pads by
+    more than the gate allows."""
+    D = rank + 2
+    n = max(int(counts.sum()), 1)
+    best = None
+    for T in _fitting_tile_rows(rank, itemsize):
+        for S in TILE_ENTITIES_CANDIDATES:
+            cost, infl = _tiling_cost(counts, T, S, D, n_cross, n)
+            if best is None or (infl, cost) < best[0]:
+                best = ((infl, cost), T, S)
+    (infl, _), T, S = best
+    return T, S, infl
 
 
 def categorical_mapping(
@@ -453,22 +579,30 @@ def compile_categorical_table(
     rank: int = 32,
     max_inflation: Optional[float] = None,
     fixed_ts: Optional[Tuple[int, int]] = None,
+    gate_rank: Optional[int] = None,
 ) -> Optional[CategoricalTable]:
     """Pack one table on the host and upload its layout to ``device``.
 
     ``fixed_ts`` pins (T, S); otherwise ``choose_tiling`` picks them.
-    Returns None when the chosen tiling pads the rows by more than
-    ``max_inflation`` (the caller then falls back to another engine)."""
+    With ``max_inflation`` the table is accepted exactly when the TPU
+    package accepts it (``reference_tiling`` at ``gate_rank``, default
+    ``rank``, pads by at most ``max_inflation``), else None is returned
+    and the caller falls back to another engine.  An accepted table
+    keeps ``choose_tiling``'s pick when that is under the gate, else
+    takes ``least_inflating_tiling``."""
     ent = np.asarray(ent, dtype=np.int64)
     counts = np.bincount(ent, minlength=n_entities)
     if fixed_ts is not None:
         T, S = fixed_ts
     else:
-        T, S, inflation = choose_tiling(
-            counts, rank, np.dtype(dtype).itemsize
-        )
-        if max_inflation is not None and inflation > max_inflation:
-            return None
+        itemsize = np.dtype(dtype).itemsize
+        T, S, inflation = choose_tiling(counts, rank, itemsize)
+        if max_inflation is not None:
+            gate = rank if gate_rank is None else gate_rank
+            if reference_tiling(counts, gate)[2] > max_inflation:
+                return None
+            if inflation > max_inflation:
+                T, S, _ = least_inflating_tiling(counts, rank, itemsize)
     order = np.argsort(ent, kind="stable")
     (src, slot, ent_tile, cont_in, cont_out, last_slot, ent_slots,
      final_part) = _pack_tiles(ent[order], order, n_entities, T, S)
@@ -639,12 +773,16 @@ def try_compile_categorical(
     max_inflation: float = 4.0,
     allow_side: bool = False,
     fixed_ts: Optional[Tuple[int, int]] = None,
+    gate_rank: Optional[int] = None,
 ) -> Optional[CategoricalPlan]:
     """Compile the fast-path plan onto ``device``, or None if any table
     is neither one-hot nor (with ``allow_side``) an entity+attribute
-    block within the side gates.  ``rank`` is the width the tiling is
-    chosen for (the Gram's D = rank + 2: the factor rank on the Gibbs
-    path, 3R or 4R on the VI path).  ``fixed_ts`` pins every table's
+    block within the side gates, or pads its rows by more than
+    ``max_inflation`` under the TPU package's tiling.  ``rank`` is the
+    width the port's tiling is chosen for (the Gram's D = rank + 2: the
+    factor rank on the Gibbs path, 3R on the VI path); ``gate_rank``
+    (default ``rank``) the width the TPU package gates at (4R for its
+    entity+attribute VI plans).  ``fixed_ts`` pins every table's
     (T, S)."""
     dtype = np.dtype(dtype)
     extracted = extract_categorical_mappings(
@@ -669,6 +807,7 @@ def try_compile_categorical(
         tab = compile_categorical_table(
             ent, B, off, n_rows, dtype, device, rank=rank,
             max_inflation=max_inflation, fixed_ts=fixed_ts,
+            gate_rank=gate_rank,
         )
         if tab is None:
             return None
@@ -681,6 +820,7 @@ def try_compile_categorical(
         tab = compile_categorical_table(
             ent, B, int(col_ids[0]), n_rows, dtype, device, rank=rank,
             max_inflation=max_inflation, fixed_ts=fixed_ts,
+            gate_rank=gate_rank,
         )
         if tab is None:
             return None

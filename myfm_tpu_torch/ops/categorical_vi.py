@@ -1,7 +1,7 @@
 """Entity-space CAVI for all-categorical designs (the VI fast path).
 
 PyTorch counterpart of ``myfm_tpu/ops/categorical_vi.py`` for the
-regression task.  Same architecture as the Gibbs fast path
+regression and the probit classification task.  Same architecture as the Gibbs fast path
 (ops/categorical.py): for one-hot tables every per-row cache is a
 function of the small per-entity tables, so each table pass rebuilds its
 state in tile space from cross-table gathers and needs one Gram per
@@ -39,10 +39,12 @@ the two agree exactly.
 
 Update order: α → w0 → λ_w/μ_w → λ_V/μ_V → per table {w_t, V_t factor
 scan} → (e, Var, ELBO) refresh.  Every update is the exact coordinate-wise
-maximiser, so the ELBO is non-decreasing.  Each pass takes ``plain`` to
-run the kernels' plain PyTorch versions on any device (the comparisons on
-the card).  The multi-device branches of the TPU package are not ported;
-the classification task raises.
+maximiser, so the ELBO is non-decreasing.  For the classification task α
+stays 1 and the Gram's target column carries the latent probit means τ
+of the previous refresh (``CategoricalVIState.tau``, gathered per tile)
+in place of y.  Each pass takes ``plain`` to run the kernels' plain
+PyTorch versions on any device (the comparisons on the card).  The
+multi-device branches of the TPU package are not ported.
 """
 
 from __future__ import annotations
@@ -53,8 +55,8 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..design_categorical import CategoricalPlan, CategoricalTable
-from .categorical import _pad_zero_row, _table_slice
-from .gibbs import TASK_REGRESSION, _segment_sum
+from .categorical import _pad_zero_row, _table_slice, make_y_tiles
+from .gibbs import TASK_REGRESSION
 from .gram import (
     fused_tile_gram,
     fused_tile_gram_cross,
@@ -64,7 +66,8 @@ from .gram import (
 from .variational import (
     VariationalConfig,
     VIState,
-    _safe_log,
+    _group_elbo_terms,
+    finish_task,
     vi_update_lambda,
     vi_update_mu,
 )
@@ -72,19 +75,11 @@ from .variational import (
 
 @dataclasses.dataclass
 class CategoricalVIState:
-    """VIState plus the latent mean target tau (None for regression,
+    """VIState plus the latent mean target tau [N] (None for regression,
     where y is used directly)."""
 
     core: VIState
     tau: Optional[torch.Tensor]
-
-
-def _require_regression(cfg: VariationalConfig):
-    if cfg.task != TASK_REGRESSION:
-        raise NotImplementedError(
-            f"task {cfg.task!r} on the VI fast path (the VI classifier): "
-            "later slice"
-        )
 
 
 def _ext_source(w, w_var, V, V_var, t2: CategoricalTable) -> torch.Tensor:
@@ -683,56 +678,6 @@ def vi_refresh_rows(plan: CategoricalPlan, w0, w0_var, w, w_var, V, V_var,
     return torch.cat(scores), evs
 
 
-def _group_elbo_terms(plan: CategoricalPlan, state: VIState,
-                      cfg: VariationalConfig, elbo):
-    """Hyper-group ELBO contributions (variational.hpp:861-913)."""
-    g = plan.group_index
-    G = plan.n_groups
-    counts = plan.group_counts
-
-    elbo = elbo + state.alpha * state.alpha_rate * (
-        1.0 - _safe_log(state.alpha_rate)
-    )
-    elbo = elbo - cfg.gamma_0 * (
-        state.w0 * state.w0 + state.w0_var
-    ) + 0.5 * _safe_log(state.w0_var)
-
-    dev2_w = (state.w - state.mu_w[g]) ** 2
-    rate_w = (
-        cfg.beta_0
-        + _segment_sum(dev2_w + state.w_var, g, G)
-        + state.mu_w_var * counts
-    )
-    elbo = elbo + (0.5 * _safe_log(state.mu_w_var)).sum()
-    elbo = elbo + (0.5 * _safe_log(state.w_var)).sum()
-    elbo = elbo + (
-        state.lambda_w * (-rate_w / 2.0 + state.lambda_w_rate)
-    ).sum()
-    elbo = elbo - (
-        state.lambda_w * state.lambda_w_rate
-        * _safe_log(state.lambda_w_rate)
-    ).sum()
-    elbo = elbo - (0.5 * (state.mu_w - cfg.mu_0) ** 2).sum()
-
-    if state.V.shape[1] > 0:
-        dev2_V = (state.V - state.mu_V[g, :]) ** 2
-        rate_V = (
-            cfg.beta_0
-            + _segment_sum(dev2_V + state.V_var, g, G)
-            + state.mu_V_var * counts[:, None]
-        )
-        elbo = elbo + (0.5 * _safe_log(state.mu_V_var)).sum()
-        elbo = elbo + (0.5 * _safe_log(state.V_var)).sum()
-        elbo = elbo + (
-            state.lambda_V * (-rate_V / 2.0 + state.lambda_V_rate)
-        ).sum()
-        elbo = elbo - (
-            state.lambda_V * state.lambda_V_rate
-            * _safe_log(state.lambda_V_rate)
-        ).sum()
-    return elbo
-
-
 def categorical_vi_sweep(
     plan: CategoricalPlan,
     state: CategoricalVIState,
@@ -742,18 +687,24 @@ def categorical_vi_sweep(
     plain: bool = False,
 ) -> CategoricalVIState:
     """One full CAVI iteration on the entity-space fast path.  ``y_tiles``
-    is y in each table's tile order (ops/categorical.make_y_tiles).  The
-    input state is not modified."""
-    _require_regression(cfg)
+    is y in each table's tile order (ops/categorical.make_y_tiles); the
+    classification task gathers the state's τ the same way.  The input
+    state is not modified."""
     core = state.core
     dtype = core.V.dtype
     n = plan.n_real
 
     sum_e = core.e.sum()
-    sum_e2 = (core.e * core.e).sum()
-    alpha_rate = (cfg.beta_0 + (sum_e2 + core.e_var_sum)) / 2.0
-    alpha = torch.tensor((cfg.alpha_0 + n) / 2.0, dtype=dtype,
-                         device=core.V.device) / alpha_rate
+    if cfg.task == TASK_REGRESSION:
+        sum_e2 = (core.e * core.e).sum()
+        alpha_rate = (cfg.beta_0 + (sum_e2 + core.e_var_sum)) / 2.0
+        alpha = torch.tensor((cfg.alpha_0 + n) / 2.0, dtype=dtype,
+                             device=core.V.device) / alpha_rate
+        tau_tiles = y_tiles
+    else:
+        alpha = torch.ones((), dtype=dtype, device=core.V.device)
+        alpha_rate = alpha.clone()
+        tau_tiles = make_y_tiles(plan, state.tau)
 
     # w0 (e is refreshed at sweep end; only the stats are needed here)
     w0, w0_var = core.w0, core.w0_var
@@ -777,7 +728,7 @@ def categorical_vi_sweep(
         if plan.side[ti] is not None:
             w, w_var, V, V_var = _vi_ea_table_pass(
                 plan, ti, w, w_var, V, V_var, w0, alpha, lambda_w, mu_w,
-                lambda_V, mu_V, gi, y_tiles[ti], cfg, eff, plain,
+                lambda_V, mu_V, gi, tau_tiles[ti], cfg, eff, plain,
             )
             # this table's side moments changed: later tables' gathers
             # and the refresh must see the updated reductions
@@ -785,13 +736,13 @@ def categorical_vi_sweep(
         else:
             w, w_var, V, V_var = _vi_table_pass(
                 plan, ti, w, w_var, V, V_var, w0, alpha, lambda_w, mu_w,
-                lambda_V, mu_V, gi, y_tiles[ti], cfg, eff, plain,
+                lambda_V, mu_V, gi, tau_tiles[ti], cfg, eff, plain,
             )
 
     # refresh (e, e_var_sum) + ELBO
     score, e_var_sum = vi_refresh_rows(plan, w0, w0_var, w, w_var, V,
                                        V_var, eff=eff)
-    e = score - y
+    e, tau, row_elbo = finish_task(score, y, cfg)
     new_core = VIState(
         w0=w0, w0_var=w0_var, w=w, w_var=w_var, V=V, V_var=V_var,
         e=e, e_var_sum=e_var_sum, alpha=alpha, alpha_rate=alpha_rate,
@@ -801,10 +752,10 @@ def categorical_vi_sweep(
         lambda_V=lambda_V, lambda_V_rate=lambda_V_rate,
         elbo=core.elbo.new_zeros(()),
     )
-    elbo = -alpha * (cfg.beta_0 + (e * e).sum() + e_var_sum) / 2.0
+    elbo = row_elbo - alpha * (cfg.beta_0 + (e * e).sum() + e_var_sum) / 2.0
     elbo = _group_elbo_terms(plan, new_core, cfg, elbo)
     return CategoricalVIState(
-        core=dataclasses.replace(new_core, elbo=elbo), tau=None
+        core=dataclasses.replace(new_core, elbo=elbo), tau=tau
     )
 
 
@@ -812,8 +763,8 @@ def init_categorical_vi_state(plan: CategoricalPlan, core: VIState,
                               y: torch.Tensor,
                               cfg: VariationalConfig) -> CategoricalVIState:
     """Reference initialize (variational.hpp:234-241): the full
-    mean/variance forward, e = score − y."""
-    _require_regression(cfg)
+    mean/variance forward, e = score − y for every task; the
+    classification task's first target τ is y itself (±1)."""
     eff = (
         vi_eff_tables(plan, core.w, core.w_var, core.V, core.V_var)
         if plan.has_side else None
@@ -823,4 +774,5 @@ def init_categorical_vi_state(plan: CategoricalPlan, core: VIState,
         core.V_var, eff=eff,
     )
     core = dataclasses.replace(core, e=score - y, e_var_sum=e_var_sum)
-    return CategoricalVIState(core=core, tau=None)
+    tau = None if cfg.task == TASK_REGRESSION else y.to(score.dtype)
+    return CategoricalVIState(core=core, tau=tau)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 from scipy import sparse as sps
 
+from .base import std_cdf
 from .containers import FM, VariationalFM
 from .design import compile_design
 from .design_categorical import torch_dtype
@@ -165,13 +166,10 @@ class VariationalPredictor:
         n_workers: Optional[int] = None,
     ) -> np.ndarray:
         """The score of the posterior-mean weights, computed on the
-        device through the row-space forward."""
+        device through the row-space forward; for the classification task
+        its probit squash Φ(score)."""
         if not self.samples:
             raise RuntimeError("Predictor has no samples.")
-        if self.task == TASK_CLASSIFICATION:
-            raise NotImplementedError(
-                "the variational classifier: later slice"
-            )
         vfm = self.samples[0]
         tdtype = torch_dtype(self.dtype)
 
@@ -182,4 +180,7 @@ class VariationalPredictor:
         plan = compile_design(X, X_rel, dtype=self.dtype, for_training=False,
                               device=self.device)
         score = predict_score(plan, up(vfm.w0), up(vfm.w), up(vfm.V))
-        return score.double().cpu().numpy()
+        score = score.double().cpu().numpy()
+        if self.task == TASK_CLASSIFICATION:
+            return std_cdf(score)
+        return score

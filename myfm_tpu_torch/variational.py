@@ -1,13 +1,15 @@
 """Variational-inference estimators (coordinate-ascent mean field).
 
 PyTorch counterpart of ``myfm_tpu/variational.py``
-(``MyFMVariationalBase``, ``VariationalFMRegressor``) with the same
-"auto" resolution: the all-one-hot fast-path plan, else the
-entity+attribute plan (``allow_side=True``), both tiled for the VI
-Gram's 3R+2 columns.  A design that compiles to neither needs the
-row-space / colored VI, which is a later slice of the port and raises
-``NotImplementedError``; so does ``VariationalFMClassifier``.  There is
-no design cache: every fit compiles its plan.
+(``MyFMVariationalBase``, ``VariationalFMRegressor``,
+``VariationalFMClassifier``) with the same "auto" resolution: the
+all-one-hot fast-path plan, else the entity+attribute plan
+(``allow_side=True``; ``compile_vi_fast_plan``), else the row-space
+colored sweep (``sweep_strategy`` "colored" or "serial" go there
+directly).  Both fast-path plans are tiled for this port's VI Gram
+(3R+2 columns) and accepted where the TPU package accepts them (it
+gates one-hot plans at width 3R and entity+attribute plans at 4R).
+There is no design cache: every fit compiles its plan.
 """
 
 from __future__ import annotations
@@ -20,12 +22,32 @@ from scipy import sparse as sps
 from .base import (
     REAL,
     ArrayLike,
+    ClassifierMixin,
     ConfigBuilder,
     MyFMBase,
     RegressorMixin,
     check_data_consistency,
 )
 from .relational import RelationBlock
+
+
+def compile_vi_fast_plan(X, X_rel, grouping, dtype, device, rank: int):
+    """The VI fast-path plan of (X, X_rel), or None: the all-one-hot
+    plan, else the entity+attribute plan.  Both are tiled for the port's
+    VI Gram z = [1 | e | φ | σ | τ] (D = 3R+2) and gated where the TPU
+    package gates them: at width 3R for one-hot plans and at 4R for
+    entity+attribute plans, whose Gram there carries 4R+2 columns."""
+    from .design_categorical import try_compile_categorical
+
+    for allow_side, gate in ((False, 3 * rank), (True, 4 * rank)):
+        plan = try_compile_categorical(
+            X, X_rel, grouping=grouping, n_groups=None, dtype=dtype,
+            device=device, rank=max(3 * rank, 1), allow_side=allow_side,
+            gate_rank=max(gate, 1),
+        )
+        if plan is not None:
+            return plan
+    return None
 
 
 def runtime_error_to_optional(fn):
@@ -92,9 +114,9 @@ class MyFMVariationalBase(MyFMBase):
         config: ConfigBuilder,
         callback,
     ):
-        from .design_categorical import try_compile_categorical
+        from .design import compile_design
         from .ops.variational import VariationalConfig
-        from .vi_trainer import CategoricalVITrainer
+        from .vi_trainer import CategoricalVITrainer, VariationalTrainer
 
         cfg = VariationalConfig(
             task=config.task_type,
@@ -106,20 +128,11 @@ class MyFMVariationalBase(MyFMBase):
             fit_w0=config.fit_w0,
             fit_linear=config.fit_linear,
         )
+        grouping = np.asarray(config.group_index, dtype=np.int32)
         cat_plan = None
         if self.sweep_strategy in ("auto", "categorical"):
-            grouping = np.asarray(config.group_index, dtype=np.int32)
-            # every VI Gram carries 3R+2 z-columns [1 | e | φ | σ | τ] —
-            # tile for that width (the TPU package tiles entity+attribute
-            # plans for its 4R+2 columns)
-            for allow_side in (False, True):
-                cat_plan = try_compile_categorical(
-                    X, X_rel, grouping=grouping, n_groups=None,
-                    dtype=self.dtype, device=self.device,
-                    rank=max(3 * rank, 1), allow_side=allow_side,
-                )
-                if cat_plan is not None:
-                    break
+            cat_plan = compile_vi_fast_plan(X, X_rel, grouping, self.dtype,
+                                            self.device, rank)
         if cat_plan is not None:
             trainer = CategoricalVITrainer(
                 cat_plan, y, cfg, rank, init_stdev, random_seed, self.dtype,
@@ -130,9 +143,16 @@ class MyFMVariationalBase(MyFMBase):
                 "sweep_strategy='categorical' requires every table "
                 "(main and blocks) to be one-hot per row."
             )
-        raise NotImplementedError(
-            "row-space (colored) variational inference: later slice"
+        plan = compile_design(
+            X, X_rel, grouping=grouping, dtype=self.dtype,
+            strategy="serial" if self.sweep_strategy == "serial" else "auto",
+            max_unrolled_colors=self.max_unrolled_colors,
+            device=self.device,
         )
+        trainer = VariationalTrainer(
+            plan, y, cfg, rank, init_stdev, random_seed, self.dtype
+        )
+        return trainer.run(config.n_iter, callback)
 
 
 class VariationalFMRegressor(RegressorMixin, MyFMVariationalBase):
@@ -173,10 +193,47 @@ class VariationalFMRegressor(RegressorMixin, MyFMVariationalBase):
         return self._predict_core(X, X_rel)
 
 
-class VariationalFMClassifier:
-    """The variational probit classifier: a later slice of the port."""
+class VariationalFMClassifier(ClassifierMixin, MyFMVariationalBase):
+    r"""Variational-inference FM binary classifier (probit link)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "VariationalFMClassifier (probit VI): later slice"
+    def fit(
+        self,
+        X: Optional[ArrayLike],
+        y: np.ndarray,
+        X_rel: List[RelationBlock] = [],
+        X_test: Optional[ArrayLike] = None,
+        y_test: Optional[np.ndarray] = None,
+        X_rel_test: List[RelationBlock] = [],
+        n_iter: int = 100,
+        n_kept_samples: Optional[int] = None,
+        grouping: Optional[List[int]] = None,
+        group_shapes: Optional[List[int]] = None,
+        callback: Optional[Callable] = None,
+        config_builder: Optional[ConfigBuilder] = None,
+    ) -> "VariationalFMClassifier":
+        """Run CAVI on y ∈ {0, 1} (same parameters as
+        ``myfm_tpu.VariationalFMClassifier.fit``)."""
+        self._fit(
+            X, y, X_rel=X_rel, X_test=X_test, y_test=y_test,
+            X_rel_test=X_rel_test, n_iter=n_iter,
+            n_kept_samples=n_kept_samples, grouping=grouping,
+            group_shapes=group_shapes, callback=callback,
+            config_builder=config_builder,
         )
+        return self
+
+    def predict(
+        self,
+        X: Optional[ArrayLike],
+        X_rel: List[RelationBlock] = [],
+    ) -> np.ndarray:
+        """The class (P(y = 1) > 0.5) under the converged means."""
+        return self.predict_proba(X, X_rel) > 0.5
+
+    def predict_proba(
+        self,
+        X: Optional[ArrayLike],
+        X_rel: List[RelationBlock] = [],
+    ) -> np.ndarray:
+        """P(y = 1) = Φ(score) of the converged posterior means."""
+        return self._predict_core(X, X_rel)

@@ -1,9 +1,11 @@
-"""Variational training loop on the entity-space fast path.
+"""Variational training loops.
 
-PyTorch counterpart of ``myfm_tpu/vi_trainer.py`` (``CategoricalVITrainer``,
-``_cavi_loop`` and ``run_cavi_loop`` as one loop, ``_fetch_vfm``,
-``_fetch_hyper`` and the lazy views): runs ``n_iter`` deterministic CAVI sweeps, records the
-ELBO of every sweep, and invokes the callback with early-stop support.
+PyTorch counterpart of ``myfm_tpu/vi_trainer.py``: ``CategoricalVITrainer``
+(the entity-space fast path), ``VariationalTrainer`` (the row-space
+colored sweep), ``run_cavi_loop`` (the reference's ``_cavi_loop``),
+``_fetch_vfm``, ``_fetch_hyper`` and the lazy views.  The loop runs
+``n_iter`` deterministic CAVI sweeps, records the ELBO of every sweep,
+and invokes the callback with early-stop support.
 When the callback allows it (``trainer.callback_allows_async``) the ELBO
 trace stays on the device until the chain ends and is copied then, so
 the loop does not wait on the device every sweep.
@@ -11,6 +13,7 @@ the loop does not wait on the device every sweep.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -28,7 +31,13 @@ from .ops.categorical_vi import (
     categorical_vi_sweep,
     init_categorical_vi_state,
 )
-from .ops.variational import VariationalConfig, VIState, vi_init_state
+from .ops.variational import (
+    VariationalConfig,
+    VIState,
+    vi_init_state,
+    vi_sweep,
+    vi_update_e_and_var,
+)
 from .predictor import VariationalPredictor
 from .trainer import _host, _resolve_gram_fast_matmul, callback_allows_async
 
@@ -107,11 +116,6 @@ class CategoricalVITrainer:
         random_seed: int,
         dtype=np.float32,
     ):
-        if cfg.task != "regression":
-            raise NotImplementedError(
-                f"task {cfg.task!r} on the VI fast path (the VI "
-                "classifier): later slice"
-            )
         self.plan = plan
         self.cfg = _resolve_gram_fast_matmul(cfg)
         self.rank = rank
@@ -147,23 +151,85 @@ class CategoricalVITrainer:
         return run_cavi_loop(self, n_iter, callback)
 
 
+class VariationalTrainer:
+    """CAVI trainer on the row-space colored sweep (ops/variational.py
+    ``vi_sweep``) over a ``DesignPlan``, for designs the fast path does
+    not take.  Runs on the plan's device; one ``torch.Generator`` seeded
+    with ``random_seed`` draws the initial weights.  The TPU package's
+    staged dispatch mode (one program per factor on large designs) is
+    the same sequence of updates that this eager sweep runs anyway."""
+
+    def __init__(
+        self,
+        plan,  # DesignPlan
+        y: np.ndarray,
+        cfg: VariationalConfig,
+        rank: int,
+        init_stdev: float,
+        random_seed: int,
+        dtype=np.float32,
+    ):
+        self.plan = plan
+        self.cfg = cfg
+        self.rank = rank
+        self.init_stdev = init_stdev
+        self.random_seed = random_seed
+        self.dtype = np.dtype(dtype)
+        self.device = plan.device
+        self._tdtype = torch_dtype(self.dtype)
+        self.y = torch.as_tensor(
+            np.asarray(y).astype(self.dtype), device=self.device
+        )
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(random_seed)
+
+    def _initialize(self) -> VIState:
+        """Reference initialize_e (variational.hpp:234-241): the full
+        mean/variance forward, then e = score − y for every task."""
+        state = vi_init_state(
+            self.plan, self.rank, self.init_stdev, self.generator, self.cfg,
+            self._tdtype, self.device,
+        )
+        score, e_var_sum = vi_update_e_and_var(
+            self.plan, state.w0, state.w0_var, state.w, state.w_var,
+            state.V, state.V_var,
+        )
+        return dataclasses.replace(state, e=score - self.y,
+                                   e_var_sum=e_var_sum)
+
+    def _sweep(self, state: VIState) -> VIState:
+        return vi_sweep(self.plan, state, self.y, self.cfg)
+
+    def run(
+        self,
+        n_iter: int,
+        callback: Optional[Callable] = None,
+    ) -> Tuple[VariationalPredictor, VariationalLearningHistory]:
+        return run_cavi_loop(self, n_iter, callback, engine="colored",
+                             core_of=lambda s: s)
+
+
 def run_cavi_loop(
     trainer,
     n_iter: int,
     callback: Optional[Callable] = None,
+    engine: str = "fastpath",
+    core_of: Callable = lambda s: s.core,
 ) -> Tuple[VariationalPredictor, VariationalLearningHistory]:
     """The CAVI loop: deterministic sweeps, the ELBO trace and the
     early-stop callback.  ``trainer`` provides ``_initialize()``,
     ``_sweep(state)`` and the ``plan / cfg / rank / dtype / device``
-    attributes.  A user callback gets host values every sweep; otherwise
-    the ELBOs stay device scalars until the chain ends."""
+    attributes; ``core_of`` maps its state to the ``VIState`` and
+    ``engine`` names it in the history.  A user callback gets host values
+    every sweep; otherwise the ELBOs stay device scalars until the chain
+    ends."""
     state = trainer._initialize()
     history = VariationalLearningHistory(hypers=None, elbos=[],
-                                         engine="fastpath")
+                                         engine=engine)
     deferred = callback_allows_async(callback)
     for it in range(n_iter):
         state = trainer._sweep(state)
-        core = state.core
+        core = core_of(state)
         if deferred:
             history.elbos.append(core.elbo)
             if callback is not None and callback(
@@ -178,7 +244,7 @@ def run_cavi_loop(
                 break
     if deferred and history.elbos:
         history.elbos = torch.stack(history.elbos).double().cpu().tolist()
-    core = state.core
+    core = core_of(state)
     history.hypers = _fetch_hyper(core)
     predictor = VariationalPredictor(
         trainer.rank, trainer.plan.n_features, trainer.cfg.task,

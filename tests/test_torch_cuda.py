@@ -823,6 +823,87 @@ def test_vi_fit_on_card_goes_through_both_kernels():
         te["rating"].std())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [3, 10])
+def test_vi_classification_sweep_with_kernels_matches_plain(rank):
+    """The classification task's float64 sweep on the tiny timeSVD++
+    entity+attribute plan, one sweep in (so both kernels' target column
+    carries latent means τ, not ±1): through both kernels against through
+    their plain versions, every field and τ within 1e-10 of its scale."""
+    from myfm_tpu_torch.ops.categorical_vi import categorical_vi_sweep
+    from myfm_tpu_torch.ops.variational import VariationalConfig
+    from myfm_tpu_torch.vi_trainer import CategoricalVITrainer
+
+    device = _cuda()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        plan, y = _tiny_vi_plan(device, rank, np.float64)
+        tr = CategoricalVITrainer(
+            plan, np.where(np.asarray(y) >= 4, 1.0, -1.0),
+            VariationalConfig(task="classification"), rank, 0.1, 0,
+            np.float64)
+        state = tr._sweep(tr._initialize())
+        before = gram.fused_tile_gram.launches
+        got = categorical_vi_sweep(plan, state, tr.y, tr.y_tiles, tr.cfg)
+        assert gram.fused_tile_gram.launches > before
+        want = categorical_vi_sweep(plan, state, tr.y, tr.y_tiles, tr.cfg,
+                                    plain=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    pairs = [(getattr(got.core, f), getattr(want.core, f))
+             for f in ("w", "w_var", "V", "V_var", "e", "e_var_sum", "elbo")]
+    for g, w in pairs + [(got.tau, want.tau)]:
+        assert bool(torch.isfinite(g).all())
+        scale = max(float(w.abs().max()), 1.0)
+        assert float((g - w).abs().max()) <= 1e-10 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["regression", "classification"])
+def test_rowspace_vi_sweep_on_card_matches_cpu(task):
+    """One float64 row-space CAVI sweep (the colored sweep, plain
+    PyTorch) on the card against the same sweep on the CPU, from one
+    state, on the tiny timeSVD++ design: every field within 1e-10 of its
+    scale (index_add_ sums in another order on the card)."""
+    import dataclasses
+
+    from myfm_tpu_torch.design import compile_design
+    from myfm_tpu_torch.ops import variational as tv
+    from myfm_tpu_torch.utils.ml_features import (
+        build_feature_blocks,
+        load_synthetic_movielens,
+    )
+
+    device = _cuda()
+    tr, te = load_synthetic_movielens("tiny", 0)
+    X, _, blocks, _, grouping = build_feature_blocks(tr, te,
+                                                     "timesvdpp_flipped")
+    y = np.asarray(tr["rating"], np.float64)
+    if task == "classification":
+        y = np.where(y >= 4, 1.0, -1.0)
+    cfg = tv.VariationalConfig(task=task)
+    out = {}
+    for dev in ("cpu", device):
+        plan = compile_design(X, blocks, grouping=np.asarray(grouping),
+                              dtype=np.float64, max_unrolled_colors=4,
+                              device=dev)
+        st = tv.vi_init_state(plan, 4, 0.1, torch.Generator().manual_seed(0),
+                              cfg, torch.float64, "cpu")
+        st = tv.VIState(**{f.name: getattr(st, f.name).to(dev)
+                           for f in dataclasses.fields(st)})
+        yt = torch.as_tensor(y, device=dev)
+        score, ev = tv.vi_update_e_and_var(plan, st.w0, st.w0_var, st.w,
+                                           st.w_var, st.V, st.V_var)
+        st = dataclasses.replace(st, e=score - yt, e_var_sum=ev)
+        out[str(dev)] = tv.vi_sweep(plan, st, yt, cfg)
+    cpu, card = out["cpu"], out[str(device)]
+    for f in dataclasses.fields(cpu):
+        g, w = getattr(card, f.name).cpu(), getattr(cpu, f.name)
+        assert bool(torch.isfinite(g).all()), f.name
+        scale = max(float(w.abs().max()), 1.0)
+        assert float((g - w).abs().max()) <= 1e-10 * scale, f.name
+
+
 # ---------------------------------------------------------------------------
 # the Gibbs fast path's entity+attribute tables: the side features' color
 # scan through joint_tail_pass (kernel 4)

@@ -78,9 +78,10 @@ def test_non_categorical_design_raises():
     X[0, 1] = 0.5  # row 0 is no longer one-hot
     from myfm_tpu_torch import FM, Predictor
 
-    # every Gibbs task on such a design is served by the row-space
-    # scorer (tests/test_torch_probit_estimator.py); the variational
-    # classifier is a later slice
+    # every task on such a design is served by the row-space scorer
+    # (tests/test_torch_probit_estimator.py); for the probit tasks the
+    # zero weights give Φ(0) = 0.5 (the variational classifier raised
+    # here before it was ported; the name is kept)
     pred = Predictor(2, F, "classification", np.float64, "cpu")
     pred.samples.append(FM(0.0, np.zeros(F), np.zeros((F, 2))))
     np.testing.assert_allclose(pred.predict(X.tocsr(), blocks), 0.5)
@@ -90,5 +91,4 @@ def test_non_categorical_design_raises():
     vpred.samples.append(VariationalFM(
         0.0, np.zeros(F), np.zeros((F, 2)), 1.0, np.ones(F),
         np.ones((F, 2))))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        vpred.predict(X.tocsr(), blocks)
+    np.testing.assert_allclose(vpred.predict(X.tocsr(), blocks), 0.5)

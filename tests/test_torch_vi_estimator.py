@@ -1,6 +1,7 @@
 """``VariationalFMRegressor`` of the port against the TPU package's: the
 "auto" engine resolution, serving, the callback surface, and what
-raises (tests/test_torch_vi_accuracy.py has the fitted accuracy).
+raises (tests/test_torch_vi_accuracy.py has the fitted accuracy;
+test_torch_vi_classifier.py the classifier).
 """
 
 import os
@@ -103,7 +104,9 @@ def test_default_device_is_cuda():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: VariationalFMClassifier(rank=2, device="cpu"),
+    # the classifier itself fits now (test_torch_vi_classifier.py); like
+    # the regressor it still raises for multiple devices
+    lambda: VariationalFMClassifier(rank=2, n_devices=2, device="cpu"),
     lambda: VariationalFMRegressor(rank=2, n_devices=2, device="cpu"),
     lambda: VariationalFMRegressor(rank=2, mesh=object(), device="cpu"),
 ])
@@ -113,19 +116,35 @@ def test_classifier_and_multi_device_raise(make):
 
 
 @pytest.mark.parametrize("strategy,error", [
-    ("auto", NotImplementedError), ("categorical", ValueError),
+    ("auto", None), ("categorical", ValueError),
 ])
 def test_non_categorical_design_raises(strategy, error):
-    """A multi-hot main table compiles to no fast-path plan: JAX runs its
-    row-space VI there, which is a later slice of the port."""
+    """A multi-hot main table compiles to no fast-path plan.  Under
+    "auto" both packages run the row-space colored VI there (the port
+    raised before it was ported; the name is kept): both histories say
+    "colored", and from the same deterministic start (init_stdev = 0)
+    the two fits agree within 1e-10 — weights, their variances and the
+    ELBO trace.  "categorical" still refuses the design."""
     rng = np.random.RandomState(0)
     X = sps.random(200, 12, density=0.4, random_state=rng, format="csr")
     y = rng.normal(size=200)
-    ref = myfm_tpu.VariationalFMRegressor(rank=2).fit(X, y, n_iter=2)
-    assert ref.history_.engine == "colored"
-    with pytest.raises(error):
-        VariationalFMRegressor(rank=2, sweep_strategy=strategy,
-                               device="cpu").fit(X, y, n_iter=2)
+    if error is not None:
+        with pytest.raises(error):
+            VariationalFMRegressor(rank=2, sweep_strategy=strategy,
+                                   device="cpu").fit(X, y, n_iter=2)
+        return
+    kw = dict(rank=2, init_stdev=0.0, dtype=np.float64)
+    ref = myfm_tpu.VariationalFMRegressor(**kw).fit(X, y, n_iter=3)
+    fm = VariationalFMRegressor(sweep_strategy=strategy, device="cpu",
+                                **kw).fit(X, y, n_iter=3)
+    assert ref.history_.engine == fm.history_.engine == "colored"
+    for f in ("w0_mean", "w0_var", "w_mean", "w_var", "V_mean", "V_var"):
+        np.testing.assert_allclose(getattr(fm, f), getattr(ref, f),
+                                   rtol=1e-10, atol=1e-12, err_msg=f)
+    np.testing.assert_allclose(fm.history_.elbos, ref.history_.elbos,
+                               rtol=1e-10)
+    np.testing.assert_allclose(fm.predict(X), ref.predict(X), rtol=1e-10,
+                               atol=1e-12)
 
 
 def test_gibbs_auto_on_ea_design_raises_before_any_sweep(tiny):

@@ -126,9 +126,25 @@ def test_plain_flag_runs_the_same_sweep(tiny):
 
 
 def test_classification_task_raises():
-    _, pp, y, _ = onehot_plans(N=100)
-    cfg = VariationalConfig(task="classification")
-    core = vi_init_state(pp, R, 0.1, torch.Generator(), cfg, torch.float64,
-                         "cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tvi.init_categorical_vi_state(pp, core, torch.as_tensor(y), cfg)
+    """The classification task on the fast path (it raised before the VI
+    classifier was ported; the name is kept): three chained sweeps from
+    JAX's initial state, τ included, on a one-hot plan, every field
+    within 1e-10 of its scale."""
+    jp, pp, y, _ = onehot_plans(N=100)
+    y = np.where(y > np.median(y), 1.0, -1.0)
+    jcfg = JaxConfig(task="classification")
+    pcfg = VariationalConfig(task="classification")
+    yj, yp = jnp.asarray(y), torch.as_tensor(y)
+    core = jax_vi_init(jp, R, 0.1, jax.random.PRNGKey(0), jcfg, np.float64)
+    js = jvi.init_categorical_vi_state(jp, core, yj, jcfg)
+    ps = categorical_vi_state_from_numpy(js, "cpu")
+    jt, pt = jax_y_tiles(jp, yj), make_y_tiles(pp, yp)
+    sweep = jax.jit(jvi.categorical_vi_sweep, static_argnums=(4, 5))
+    for it in range(3):
+        js = sweep(jp, js, yj, jt, jcfg, True)
+        ps = tvi.categorical_vi_sweep(pp, ps, yp, pt, pcfg)
+        for f in _STATE_FIELDS:
+            close(getattr(ps.core, f), getattr(js.core, f),
+                  what=f"sweep {it} {f}")
+        close(ps.tau, js.tau, what=f"sweep {it} tau")
+    assert float(ps.core.alpha) == 1.0
