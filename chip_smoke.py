@@ -32,6 +32,12 @@ holds every CUDA kernel of each against its plain PyTorch version:
   (rank 32, 6 sweeps) on the ML-10M-shaped design's fast path (kernel 1)
   and ``MyFMOrderedProbit`` (rank 10, 20 sweeps, the joint engine) on the
   ML-100k design (kernel 4);
+* the colored Gibbs engine (plain PyTorch: the TPU package runs no
+  Pallas kernel there) on the same ML-100k design at rank 10:
+  ``MyFMGibbsRegressor(sweep_strategy="colored")``,
+  ``MyFMOrderedProbit(fit_linear=False)`` through "auto", and the
+  joint-row factor sweep (``sweep_strategy="joint"``,
+  ``fit_linear=False``);
 * kernel 3 (``tile_gram``) through its entry point ``entity_grams``, and
   kernels 5 and 6 (kernel 1 section by section, and its (slot, τ) load)
   through ``myfm_tpu_torch.tools.kernel_sections``, on the ML-10M plan.
@@ -129,6 +135,24 @@ Phases, one line each:
             own sweeps): each must resolve to "colored" and keep the
             ELBO check; RMSE below std(y_test), log-loss below the base
             rate's
+  gcsweep   one colored gibbs_sweep on the ML-100k design in fp32
+            against the same sweep in fp64 on the card, from one state
+            and one set of variates (w, V, e, α within GCSWEEP_TOL of
+            scale); launches per sweep counted by torch.profiler on its
+            parts (hyperparameters with sweep_w, one factor of sweep_V,
+            the refresh) and on one sweep_V_joint
+  gcfit     MyFMGibbsRegressor(rank=10, sweep_strategy="colored"),
+            stopped by its callback once GC_FIT_S seconds have passed
+            (at least GC_MIN_ITER sweeps): must resolve to "colored";
+            s per sweep, time to first sweep, peak memory
+  gcpredict its held-out RMSE below std(y_test)
+  gcofit    MyFMOrderedProbit(rank=10, fit_linear=False) through "auto",
+            as gcfit: must resolve to "colored"; then the ofit /
+            opredict checks (gcopredict)
+  gjvfit    MyFMGibbsRegressor(rank=10, sweep_strategy="joint",
+            fit_linear=False), GJV_MAX_ITER sweeps or GJV_FIT_S seconds:
+            sweep_V_joint; the engine must read "joint" and the held-out
+            RMSE fall below std(y_test)
 
 The kernels line gives, for every kernel, its launches in its path's
 fit, its largest fp32 error against the plain version, its fp32 time,
@@ -256,6 +280,20 @@ ELBO_DROP_TOL = 1e-5
 VR_FIT_S = 30.0
 VR_MIN_ITER = 2
 VR_MAX_ITER = 20
+# the colored Gibbs engine on the ML-100k design (gcsweep): one fp32
+# colored sweep against the same sweep in fp64, both on the card, from
+# one state and one set of variates: max |Δ| of w, V, e and α over the
+# field's scale (max |fp64|, at least 1); one pass measured 7e-7 on the
+# CPU at the tiny design's size, and ~2k chained colors per factor here
+GCSWEEP_TOL = 1e-3
+# the colored fits (gcfit, gcofit) stop as vrfit's do, after GC_MIN_ITER
+# sweeps at least; the joint-row fit without linear terms (gjvfit) after
+# GJV_MAX_ITER sweeps or GJV_FIT_S seconds, whichever comes first
+GC_FIT_S = 30.0
+GC_MIN_ITER = 2
+GC_MAX_ITER = 20
+GJV_FIT_S = 20.0
+GJV_MAX_ITER = 5
 
 
 def fail(message):
@@ -1263,6 +1301,21 @@ def count_launches(torch, fn):
     )
 
 
+def budget(torch, stamps, t_fit, limit_s, min_iter):
+    """A fit callback that stamps each sweep's end on the host and stops
+    the fit once one more sweep at its own rate would pass ``limit_s``
+    seconds from ``t_fit`` (after ``min_iter`` sweeps)."""
+
+    def callback(i, fm, hyper, history):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        spent = stamps[-1] - t_fit
+        return (i + 1 >= min_iter
+                and spent + spent / (i + 1) > limit_s), None
+
+    return callback
+
+
 def vcfit10m_phase(torch, train, test, grouping, timer, stamps):
     """VariationalFMClassifier(rank=32) on the ML-10M-shaped design,
     rating >= 4, V10M_N_ITER sweeps: "auto" must take the fast path and
@@ -1348,15 +1401,6 @@ def vrfit_phase(torch, train, test, grouping, stamps):
                launches_stage_a=n_stage_a, launches_per_factor=n_factor,
                launches_refresh=n_refresh, count_s=t_count)
 
-    def budget(i, fm, hyper, history):
-        """Stop once one more sweep at the fit's own rate would pass
-        VR_FIT_S (after VR_MIN_ITER sweeps)."""
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        spent = stamps[-1] - t_fit
-        return (i + 1 >= VR_MIN_ITER
-                and spent + spent / (i + 1) > VR_FIT_S), None
-
     for task, est in (("regression", VariationalFMRegressor),
                       ("classification", VariationalFMClassifier)):
         yt = y_tr if task == "regression" else (y_tr >= 4).astype(float)
@@ -1366,16 +1410,17 @@ def vrfit_phase(torch, train, test, grouping, stamps):
         fm = est(rank=V_RANK, random_seed=SEED, sweep_strategy="colored",
                  device="cuda").fit(X_tr, yt, X_rel=b_tr,
                                     n_iter=VR_MAX_ITER, grouping=grouping,
-                                    callback=budget)
+                                    callback=budget(torch, stamps, t_fit,
+                                                    VR_FIT_S, VR_MIN_ITER))
         torch.cuda.synchronize()
         t_fit_s = time.perf_counter() - t_fit
         if fm.history_.engine != "colored":
             fail(f"vrfit: the {task} fit resolved to "
                  f"{fm.history_.engine!r}, not 'colored'")
+        ttfs, rate = fit_rates(stamps, t_fit)
         row = dict(engine=fm.history_.engine, sweeps=len(stamps),
-                   fit_s=t_fit_s,
-                   time_to_first_sweep_s=stamps[0] - t_fit,
-                   s_per_sweep=(stamps[-1] - stamps[0]) / (len(stamps) - 1),
+                   fit_s=t_fit_s, time_to_first_sweep_s=ttfs,
+                   s_per_sweep=1.0 / rate,
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                    elbo_first=fm.history_.elbos[0],
                    elbo_last=fm.history_.elbos[-1],
@@ -1398,6 +1443,172 @@ def vrfit_phase(torch, train, test, grouping, stamps):
         del fm
         torch.cuda.empty_cache()
     return out
+
+
+def _cast(obj, dtype):
+    """A dataclass of tensors (a GibbsState, GibbsVariates) with its
+    floating tensors cast to ``dtype``."""
+    import dataclasses
+
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(dtype)
+        for f in dataclasses.fields(obj)
+        if getattr(getattr(obj, f.name), "is_floating_point", bool)()
+    })
+
+
+def gcsweep_phase(torch, train, grouping):
+    """One colored gibbs_sweep on the ML-100k design in fp32 against the
+    same sweep in fp64, both on the card, from one fp64 state and one
+    set of fp64 variates (cast to fp32 for the fp32 run): the largest
+    difference relative to scale of w, V, e and α, and the host seconds
+    of each.  Then the launches per sweep, counted by torch.profiler on
+    the sweep's parts: the hyperparameters with sweep_w, one factor of
+    sweep_V (every factor launches the same kernels: no step depends on
+    the data), the refresh, and one sweep_V_joint (the joint-row sweep
+    without linear terms, which gjvfit runs)."""
+    from myfm_tpu_torch.design import compile_design
+    from myfm_tpu_torch.ops import gibbs as tg
+    from myfm_tpu_torch.trainer import GibbsTrainer
+
+    X_tr, b_tr, y_tr = train
+    t0 = time.perf_counter()
+    plans = {dt: compile_design(X_tr, b_tr, grouping=grouping,
+                                dtype=np_dt, device="cuda")
+             for dt, np_dt in ((torch.float64, np.float64),
+                               (torch.float32, np.float32))}
+    t_plan = time.perf_counter() - t0
+    cfg = tg.GibbsConfig(task="regression")
+    trainer = GibbsTrainer(plans[torch.float64], y_tr, cfg, J_RANK, 0.1,
+                           SEED, dtype=np.float64)
+    state = trainer._initialize()
+    variates = tg.draw_gibbs_variates(plans[torch.float64], cfg, J_RANK,
+                                      trainer.generator, torch.float64,
+                                      "cuda")
+    out, res = dict(plan_s=t_plan), {}
+    for dt, name in ((torch.float64, "fp64"), (torch.float32, "fp32")):
+        args = (_cast(state, dt), trainer.y.to(dt), _cast(variates, dt))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[dt] = tg.gibbs_sweep(plans[dt], args[0], args[1], args[2], cfg)
+        torch.cuda.synchronize()
+        out[f"s_{name}"] = time.perf_counter() - t0
+    for f in ("w", "V", "e", "alpha"):
+        got = getattr(res[torch.float32], f).double()
+        want = getattr(res[torch.float64], f)
+        err = float((got - want).abs().max()) / max(
+            float(want.abs().max()), 1.0)
+        if not (bool(torch.isfinite(got).all()) and err <= GCSWEEP_TOL):
+            fail(f"gcsweep: fp32 vs fp64 {f} differs by {err} of scale "
+                 f"(tolerance {GCSWEEP_TOL})")
+        out[f"err_{f}"] = err
+
+    plan = plans[torch.float32]
+    st, v = _cast(state, torch.float32), _cast(variates, torch.float32)
+    y = trainer.y.float()
+    h = tg.draw_hypers(plan, st, v, cfg)
+
+    def hypers_and_w():
+        hh = tg.draw_hypers(plan, st, v, cfg)
+        tg.sweep_w(plan, hh.e, hh.w, hh.alpha, hh.lambda_w, hh.mu_w,
+                   v.noise[:, 0])
+
+    t0 = time.perf_counter()
+    n_hw = count_launches(torch, hypers_and_w)
+    n_factor = count_launches(torch, lambda: tg.sweep_V_factor(
+        plan, h.e, h.V[:, 0], h.alpha, h.lambda_V[:, 0], h.mu_V[:, 0],
+        v.noise[:, 1]))
+    n_refresh = count_launches(torch, lambda: tg.refresh_e(
+        plan, h, h.w0, h.w, h.V, y, cfg))
+    n_joint = count_launches(torch, lambda: tg.sweep_V_joint(
+        plan, h.e, h.V, h.alpha, h.lambda_V, h.mu_V, v.noise[:, 1:]))
+    out.update(
+        block_colors_unrolled_stacked=[
+            (len(b.colors), 0 if b.color_stack is None
+             else int(b.color_stack.rows.shape[0])) for b in plan.blocks],
+        launches_per_sweep=n_hw + J_RANK * n_factor + n_refresh,
+        launches_hypers_and_w=n_hw, launches_per_factor=n_factor,
+        launches_refresh=n_refresh, launches_sweep_V_joint=n_joint,
+        count_s=time.perf_counter() - t0)
+    del plans, trainer, state, variates, res, plan, st, v, h
+    torch.cuda.empty_cache()
+    return out
+
+
+def gibbs_colored_fits(torch, train, test, grouping, stamps):
+    """The colored engine through the estimators on the ML-100k design,
+    each fit stopped by ``budget``; returns {phase: line}.
+
+    gcfit    MyFMGibbsRegressor(sweep_strategy="colored"), GC_FIT_S;
+    gcpredict its held-out RMSE below std(y_test);
+    gcofit   MyFMOrderedProbit(fit_linear=False) through "auto", which
+             must resolve to "colored" (the fast path's side features
+             and the joint candidate need the linear terms), GC_FIT_S;
+             then the cutpoint and held-out probit checks (gcopredict);
+    gjvfit   MyFMGibbsRegressor(sweep_strategy="joint", fit_linear=False):
+             sweep_V_joint, GJV_MAX_ITER sweeps or GJV_FIT_S; the engine
+             must read "joint" and the held-out RMSE fall below
+             std(y_test).  Kernel 4 has no part in it: its launches are
+             reported, not required."""
+    from myfm_tpu_torch import MyFMGibbsRegressor, MyFMOrderedProbit
+    from myfm_tpu_torch.ops import joint_tail
+
+    (X_tr, b_tr, y_tr), (X_te, b_te, y_te) = train, test
+    std = float(np.std(y_te))
+    yo_tr = (np.asarray(y_tr) - 1).astype(np.int64)
+    yo_te = (np.asarray(y_te) - 1).astype(np.int64)
+    lines = {}
+
+    def fit(phase, est, y, engine, n_iter, limit_s, **kw):
+        stamps.clear()
+        torch.cuda.reset_peak_memory_stats()
+        joint_tail.joint_tail_pass.launches = 0
+        t_fit = time.perf_counter()
+        fm = est(rank=J_RANK, random_seed=SEED, device="cuda", **kw).fit(
+            X_tr, y, X_rel=b_tr, n_iter=n_iter, n_kept_samples=n_iter,
+            grouping=grouping,
+            callback=budget(torch, stamps, t_fit, limit_s, GC_MIN_ITER))
+        torch.cuda.synchronize()
+        if fm.history_.engine != engine:
+            fail(f"{phase}: resolved to {fm.history_.engine!r}, not "
+                 f"{engine!r}")
+        ttfs, rate = fit_rates(stamps, t_fit)
+        lines[phase] = dict(
+            engine=fm.history_.engine, sweeps=len(stamps),
+            fit_s=time.perf_counter() - t_fit, time_to_first_sweep_s=ttfs,
+            s_per_sweep=1.0 / rate,
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            tail_kernel_launches=joint_tail.joint_tail_pass.launches)
+        return fm
+
+    def rmse_check(phase, fm):
+        t0 = time.perf_counter()
+        pred = fm.predict(X_te, b_te)
+        rmse = float(np.sqrt(np.mean((pred - y_te) ** 2)))
+        if not (pred.shape == y_te.shape and np.isfinite(pred).all()
+                and rmse < std):
+            fail(f"{phase}: rmse {rmse} vs std(y_test) {std}")
+        return dict(rows=int(y_te.size), samples=len(fm.predictor_.samples),
+                    predict_s=time.perf_counter() - t0, rmse=rmse,
+                    std_y_test=std)
+
+    fm = fit("gcfit", MyFMGibbsRegressor, y_tr, "colored", GC_MAX_ITER,
+             GC_FIT_S, sweep_strategy="colored")
+    lines["gcpredict"] = rmse_check("gcpredict", fm)
+    del fm
+    fm = fit("gcofit", MyFMOrderedProbit, yo_tr, "colored", GC_MAX_ITER,
+             GC_FIT_S, fit_linear=False)
+    lines["gcofit"].update(cutpoints_last=cutpoint_checks("gcofit", fm),
+                           mh_accepts=fm.history_.n_mh_accept)
+    lines["gcopredict"] = probit_checks("gcopredict", fm, X_te, b_te, yo_te,
+                                        yo_tr, int(yo_tr.max()) + 1)
+    del fm
+    fm = fit("gjvfit", MyFMGibbsRegressor, y_tr, "joint", GJV_MAX_ITER,
+             GJV_FIT_S, sweep_strategy="joint", fit_linear=False)
+    lines["gjvfit"].update(rmse_check("gjvfit", fm))
+    del fm
+    torch.cuda.empty_cache()
+    return lines
 
 
 def fit_rates(stamps, t_fit):
@@ -1857,6 +2068,15 @@ def main():
         torch, (jX_tr, jb_tr, jy_tr), (jX_te, jb_te, jy_te), vgroup,
         stamps)))
     say("vrfit", f"whole run so far {time.perf_counter() - t_start:.1f} s")
+
+    # ---- the colored Gibbs engine on the ML-100k design, rank 10 ----
+    say("gcsweep", json.dumps(gcsweep_phase(
+        torch, (jX_tr, jb_tr, jy_tr), vgroup)))
+    for phase, line in gibbs_colored_fits(
+            torch, (jX_tr, jb_tr, jy_tr), (jX_te, jb_te, jy_te), vgroup,
+            stamps).items():
+        say(phase, json.dumps(line))
+    say("gjvfit", f"whole run so far {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, rows):
         lib = [r.get("library_ms") for r in rows]

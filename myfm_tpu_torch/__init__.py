@@ -3,7 +3,7 @@
 The port of ``myfm_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100,
 one slice at a time.  The Gibbs estimators ``MyFMGibbsRegressor``,
 ``MyFMGibbsClassifier`` (probit) and ``MyFMOrderedProbit`` run ``fit``
-→ ``predict`` on two engines, resolved by "auto" as the TPU package
+→ ``predict`` on three engines, resolved by "auto" as the TPU package
 resolves them, whatever the task:
 
 * the categorical fast path, on designs whose every table is one-hot,
@@ -12,7 +12,12 @@ resolves them, whatever the task:
 * the joint engine, on relational designs with N-hot block columns
   (the timeSVD++ features), with its sequential color tail run by a
   hand-written CUDA kernel (ops/joint_tail.py, csrc/joint_tail.cu), and
-  row-space serving.
+  row-space serving (without the linear terms the joint engine draws
+  the factor rows alone, in plain PyTorch);
+* the colored engine (ops/gibbs.py ``sweep_w`` / ``sweep_V``, plain
+  PyTorch: the TPU package runs no Pallas kernel there) wherever "auto"
+  takes neither of the others, or with ``sweep_strategy`` "colored" or
+  "serial".
 
 The categorical fast path also takes designs whose blocks carry
 per-entity side features (entity+attribute tables), their side-feature
@@ -30,8 +35,8 @@ engines, resolved as the TPU package resolves them:
   PyTorch) on every other design, or with ``sweep_strategy`` "colored"
   or "serial".
 
-The colored Gibbs engine, the split and bf16 Gram modes and multiple
-devices are later slices and raise ``NotImplementedError``.  The package
+The split and bf16 Gram modes and multiple devices are later slices and
+raise ``NotImplementedError``.  The package
 imports neither JAX nor ``myfm_tpu``.
 """
 

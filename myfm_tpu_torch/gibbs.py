@@ -1,14 +1,13 @@
-"""Gibbs-sampler estimators on the categorical fast path and the joint
-engine: regressor, probit classifier, ordered probit.
+"""Gibbs-sampler estimators on the categorical fast path, the joint
+engine and the colored engine: regressor, probit classifier, ordered
+probit.
 
 PyTorch counterpart of ``myfm_tpu/gibbs.py`` (``MyFMGibbsRegressor``,
 ``MyFMGibbsClassifier``, ``MyFMOrderedProbit``, ``_gibbs_config``,
 ``_encode_ordered_targets`` and ``_train_core``).  The engine does not
-depend on the task.
-The "auto" / "categorical" / "joint" engine resolution is the TPU
-package's, unchanged; wherever it lands on the colored engine, this
-port raises ``NotImplementedError``, since that engine is a later
-slice.  There is no design cache: every fit compiles its plan.
+depend on the task.  The "auto" / "categorical" / "joint" / "colored" /
+"serial" engine resolution is the TPU package's, unchanged.  There is
+no design cache: every fit compiles its plan.
 """
 
 from __future__ import annotations

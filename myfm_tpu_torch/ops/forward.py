@@ -73,6 +73,12 @@ def factor_q(plan: DesignPlan, vcols: torch.Tensor) -> torch.Tensor:
     return q
 
 
+def factor_q_single(plan: DesignPlan, v: torch.Tensor) -> torch.Tensor:
+    """q[n] for one factor column [F]: the same matvec as the linear
+    term's."""
+    return linear_term(plan, v)
+
+
 def _factor_q_sq(plan: DesignPlan, vcols: torch.Tensor) -> torch.Tensor:
     """q_S[n, r] = Σᵢ x²_{ni} V²_{ir}."""
 

@@ -1,13 +1,24 @@
-"""Gibbs hyperparameter conditionals, chain state and the row-space sweep.
+"""Gibbs hyperparameter conditionals, chain state and the row-space sweeps.
 
-PyTorch counterpart of the parts of ``myfm_tpu/ops/gibbs.py`` that the
-categorical fast path and the joint engine use: ``GibbsConfig``,
-``GibbsState``, ``_draw_normal``, ``draw_alpha``, ``draw_w0``,
-``draw_lambda``, ``draw_mu``, ``init_state``, ``refresh_e`` for the
-regression, classification (probit) and ordered-probit tasks, and
-``gibbs_sweep`` with its merged-joint branch.  The colored engine
-(``sweep_w``, ``sweep_V``, ``sweep_V_joint``) is not ported yet: a sweep
-that needs it raises ``NotImplementedError``.
+PyTorch counterpart of ``myfm_tpu/ops/gibbs.py``: ``GibbsConfig``,
+``GibbsState``, the hyperparameter draws (``draw_alpha``, ``draw_w0``,
+``draw_lambda``, ``draw_mu``), ``init_state``, ``refresh_e`` for the
+regression, classification (probit) and ordered-probit tasks, the
+colored engine (``sweep_w``, ``sweep_V``), the joint-row factor sweep
+(``sweep_V_joint``) and ``gibbs_sweep``, whose merged (w, V) branch runs
+ops/joint.py.
+
+The colored engine draws one coordinate set at a time from its exact
+conditional, organized by color (row-disjoint feature sets, design.py):
+the linear weights, then each factor column in turn, "serial" plans
+giving every feature its own color (myFM's own order).  Block tables
+are drawn from per-block-row aggregates; a block's stacked colors
+evolve those aggregates in closed form, so only the end of a stack
+touches the [n_rows] residual.  The TPU package scans a ``ColorStack``
+with ``lax.scan``; here a Python loop walks its colors.  No TPU kernel
+lies on these sweeps, and none is written for them: they are gathers,
+elementwise arithmetic, ``index_add_`` and (joint rows) small batched
+solves.
 
 Every draw is a deterministic transform of standard variates that the
 caller passes in (a standard-gamma variate, a standard normal, the
@@ -25,13 +36,23 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..design import BlockPlan, ColorPlan, ColorStack, DesignPlan
+from .forward import factor_q, factor_q_single, predict_score, take
+from .joint import _scatter_rows, _segsum, solve_spd_sample
 from .oprobit import OprobitVariates, oprobit_groups_update
+from .rowspace import (
+    block_sum,
+    one_color,
+    seg_sum,
+    set_feat,
+    stack_colors,
+    term_index,
+)
 from .special import truncated_std_normal_onesided, uniform_open
 
 TASK_REGRESSION = "regression"
 TASK_CLASSIFICATION = "classification"
 TASK_ORDERED = "ordered"
-_COLORED = "colored engine: later slice"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,7 +269,10 @@ def draw_latent_variates(cfg: GibbsConfig, n_rows: int,
 @dataclasses.dataclass
 class GibbsVariates:
     """Every standard variate one row-space sweep consumes (the TPU
-    package draws them from the splits of its key: gibbs.py:926-928)."""
+    package draws them from the splits of its key: gibbs.py:926-928;
+    its w noise is (F,) from k_w, its factor noise (F,) per factor from
+    the splits of k_v, or (F, R) from k_v for joint rows, or (F, R+1)
+    for merged rows)."""
 
     gamma_alpha: Optional[torch.Tensor]  # scalar, Gamma((α₀+n)/2, 1)
     normal_w0: torch.Tensor  # scalar
@@ -256,7 +280,7 @@ class GibbsVariates:
     normal_mu_w: torch.Tensor  # [G]
     gamma_lambda_V: torch.Tensor  # [G, 1] (one variate per group)
     normal_mu_V: torch.Tensor  # [G, R]
-    noise: torch.Tensor  # [F, R+1], the joint draws' ξ
+    noise: torch.Tensor  # [F, R+1]: column 0 drives w, 1..R the factors
     u_latent: Optional[torch.Tensor] = None  # [N] probit tasks
     oprobit: Optional[Tuple[OprobitVariates, ...]] = None  # per group
 
@@ -295,11 +319,407 @@ def draw_gibbs_variates(plan, cfg: GibbsConfig, rank: int,
     return v
 
 
-def require_joint(cfg: GibbsConfig):
-    """The port's row-space sweep is the merged joint engine; the
-    colored engine is a later slice."""
-    if not (cfg.joint_rows and cfg.fit_linear):
-        raise NotImplementedError(_COLORED)
+# ---------------------------------------------------------------------------
+# The colored engine: linear-weight color steps
+# ---------------------------------------------------------------------------
+
+
+def _per_feature_prior(c: ColorPlan, group_index, lam_col, mu_col):
+    g = take(group_index, c.feat)
+    return lam_col[g], mu_col[g]
+
+
+def _stack_indices(stack: ColorStack):
+    """(rows, seg, seg clamped to the slots, feat) of a ColorStack as
+    int64: gathers through a pad slot id clamp into range as JAX's do,
+    scatters into Pf + 1 slots drop it."""
+    seg = stack.seg.long()
+    return (stack.rows.long(), seg, seg.clamp(max=stack.feat.shape[1] - 1),
+            stack.feat.long())
+
+
+def _w_color_main(c: ColorPlan, e, w, alpha, lam_col, mu_col, noise,
+                  group_index):
+    """The exact conditional of a row-disjoint main-table feature set's
+    linear weights: quad = α Σx² + λ, lin = α(Σx² w_old − Σ x e) + λμ."""
+    lam, mu = _per_feature_prior(c, group_index, lam_col, mu_col)
+    w_old = take(w, c.feat)
+    xe = seg_sum(c.vals * e[c.rows], c.seg, c.feat.shape[0])
+    quad = alpha * c.sx2 + lam
+    lin = alpha * (c.sx2 * w_old - xe) + lam * mu
+    w_new = _draw_normal(quad, lin, take(noise, c.feat))
+    e = e.index_add(0, c.rows, take(w_new - w_old, c.seg) * c.vals)
+    return e, set_feat(w, c.feat, w_new)
+
+
+def _w_color_block(b: BlockPlan, c: ColorPlan, e, w, alpha, lam_col,
+                   mu_col, noise, group_index):
+    """One block color's step: the stack fold over that color alone."""
+    return _w_block_stack(b, one_color(c), e, w, alpha, lam_col, mu_col,
+                          noise, group_index)
+
+
+def _w_block_stack(b: BlockPlan, stack: ColorStack, e, w, alpha, lam_col,
+                   mu_col, noise, group_index):
+    """The block colors of ``stack`` in order, in O(block_size) per
+    color: the conditional reads the residual only through its
+    per-block-row sum e1, which evolves as e1 += cardinality · dxb under
+    a color's update e += dxb[mapper]; the [n_rows] residual is touched
+    once, after the loop.  What does not change along the loop (the
+    priors, the precision and the noise term per slot) is built once for
+    all colors."""
+    F, B = w.shape[0], b.block_size
+    alpha = torch.as_tensor(alpha, dtype=e.dtype, device=e.device)
+    rows, seg, seg_c, feat = _stack_indices(stack)
+    Pf = feat.shape[1]
+    x, sx2 = stack.vals, stack.sx2
+    gf = take(group_index, feat)
+    lam_mu = lam_col[gf] * mu_col[gf]
+    quad = alpha * sx2 + lam_col[gf]
+    nz = take(noise, feat) * torch.rsqrt(quad)
+    card = b.cardinality
+    e1 = block_sum(e, b)
+    acc = e.new_zeros(B)
+    w_ext = torch.cat([w, w.new_zeros(1)])  # pad feature ids: scratch
+    for ci in range(rows.shape[0]):
+        m, ft, xc = rows[ci], feat[ci], x[ci]
+        w_old = w_ext[ft]
+        xe = xc.new_zeros(Pf + 1).index_add_(0, seg[ci], xc * e1[m])[:Pf]
+        lin = torch.addcmul(lam_mu[ci], alpha, sx2[ci] * w_old - xe)
+        w_new = lin / quad[ci] + nz[ci]
+        w_ext[ft] = w_new
+        dxb = xc.new_zeros(B).index_add_(
+            0, m, (w_new - w_old)[seg_c[ci]] * xc)
+        e1.addcmul_(card, dxb)
+        acc.add_(dxb)
+    return e + acc[b.mapper], w_ext[:F]
+
+
+def sweep_w(plan: DesignPlan, e, w, alpha, lambda_w, mu_w, noise):
+    """Every linear weight's draw, color by color, given one standard
+    normal per feature (``noise`` [F]).  Returns (w, e)."""
+    g = plan.group_index
+    for c in plan.main.colors + stack_colors(plan.main.color_stack):
+        e, w = _w_color_main(c, e, w, alpha, lambda_w, mu_w, noise, g)
+    for b in plan.blocks:
+        for c in b.colors:
+            e, w = _w_color_block(b, c, e, w, alpha, lambda_w, mu_w, noise,
+                                  g)
+        if b.color_stack is not None:
+            e, w = _w_block_stack(b, b.color_stack, e, w, alpha, lambda_w,
+                                  mu_w, noise, g)
+    return w, e
+
+
+# ---------------------------------------------------------------------------
+# The colored engine: factor (V) color steps, one factor at a time
+# ---------------------------------------------------------------------------
+
+
+def _V_color_main(c: ColorPlan, e, q, v, alpha, lam_col, mu_col, noise,
+                  group_index):
+    """The exact conditional of a row-disjoint main-table feature set's
+    factor coordinates: with h = x(q − x v_old),
+    quad = α Σh² + λ, lin = α(Σh² v_old − Σ e h) + λμ."""
+    n_seg = c.feat.shape[0]
+    lam, mu = _per_feature_prior(c, group_index, lam_col, mu_col)
+    v_old = take(v, c.feat)
+    x = c.vals
+    h = x * (q[c.rows] - x * take(v_old, c.seg))
+    sq = seg_sum(h * h, c.seg, n_seg)
+    lin = seg_sum(-e[c.rows] * h, c.seg, n_seg) + sq * v_old
+    quad = alpha * sq + lam
+    lin = alpha * lin + lam * mu
+    v_new = _draw_normal(quad, lin, take(noise, c.feat))
+    dseg = take(v_new - v_old, c.seg)
+    e = e.index_add(0, c.rows, dseg * h)
+    q = q.index_add(0, c.rows, dseg * x)
+    return e, q, set_feat(v, c.feat, v_new)
+
+
+def _V_color_block(b: BlockPlan, c: ColorPlan, e, q, v, alpha, lam_col,
+                   mu_col, noise, group_index):
+    """One block color's step: the stack fold over that color alone (its
+    caches updated through the mapper once)."""
+    return _V_block_stack(b, one_color(c), e, q, v, alpha, lam_col, mu_col,
+                          noise, group_index)
+
+
+# The block aggregates' evolution under a color's per-block-row
+# constants (a, b2), old values on every right-hand side, as 4 x 5 terms
+# (row of [a, b2, a², a·b2], row of [E1, Q1, Q2, EQ, card], coefficient):
+#   E1 += a·Q1 − b2·card       Q1 += a·card
+#   Q2 += 2a·Q1 + a²·card      EQ += a·(Q2 + E1) + (a² − b2)·Q1 − a·b2·card
+_V_AGG_TERMS = (
+    (0, 1, 1.0), (1, 4, -1.0), None, None, None,
+    (0, 4, 1.0), None, None, None, None,
+    (0, 1, 2.0), (2, 4, 1.0), None, None, None,
+    (0, 2, 1.0), (0, 0, 1.0), (2, 1, 1.0), (1, 1, -1.0), (3, 4, -1.0),
+)
+
+
+def _V_block_stack(b: BlockPlan, stack: ColorStack, e, q, v, alpha,
+                   lam_col, mu_col, noise, group_index):
+    """The block colors of ``stack`` in order, in O(block_size) per
+    color.  For block feature i with value x at block row m, the
+    conditional reads (e, q) only through four per-block-row aggregates
+    E1 = Σe, Q1 = Σq, Q2 = Σq², EQ = Σeq over m's members:
+
+        Σ h² = x²(Q2 − 2x v_old Q1 + x² v_old² card),
+        Σ e h = x(EQ − x v_old E1).
+
+    Each color's update is e += a[mapper]·q − b2[mapper],
+    q += a[mapper] with per-block-row a = Δx, b2 = Δx² v_old, under
+    which the aggregates evolve in closed form (``_V_AGG_TERMS``), so the
+    loop touches no [n_rows] tensor.  After it, with A = Σₖ aₖ and
+    S = Σₖ aₖ·(Σ_{j<k} aⱼ) (each color sees the q of the earlier ones),
+
+        e ← e + A[mapper]·q + (S − Σb2)[mapper],   q ← q + A[mapper].
+
+    What does not change along the loop (priors, noise and x per entry,
+    the term tables) is built once, and each color works on stacked rows
+    (the aggregates [5, B], the two slot sums [2, Pf]): about forty
+    device operations per color."""
+    F, B = v.shape[0], b.block_size
+    dev = e.device
+    alpha = torch.as_tensor(alpha, dtype=e.dtype, device=dev)
+    rows, seg, seg_c, feat = _stack_indices(stack)
+    Pf = feat.shape[1]
+    x = stack.vals
+    neg_x, x2 = -x, x * x
+    gf = take(group_index, feat)
+    lam = lam_col[gf]
+    lam_mu = lam * mu_col[gf]
+    nz = take(noise, feat)
+    (l_i, r_i), coef = term_index(_V_AGG_TERMS, 3, dev)
+    agg_coef = torch.tensor(coef, dtype=e.dtype, device=dev)[:, None]
+    sq_i = torch.tensor([0, 0], device=dev)
+    sq_j = torch.tensor([0, 1], device=dev)
+    agg = torch.stack([block_sum(e, b), block_sum(q, b),
+                       block_sum(q * q, b), block_sum(e * q, b),
+                       b.cardinality])  # [5, B]
+    acc = e.new_zeros(3, B)  # A, ΣB2, S
+    v_ext = torch.cat([v, v.new_zeros(1)])  # pad feature ids: scratch
+    for ci in range(rows.shape[0]):
+        m, ft, xc = rows[ci], feat[ci], x[ci]
+        v_old = v_ext[ft]
+        xv = xc * v_old[seg_c[ci]]
+        E1m, Q1m, Q2m, EQm, cm = agg[:, m]
+        sq_e = x2[ci] * torch.addcmul(
+            Q2m, xv, torch.addcmul(-2.0 * Q1m, xv, cm))
+        lin_e = neg_x[ci] * torch.addcmul(EQm, xv, E1m, value=-1.0)
+        sq, lin = xc.new_zeros(2, Pf + 1).index_add_(
+            1, seg[ci], torch.stack([sq_e, lin_e]))[:, :Pf]
+        quad = torch.addcmul(lam[ci], alpha, sq)
+        lin = torch.addcmul(lam_mu[ci], alpha,
+                            torch.addcmul(lin, sq, v_old))
+        v_new = lin / quad + nz[ci] * torch.rsqrt(quad)
+        v_ext[ft] = v_new
+        dseg = (v_new - v_old)[seg_c[ci]]
+        u = xc.new_zeros(2, B).index_add_(
+            1, m, torch.stack([dseg * xc, dseg * xc * xv]))  # a, b2
+        lhs = torch.cat([u, u[sq_i] * u[sq_j]])  # + a², a·b2
+        agg[:4].add_((agg_coef * lhs[l_i] * agg[r_i]).view(4, 5, B).sum(1))
+        acc[2].addcmul_(u[0], acc[0])
+        acc[:2].add_(u)
+    am = acc[0][b.mapper]
+    e = e + am * q + (acc[2] - acc[1])[b.mapper]
+    return e, q + am, v_ext[:F]
+
+
+def sweep_V_factor(plan: DesignPlan, e, v, alpha, lam_col, mu_col, noise):
+    """One factor column's draws over every color of every table, its
+    factor sums q rebuilt from ``v`` first; returns (e, v)."""
+    g = plan.group_index
+    q = factor_q_single(plan, v)
+    for c in plan.main.colors + stack_colors(plan.main.color_stack):
+        e, q, v = _V_color_main(c, e, q, v, alpha, lam_col, mu_col, noise,
+                                g)
+    for b in plan.blocks:
+        for c in b.colors:
+            e, q, v = _V_color_block(b, c, e, q, v, alpha, lam_col, mu_col,
+                                     noise, g)
+        if b.color_stack is not None:
+            e, q, v = _V_block_stack(b, b.color_stack, e, q, v, alpha,
+                                     lam_col, mu_col, noise, g)
+    return e, v
+
+
+def sweep_V(plan: DesignPlan, e, V, alpha, lambda_V, mu_V, noise):
+    """Every factor's draws, factor after factor, given standard normals
+    ``noise`` [F, R] (column r for factor r).  Returns (V, e)."""
+    cols = []
+    for r in range(V.shape[1]):
+        e, v = sweep_V_factor(plan, e, V[:, r], alpha, lambda_V[:, r],
+                              mu_V[:, r], noise[:, r])
+        cols.append(v)
+    return (torch.stack(cols, dim=1) if cols else V), e
+
+
+# ---------------------------------------------------------------------------
+# Joint-row factor sweep (sweep_strategy="joint" with fit_linear=False)
+# ---------------------------------------------------------------------------
+#
+# Given every other weight the score is linear in feature j's factor row
+# V_j, so p(V_j | rest) is one R-dimensional Gaussian,
+#     A = α Σₙ xₙ²φₙφₙᵀ + diag(λ),   lin = α(S v_old − Σₙ xₙeₙφₙ) + λ∘μ,
+# with φₙ = qₙ − xₙ v_old: one pass over the colors draws whole rows (a
+# blocked Gibbs update of the same posterior).
+
+
+def _chol_mean_sample(S, rhs, lam, xi, alpha):
+    """mean = A⁻¹rhs plus L⁻ᵀξ for A = αS + diag(λ)
+    (``joint.solve_spd_sample``: the unrolled λ-floored solver up to
+    R = 32, batched ``torch.linalg`` beyond)."""
+    return solve_spd_sample(alpha * S + torch.diag_embed(lam), rhs, xi, lam)
+
+
+def _V_joint_color_main(c: ColorPlan, e, q, V, alpha, lam_g, mu_g, noise,
+                        group_index):
+    """Joint-row draw of a main-table color; q is the full [N, R]
+    factor-sum cache, V the [F, R] table."""
+    n_seg = c.feat.shape[0]
+    gidx = take(group_index, c.feat)
+    lam, mu = lam_g[gidx], mu_g[gidx]
+    v_old = take(V, c.feat)  # [Pf, R]
+    x = c.vals[:, None]
+    vo = take(v_old, c.seg)
+    phi = q[c.rows] - x * vo  # [Pe, R]
+    xphi = x * phi
+    S = _segsum(xphi[:, :, None] * phi[:, None, :] * x[:, :, None], c.seg,
+                n_seg)
+    # the rhs row by row, α·Σ xφ(xφ·v_old − e) + λμ: a rank-deficient S
+    # keeps its null components at relative precision in float32
+    resid = (xphi * vo).sum(dim=1) - e[c.rows]
+    r = _segsum(xphi * resid[:, None], c.seg, n_seg)
+    v_new = _chol_mean_sample(S, alpha * r + lam * mu, lam,
+                              take(noise, c.feat), alpha)
+    dseg = take(v_new - v_old, c.seg)
+    e = e.index_add(0, c.rows, (dseg * xphi).sum(dim=1))
+    q = q.index_add(0, c.rows, dseg * x)
+    return e, q, _scatter_rows(V, c.feat, v_new)
+
+
+def _block_joint_stats(b: BlockPlan, e, q):
+    """Per-block-row aggregates of the joint draw: E1 = Σe, Q1 = Σq,
+    EQ = Σeq, QQ = Σqqᵀ over the mapper."""
+    return (block_sum(e, b), block_sum(q, b), block_sum(e[:, None] * q, b),
+            block_sum(q[:, :, None] * q[:, None, :], b))
+
+
+def _V_joint_block_color(b: BlockPlan, c: ColorPlan, stats, V, alpha,
+                         lam_g, mu_g, noise, group_index):
+    """Joint-row draw of one block color from the block-row aggregates.
+    Within a color each block row carries at most one drawn feature
+    (value x); with v = V_j,
+        S_j = x²(QQ_m − x(v Q1ᵀ + Q1 vᵀ) + x² card v vᵀ),
+        t_j = x(EQ_m − x E1_m v).
+    Returns V and the per-block-row update coefficients (A [B, R],
+    b2 [B]) of e += q·A − b2, q += A, which the caller applies or folds
+    into carried aggregates."""
+    E1, Q1, EQ, QQ = stats
+    n_seg = c.feat.shape[0]
+    gidx = take(group_index, c.feat)
+    lam, mu = lam_g[gidx], mu_g[gidx]
+    v_old = take(V, c.feat)  # [Pf, R]
+    x = c.vals
+    m = c.rows.long()
+    vo = take(v_old, c.seg)
+    qm = Q1[m]
+    x3 = x[:, None, None]
+    S_e = x3 * x3 * (
+        QQ[m]
+        - x3 * (vo[:, :, None] * qm[:, None, :]
+                + qm[:, :, None] * vo[:, None, :])
+        + (x * x * b.cardinality[m])[:, None, None]
+        * vo[:, :, None] * vo[:, None, :]
+    )
+    t_e = x[:, None] * (EQ[m] - (x * E1[m])[:, None] * vo)
+    S = _segsum(S_e, c.seg, n_seg)
+    t = _segsum(t_e, c.seg, n_seg)
+    rhs = alpha * (torch.einsum("pfg,pg->pf", S, v_old) - t) + lam * mu
+    v_new = _chol_mean_sample(S, rhs, lam, take(noise, c.feat), alpha)
+    dseg = take(v_new - v_old, c.seg)
+    A = V.new_zeros(b.block_size, V.shape[1]).index_add_(
+        0, m, x[:, None] * dseg)
+    b2 = V.new_zeros(b.block_size).index_add_(
+        0, m, x * x * (vo * dseg).sum(dim=1))
+    return _scatter_rows(V, c.feat, v_new), A, b2
+
+
+def _update_joint_stats(stats, A, b2, card):
+    """The aggregates' exact recurrences under e += q·A − b2, q += A
+    (per block row; old values on every right-hand side)."""
+    E1, Q1, EQ, QQ = stats
+    QA = (Q1 * A).sum(dim=1)
+    E1n = E1 + QA - b2 * card
+    EQn = (
+        EQ
+        + torch.einsum("bfg,bg->bf", QQ, A)
+        + E1[:, None] * A
+        + QA[:, None] * A
+        - b2[:, None] * Q1
+        - (b2 * card)[:, None] * A
+    )
+    QQn = (
+        QQ
+        + A[:, :, None] * Q1[:, None, :]
+        + Q1[:, :, None] * A[:, None, :]
+        + card[:, None, None] * A[:, :, None] * A[:, None, :]
+    )
+    return E1n, Q1 + card[:, None] * A, EQn, QQn
+
+
+def _V_joint_block_stack(b: BlockPlan, stack: ColorStack, e, q, V, alpha,
+                         lam_g, mu_g, noise, group_index):
+    """The joint block draw folded over a ColorStack with O(B·R²)
+    aggregates per color (the vector analogue of ``_V_block_stack``);
+    the [n_rows] caches are rebuilt once after the loop,
+    e += q·Atot + (S − ΣB2)[mapper], where S accumulates the prefix
+    cross-terms Σₖ Aₖ·A_{<k}."""
+    card = b.cardinality
+    stats = _block_joint_stats(b, e, q)
+    At = e.new_zeros(b.block_size, V.shape[1])
+    St = e.new_zeros(b.block_size)
+    B2t = e.new_zeros(b.block_size)
+    for c in stack_colors(stack):
+        V, A, b2 = _V_joint_block_color(b, c, stats, V, alpha, lam_g, mu_g,
+                                        noise, group_index)
+        stats = _update_joint_stats(stats, A, b2, card)
+        St = St + (A * At).sum(dim=1)
+        At = At + A
+        B2t = B2t + b2
+    am = At[b.mapper]
+    e = e + (am * q).sum(dim=1) + (St - B2t)[b.mapper]
+    return e, q + am, V
+
+
+def sweep_V_joint(plan: DesignPlan, e, V, alpha, lambda_V, mu_V, noise):
+    """One pass over the colors drawing whole factor rows, given standard
+    normals ``noise`` [F, R].  Returns (V, e)."""
+    if V.shape[1] == 0:
+        return V, e
+    g = plan.group_index
+    q = factor_q(plan, V)  # [N, R]
+    for c in plan.main.colors + stack_colors(plan.main.color_stack):
+        e, q, V = _V_joint_color_main(c, e, q, V, alpha, lambda_V, mu_V,
+                                      noise, g)
+    for b in plan.blocks:
+        if b.colors:
+            stats = _block_joint_stats(b, e, q)
+            for c in b.colors:
+                V, A, b2 = _V_joint_block_color(b, c, stats, V, alpha,
+                                                lambda_V, mu_V, noise, g)
+                am = A[b.mapper]
+                e = e + (am * q).sum(dim=1) - b2[b.mapper]
+                q = q + am
+                stats = _update_joint_stats(stats, A, b2, b.cardinality)
+        if b.color_stack is not None:
+            e, q, V = _V_joint_block_stack(b, b.color_stack, e, q, V, alpha,
+                                           lambda_V, mu_V, noise, g)
+    return V, e
+
+
 
 
 def refresh_latent(score, y, state: GibbsState, cfg: GibbsConfig,
@@ -331,9 +751,6 @@ def refresh_e(plan, state: GibbsState, w0, w, V, y, cfg: GibbsConfig,
               u_latent=None, oprobit=None):
     """Recompute the residual from scratch on the row-space plan
     (``refresh_latent`` of its scores)."""
-    from .forward import predict_score
-
-    require_joint(cfg)
     return refresh_latent(predict_score(plan, w0, w, V), y, state, cfg,
                           u_latent, oprobit)
 
@@ -366,25 +783,45 @@ def draw_hypers(plan, state: GibbsState, variates: GibbsVariates,
 
 def gibbs_sweep(plan, state: GibbsState, y: torch.Tensor,
                 variates: GibbsVariates, cfg: GibbsConfig) -> GibbsState:
-    """One full Gibbs iteration (α → w0 → λ_w, μ_w → λ_V, μ_V → the
-    merged joint (w, V) pass → residual refresh: for the probit tasks
-    the latent targets' redraw, and for the ordered task the cutpoints'
-    MH step first), applying the given standard ``variates``.  α is 1
-    for the probit tasks.  The input state is not modified.
+    """One full Gibbs iteration, applying the given standard
+    ``variates``: α → w0 → (λ_w, μ_w) → (λ_V, μ_V) → the weights → the
+    residual refresh (for the probit tasks the latent targets' redraw,
+    and for the ordered task the cutpoints' MH step first).  α is 1 for
+    the probit tasks.  The input state is not modified.
+
+    The weights' pass follows the config as the TPU package's does: the
+    merged joint (w, V) pass (``joint_rows`` with ``fit_linear``);
+    ``sweep_V_joint`` (``joint_rows`` without); else the colored engine,
+    ``sweep_w`` (with ``fit_linear``) then ``sweep_V``.  ``noise``
+    column 0 drives w and columns 1..R the factors.  The TPU package
+    draws (λ_V, μ_V) after ``sweep_w``; they depend on V and μ_V alone,
+    which ``sweep_w`` leaves as they are, so drawing them first gives
+    the same chain.
 
     Both float32 fixes of the TPU package are kept: q is rebuilt from V
-    at every sweep, and e is re-forwarded at its end, so the drift of
-    the incrementally maintained caches cannot feed back into the
-    draws."""
+    at every sweep (per factor in ``sweep_V``), and e is re-forwarded at
+    its end, so the drift of the incrementally maintained caches cannot
+    feed back into the draws."""
     from .joint import sweep_joint_u
 
-    require_joint(cfg)
     h = draw_hypers(plan, state, variates, cfg)
-    w, V, _, _ = sweep_joint_u(
-        plan, h.e, h.w, h.V, h.alpha, h.lambda_w, h.mu_w, h.lambda_V,
-        h.mu_V, variates.noise, q=None,
-        tail_kernel=bool(cfg.joint_tail_kernel),
-    )
+    noise = variates.noise
+    w, e = h.w, h.e
+    merged = cfg.joint_rows and cfg.fit_linear
+    if cfg.fit_linear and not merged:
+        w, e = sweep_w(plan, e, w, h.alpha, h.lambda_w, h.mu_w, noise[:, 0])
+    if merged:
+        w, V, _, _ = sweep_joint_u(
+            plan, e, w, h.V, h.alpha, h.lambda_w, h.mu_w, h.lambda_V,
+            h.mu_V, noise, q=None,
+            tail_kernel=bool(cfg.joint_tail_kernel),
+        )
+    elif cfg.joint_rows:
+        V, e = sweep_V_joint(plan, e, h.V, h.alpha, h.lambda_V, h.mu_V,
+                             noise[:, 1:])
+    else:
+        V, e = sweep_V(plan, e, h.V, h.alpha, h.lambda_V, h.mu_V,
+                       noise[:, 1:])
     e, cutpoints, oprobit_alpha, n_mh_accept = refresh_e(
         plan, state, h.w0, w, V, y, cfg, variates.u_latent,
         variates.oprobit,

@@ -42,6 +42,14 @@ from .gibbs import (
     _segment_sum,
     std_normal,
 )
+from .rowspace import (
+    block_sum,
+    one_color,
+    seg_sum,
+    set_feat,
+    stack_colors,
+    term_index,
+)
 from .special import (
     mean_var_truncated_normal_left,
     mean_var_truncated_normal_right,
@@ -260,37 +268,6 @@ def _group_elbo_terms(plan, state: VIState, cfg: VariationalConfig, elbo):
 # ---------------------------------------------------------------------------
 
 
-def _seg(vals: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    """Segment sum into ``n`` slots; a pad slot id equal to ``n`` is
-    dropped, as JAX's ``segment_sum`` drops it."""
-    return vals.new_zeros(n + 1).index_add_(0, seg, vals)[:n]
-
-
-def _set_feat(a: torch.Tensor, feat: torch.Tensor,
-              vals: torch.Tensor) -> torch.Tensor:
-    """``a.at[feat].set(vals, mode="drop")``: pad ids (= len(a)) write a
-    scratch row that is cut off."""
-    out = torch.cat([a, a.new_zeros(1)])
-    out[feat] = vals
-    return out[:-1]
-
-
-def _stack_colors(stack: Optional[ColorStack]):
-    """The colors of a ColorStack, one ColorPlan each (views)."""
-    if stack is None:
-        return ()
-    return tuple(
-        ColorPlan(stack.rows[i], stack.vals[i], stack.seg[i],
-                  stack.feat[i], stack.sx2[i])
-        for i in range(stack.rows.shape[0])
-    )
-
-
-def _block_sum(x: torch.Tensor, b: BlockPlan) -> torch.Tensor:
-    """Σ of a per-row vector over each block row's members."""
-    return _segment_sum(x, b.mapper, b.block_size)
-
-
 def _row_cache(plan: DesignPlan, fn):
     """Σ over entries of fn(x, col) per original row, blocks gathered."""
 
@@ -356,27 +333,21 @@ def _w_step(c: ColorPlan, xe, w, w_var, alpha, lam_col, mu_col, g):
     quad = alpha * c.sx2 + lam
     lin = alpha * (c.sx2 * w_old - xe) + lam * mu
     w_new = lin / quad
-    return (_set_feat(w, c.feat, w_new), _set_feat(w_var, c.feat, 1.0 / quad),
+    return (set_feat(w, c.feat, w_new), set_feat(w_var, c.feat, 1.0 / quad),
             w_new - w_old)
 
 
 def _vi_w_color_main(c: ColorPlan, e, w, w_var, alpha, lam_col, mu_col, g):
-    xe = _seg(c.vals * e[c.rows], c.seg, c.feat.shape[0])
+    xe = seg_sum(c.vals * e[c.rows], c.seg, c.feat.shape[0])
     w, w_var, delta = _w_step(c, xe, w, w_var, alpha, lam_col, mu_col, g)
     e = e.index_add(0, c.rows, take(delta, c.seg) * c.vals)
     return e, w, w_var
 
 
-def _one_color(c: ColorPlan) -> ColorStack:
-    """A ColorStack holding the single color ``c``."""
-    return ColorStack(c.rows[None], c.vals[None], c.seg[None],
-                      c.feat[None], c.sx2[None])
-
-
 def _vi_w_color_block(b: BlockPlan, c: ColorPlan, e, w, w_var, alpha,
                       lam_col, mu_col, g):
     """One block color's step: the stack fold over that color alone."""
-    return _vi_w_block_stack(b, _one_color(c), e, w, w_var, alpha, lam_col,
+    return _vi_w_block_stack(b, one_color(c), e, w, w_var, alpha, lam_col,
                              mu_col, g)
 
 
@@ -387,10 +358,10 @@ def _vi_w_block_stack(b: BlockPlan, stack: ColorStack, e, w, w_var, alpha,
     per-block-row sum e1, which evolves as e1 += cardinality · dxb; the
     [n_rows] residual is touched once after the loop."""
     card = b.cardinality
-    e1 = _block_sum(e, b)
+    e1 = block_sum(e, b)
     acc = e.new_zeros(b.block_size)
-    for c in _stack_colors(stack):
-        xe = _seg(c.vals * e1[c.rows], c.seg, c.feat.shape[0])
+    for c in stack_colors(stack):
+        xe = seg_sum(c.vals * e1[c.rows], c.seg, c.feat.shape[0])
         w, w_var, delta = _w_step(c, xe, w, w_var, alpha, lam_col, mu_col,
                                   g)
         dxb = e.new_zeros(b.block_size).index_add_(
@@ -403,7 +374,7 @@ def _vi_w_block_stack(b: BlockPlan, stack: ColorStack, e, w, w_var, alpha,
 def vi_sweep_w(plan: DesignPlan, e, w, w_var, alpha, lambda_w, mu_w):
     """Every linear weight's CAVI step, color by color."""
     g = plan.group_index
-    for c in plan.main.colors + _stack_colors(plan.main.color_stack):
+    for c in plan.main.colors + stack_colors(plan.main.color_stack):
         e, w, w_var = _vi_w_color_main(c, e, w, w_var, alpha, lambda_w,
                                        mu_w, g)
     for b in plan.blocks:
@@ -432,7 +403,7 @@ def _V_solve(c: ColorPlan, S_h2, S_eh, S_qv, S_lcv, vo_f, v, s, alpha,
     lin = alpha * (-S_eh + S_h2 * vo_f - S_lcv) + lam * mu
     vn_f = lin / quad
     sn_f = 1.0 / quad
-    return (_set_feat(v, c.feat, vn_f), _set_feat(s, c.feat, sn_f), vn_f,
+    return (set_feat(v, c.feat, vn_f), set_feat(s, c.feat, sn_f), vn_f,
             sn_f)
 
 
@@ -452,8 +423,10 @@ def _vi_V_color_main(c: ColorPlan, carry, alpha, lam_col, mu_col, g):
     x2e = x2s[c.rows] - x2 * so  # exclude own variance
     x3e = x3sv[c.rows] - x2 * x * so * vo
     v, s, vn_f, sn_f = _V_solve(
-        c, _seg(h * h, c.seg, n_seg), _seg(e[c.rows] * h, c.seg, n_seg),
-        _seg(x2 * x2e, c.seg, n_seg), _seg(h * x2e - x * x3e, c.seg, n_seg),
+        c, seg_sum(h * h, c.seg, n_seg),
+        seg_sum(e[c.rows] * h, c.seg, n_seg),
+        seg_sum(x2 * x2e, c.seg, n_seg),
+        seg_sum(h * x2e - x * x3e, c.seg, n_seg),
         vo_f, v, s, alpha, lam_col, mu_col, g,
     )
     dseg = take(vn_f - vo_f, c.seg)
@@ -469,16 +442,16 @@ def _vi_V_color_main(c: ColorPlan, carry, alpha, lam_col, mu_col, g):
 def _block_aggregates(b: BlockPlan, e, q, x2s, x3sv):
     """The seven per-block-row aggregates a block color reads:
     (E1, Q1, Q2, EQ, X2S1, QX2S, X3SV1)."""
-    return (_block_sum(e, b), _block_sum(q, b), _block_sum(q * q, b),
-            _block_sum(e * q, b), _block_sum(x2s, b),
-            _block_sum(q * x2s, b), _block_sum(x3sv, b))
+    return (block_sum(e, b), block_sum(q, b), block_sum(q * q, b),
+            block_sum(e * q, b), block_sum(x2s, b),
+            block_sum(q * x2s, b), block_sum(x3sv, b))
 
 
 def _vi_V_color_block(b: BlockPlan, c: ColorPlan, carry, alpha, lam_col,
                       mu_col, g):
     """One block color's step: the stack fold over that color alone
     (its caches updated through the mapper once)."""
-    return _vi_V_block_stack(b, _one_color(c), carry, alpha, lam_col,
+    return _vi_V_block_stack(b, one_color(c), carry, alpha, lam_col,
                              mu_col, g)
 
 
@@ -521,16 +494,6 @@ _AGG_TERMS = (
 )
 
 
-def _term_index(terms, width, device):
-    """(index tensors per term field, coefficients) of a term table, pad
-    terms as index 0 with coefficient 0."""
-    full = [t if t is not None else (0,) * (width - 1) + (0.0,)
-            for t in terms]
-    idx = [torch.tensor([t[k] for t in full], device=device)
-           for k in range(width - 1)]
-    return idx, [t[-1] for t in full]
-
-
 def _vi_V_block_stack(b: BlockPlan, stack: ColorStack, carry, alpha,
                       lam_col, mu_col, g):
     """The block colors of ``stack`` in order, in O(block_size) per
@@ -557,10 +520,10 @@ def _vi_V_block_stack(b: BlockPlan, stack: ColorStack, carry, alpha,
     x = stack.vals
     x2 = x * x
     xpow = torch.stack([x, x2, x2 * x, x2 * x2], dim=1)  # [C, 4, Pe]
-    (agg_i, pow_i, dyn_i), coef = _term_index(_S_TERMS, 4, dev)
+    (agg_i, pow_i, dyn_i), coef = term_index(_S_TERMS, 4, dev)
     S_coef = torch.tensor(coef, dtype=dt, device=dev)[:, None]
     xterm = xpow[:, pow_i] * S_coef  # [C, 20, Pe]
-    (l_i, r_i), coef = _term_index(_AGG_TERMS, 3, dev)
+    (l_i, r_i), coef = term_index(_AGG_TERMS, 3, dev)
     A_coef = torch.tensor(coef, dtype=dt, device=dev)[:, None]
     sq_i = torch.tensor([0, 0, 0], device=dev)
     sq_j = torch.tensor([0, 1, 2], device=dev)
@@ -614,7 +577,7 @@ def vi_V_factor(plan: DesignPlan, e, v_col, s_col, alpha, lam_r, mu_r):
         plan, lambda x, col: x * x * x * take(s_col, col) * take(v_col, col)
     )
     carry = (e, q, x2s, x3sv, v_col, s_col)
-    for c in plan.main.colors + _stack_colors(plan.main.color_stack):
+    for c in plan.main.colors + stack_colors(plan.main.color_stack):
         carry = _vi_V_color_main(c, carry, alpha, lam_r, mu_r, g)
     for b in plan.blocks:
         for c in b.colors:

@@ -1,4 +1,4 @@
-"""Training loops driving the categorical and the joint Gibbs sweeps.
+"""Training loops driving the categorical, joint and colored Gibbs sweeps.
 
 PyTorch counterpart of ``myfm_tpu/trainer.py`` (``run_mcmc_loop``,
 ``GibbsTrainer``, ``CategoricalGibbsTrainer``, ``LazyFMView``,
@@ -39,7 +39,6 @@ from .ops.gibbs import (
     draw_gibbs_variates,
     gibbs_sweep,
     init_state,
-    require_joint,
 )
 from .ops.oprobit import initialize_oprobit_core
 from .ops.special import uniform_open
@@ -248,10 +247,11 @@ def _init_uniforms(trainer) -> torch.Tensor:
 
 
 class GibbsTrainer:
-    """Gibbs trainer on a compiled row-space design (design.DesignPlan).
-    This port runs the merged joint engine; a config that resolves to
-    the colored engine raises.  Runs on the plan's device; one
-    ``torch.Generator`` seeded with ``random_seed`` drives the chain."""
+    """Gibbs trainer on a compiled row-space design (design.DesignPlan):
+    the joint engine (``cfg.joint_rows``: merged (w, V) rows, or factor
+    rows alone without the linear terms) or the colored engine.  Runs on
+    the plan's device; one ``torch.Generator`` seeded with
+    ``random_seed`` drives the chain."""
 
     def __init__(
         self,
@@ -263,9 +263,11 @@ class GibbsTrainer:
         random_seed: int,
         dtype=np.float32,
     ):
-        require_joint(cfg)
         self.plan = plan
-        self.cfg = _resolve_joint_tail(cfg, plan, rank)
+        # as in the TPU package, only the joint engine resolves its tail
+        # (which sweep_V_joint, without linear terms, never launches)
+        self.cfg = (_resolve_joint_tail(cfg, plan, rank) if cfg.joint_rows
+                    else cfg)
         self.rank = rank
         self.init_stdev = init_stdev
         self.random_seed = random_seed

@@ -121,15 +121,16 @@ def test_short_chain_side_features_raise(tiny_timesvdpp):
     assert np.isfinite(fm.predict(X, blocks)).all()
 
 
-@pytest.mark.parametrize("strategy,error", [
-    ("colored", NotImplementedError),
-    ("serial", NotImplementedError),
-])
-def test_unported_engines_raise(strategy, error):
+@pytest.mark.parametrize("strategy", ["colored", "serial"])
+def test_unported_engines_raise(strategy):
+    """The colored engine is ported now (it raised before; the name is
+    kept): both strategies fit on it and predict finite values."""
     X, y, shapes = _onehot_problem(n_rows=100)
     fm = MyFMGibbsRegressor(rank=2, sweep_strategy=strategy, device="cpu")
-    with pytest.raises(error, match="later slice"):
-        fm.fit(X, y, n_iter=2, group_shapes=shapes)
+    fm.fit(X, y, n_iter=2, group_shapes=shapes)
+    assert fm.history_.engine == "colored"
+    pred = fm.predict(X)
+    assert pred.shape == y.shape and np.isfinite(pred).all()
 
 
 def test_categorical_strategy_on_non_onehot_design_raises():

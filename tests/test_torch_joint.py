@@ -305,14 +305,57 @@ def test_three_gibbs_sweeps_match_jax(with_main, joint_dense):
             close(getattr(ts, f), getattr(st, f), name=f"{it}:{f}")
 
 
+def colored_noise(key, F, rank, joint_rows):
+    """The port's [F, R+1] noise for JAX's colored or joint-row sweep
+    from its gibbs_sweep key: column 0 ``sweep_w``'s (F,) normals from
+    k_w, then ``sweep_V``'s one (F,) array per factor from the splits of
+    k_v, or ``sweep_V_joint``'s (F, R) from k_v."""
+    keys = jax.random.split(key, 9)
+    k_w, k_v = keys[4], keys[7]
+    cols = [jax.random.normal(k_w, (F,), jnp.float64)[:, None]]
+    if joint_rows:
+        cols.append(jax.random.normal(k_v, (F, rank), jnp.float64))
+    else:
+        cols += [jax.random.normal(k, (F,), jnp.float64)[:, None]
+                 for k in jax.random.split(k_v, rank)]
+    return T(jnp.concatenate(cols, axis=1))
+
+
 def test_non_joint_sweeps_raise():
-    _, tp, rng = relational_plan()
-    st = tgibbs.GibbsState(*[None] * 9)
-    for cfg in (tgibbs.GibbsConfig(joint_rows=False),
-                tgibbs.GibbsConfig(joint_rows=True, fit_linear=False)):
-        with pytest.raises(NotImplementedError, match="colored engine"):
-            tgibbs.gibbs_sweep(tp, st, None, None, cfg)
-    # the probit tasks run on the joint engine; off it they raise too
-    with pytest.raises(NotImplementedError, match="colored engine"):
-        tgibbs.gibbs_sweep(tp, st, None, None, tgibbs.GibbsConfig(
-            task="classification", joint_rows=False))
+    """The three configs off the merged joint pass raised before the
+    colored engine was ported (the name is kept); each is now two
+    chained sweeps against JAX's on the timeSVD++-shaped plan: the
+    colored engine, joint rows without the linear terms, and the
+    colored engine for the probit classifier."""
+    from .test_torch_probit_sweep import _targets, jax_latent_variates
+
+    jp, tp, rng = relational_plan()
+    R = 3
+    fields = ("w0", "w", "V", "e", "alpha", "lambda_w", "mu_w", "lambda_V",
+              "mu_V")
+    for task, kw in (("regression", dict(joint_rows=False)),
+                     ("regression", dict(joint_rows=True, fit_linear=False)),
+                     ("classification", dict(joint_rows=False))):
+        jcfg = jgibbs.GibbsConfig(task=task, **kw)
+        tcfg = tgibbs.GibbsConfig(task=task, **kw)
+        y = (rng.normal(size=tp.n_rows) if task == "regression"
+             else _targets(task, 0.5 * rng.normal(size=tp.n_rows), rng))
+        key = jax.random.PRNGKey(2)
+        st = jgibbs.init_state(jp, R, 0.1, key, jcfg, np.float64)
+        st = dataclasses.replace(
+            st, e=jax_score(jp, st.w0, st.w, st.V) - jnp.asarray(y))
+        ts = state_from_numpy(st, "cpu")
+        sweep = jax.jit(jgibbs.gibbs_sweep, static_argnums=(4,))
+        for it in range(2):
+            k = jax.random.fold_in(key, it)
+            st = sweep(jp, st, jnp.asarray(y), k, jcfg)
+            v = jax_sweep_variates(k, jp, R, jcfg)
+            v.noise = colored_noise(k, tp.n_features, R, jcfg.joint_rows)
+            if task == "classification":
+                v.gamma_alpha = None
+                v.u_latent, _ = jax_latent_variates(
+                    jax.random.split(k, 9)[8], task, tp.n_rows)
+            ts = tgibbs.gibbs_sweep(tp, ts, T(y), v, tcfg)
+            for f in fields:
+                close(getattr(ts, f), getattr(st, f),
+                      name=f"{task} {kw} {it}:{f}")
