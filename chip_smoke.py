@@ -14,7 +14,7 @@ holds every CUDA kernel of each against its plain PyTorch version:
   blocks of one-hot ids plus N-hot implicit columns), rank 10, 200
   sweeps, which "auto" resolves to the joint engine;
 * variational inference (``VariationalFMRegressor``) on the same ML-100k
-  design at rank 10, 10 sweeps, which "auto" resolves to the fast path
+  design at rank 10, 5 sweeps, which "auto" resolves to the fast path
   with entity+attribute tables (kernel 2 and kernel 1's VI layout), and
   on the ML-10M-shaped design at rank 32, 3 sweeps (kernel 1's VI
   layout); ``VariationalFMClassifier`` (rating >= 4) on the ML-10M-shaped
@@ -40,7 +40,17 @@ holds every CUDA kernel of each against its plain PyTorch version:
   ``fit_linear=False``);
 * kernel 3 (``tile_gram``) through its entry point ``entity_grams``, and
   kernels 5 and 6 (kernel 1 section by section, and its (slot, τ) load)
-  through ``myfm_tpu_torch.tools.kernel_sections``, on the ML-10M plan.
+  through ``myfm_tpu_torch.tools.kernel_sections``, on the ML-10M plan;
+* the Gram modes of kernels 1, 2 and 5: "auto" on the card resolves
+  float32 to "split" (three bf16 tensor-core products per Gram entry)
+  everywhere below rank 64 and to "bf16" (one) at rank >= 64, after each
+  mode's self-check on the card; every fast-path fit asserts its
+  resolved mode and that kernel 1 (and 2) launched in it alone, and
+  every kernel-vs-plain comparison of kernels 1, 2 and 5 runs IEEE (fp32
+  and fp64), "split" and "bf16" (fp32);
+* rank 128 on the ML-10M design (the reference's flagship,
+  ``bench.py`` ``_bench_rank128``): kernel 1 in each mode at its shapes,
+  and ``MyFMGibbsRegressor(rank=128)``, which "auto" runs in "bf16".
 
 Phases, one line each:
 
@@ -48,21 +58,32 @@ Phases, one line each:
   build     nvcc builds every kernel from csrc/ (in parallel)
   data      the synthetic design and its fast-path plan
   kernel    fused_tile_gram_cross, kernel vs plain, at each table's
-            first chunk of tiles (the main path's shapes), fp32 + fp64
+            first chunk of tiles (the main path's shapes), fp32 + fp64,
+            then under "modes" in "split" and "bf16" (fp32; kernel vs
+            plain in the same mode within KERNEL_TOL, and ``vs_ieee``
+            within the self-check's gate)
   sweep     one categorical_sweep through the kernel vs one through
-            the plain version, same state and variates
+            the plain version, same state and variates, in each mode
   egram     tile_gram (kernel 3) on the z rows of each table's first
             chunk: kernel vs plain (fp32 + fp64) and vs kernel 1's Gram
             of the same tiles; then entity_grams over every tile of each
             table against the sweep's own per-entity Grams (kernel 1)
   sections  kernel 1 at levels 0-3 on the user table's first chunk (ms
             and ns/row per level, level 3 bit-equal to the production
-            kernel), and the (slot, τ) probe bit-equal to
+            kernel), IEEE at every level and "split" / "bf16" at levels
+            1-3, and the (slot, τ) probe bit-equal to
             transpose(1, 2).contiguous() on that chunk's aux2 and on the
             TPU probe's [4, 2, 256]
+  modes     the self-check of "split" and "bf16" on the card (run first,
+            right after the build; both must pass), then per mode kernel
+            1's errors, ms, yardstick and bound summed over the ML-10M
+            first chunks and kernel 5's levels (the ML-100k plans' mode
+            rows are in the vkernel and eakernel lines)
   osweep    one ordered-probit categorical_sweep through kernel 1 vs one
-            through the plain version, same state and variates
-  fit       the estimator; the kernel's launch counter must rise
+            through the plain version, same state and variates, in each
+            mode
+  fit       the estimator; the kernel's launch counter must rise, all
+            in "split", the mode "auto" resolved (history_)
   predict   held-out RMSE, below std(y_test)
   ofit      MyFMOrderedProbit(rank=32) on ratings 1..5 as classes 0..4,
             6 sweeps; "auto" must resolve to the fast path, kernel 1 must
@@ -71,6 +92,17 @@ Phases, one line each:
             class-frequency predictor's
   cfit      MyFMGibbsClassifier(rank=32) on rating >= 4, 6 sweeps
   cpredict  held-out log-loss below the base rate's; accuracy, AUC
+  r128data  the same design compiled at rank 128 (D = 130): (B, K, T, S)
+            and chunk tiles per table, plan time; the fast-path gate
+            must accept it
+  r128kernel kernel 1 vs plain at each table's first chunk at rank 128,
+            IEEE (fp32 + fp64, with device ms), "split" and "bf16"
+  r128fit   the trainer on that plan with gram_fast_matmul=False for
+            R128_IEEE_ITER sweeps (the IEEE sweep time), then
+            MyFMGibbsRegressor(rank=128) through "auto": "fastpath",
+            "bf16", kernel 1 launched in bf16 alone; one warm-up and
+            three timed sweeps, time to first sweep, peak memory
+  r128predict held-out RMSE below std(y_test)
   jdata     the ML-100k timeSVD++-flipped design and its joint plan:
             (B, C, Pf) of each block's tail, compile time
   jkernel   joint_tail_pass, kernel vs plain, on each block's real tail
@@ -80,7 +112,8 @@ Phases, one line each:
             plain version on each tail's segb
   jsweep    one gibbs_sweep with the tail kernel vs one with the plain
             tail, same state and variates, deterministic torch ops
-  jfit      the estimator through "auto"; must resolve to "joint" and
+  jfit      the estimator through "auto" (n_iter 200, stopped by its
+            callback after J_FIT_SWEEPS); must resolve to "joint" and
             launch the tail kernel
   jpredict  held-out RMSE through serving (entity space, with the side
             tables), below std(y_test)
@@ -95,7 +128,7 @@ Phases, one line each:
             result than twice the plain fp32 version), with its µs per
             color, its two kernels' device ms and the plain time
   eafit     MyFMGibbsRegressor(rank=10) through "auto", 20 sweeps; must
-            resolve to "fastpath" and launch kernels 1 and 4
+            resolve to "fastpath" and launch kernels 1 (in "split") and 4
   eapredict held-out RMSE below std(y_test), served by the entity-space
             plan (its scorer's calls counted) and equal to the row-space
             scorer's mean of the same samples
@@ -107,16 +140,18 @@ Phases, one line each:
   vkernel   fused_tile_gram (each EA table, all its tiles) and
             fused_tile_gram_cross in its VI layout (each one-hot table's
             first chunk), kernel vs plain on the initial state's operands,
-            fp32 + fp64
+            fp32 + fp64, and "split" / "bf16" as in the kernel phase
   vsweep    one categorical_vi_sweep through the kernels vs one through
-            the plain versions, same state
+            the plain versions, same state, in IEEE and "split" (the VI
+            paths' modes); both against one float64 IEEE plain sweep
   vcsweep   the same for the classification task (rating >= 4), one
-            sweep in, so both kernels carry latent means τ
+            sweep in, so both kernels carry latent means τ; in "split",
+            the mode its fits run
   vsections where one VI sweep's time goes, section by section, and the
             device operations of one entity+attribute color step
   vfit      VariationalFMRegressor(rank=10) through "auto"; must resolve
-            to "fastpath", launch both kernels, and keep the ELBO from
-            decreasing
+            to "fastpath", launch both kernels (in "split"), and keep the
+            ELBO from decreasing
   vpredict  held-out RMSE of the VI fit, below std(y_test)
   v10m      the ML-10M-shaped design through VariationalFMRegressor
             (rank 32, 3 sweeps) -> predict; kernel 1's VI layout vs plain
@@ -132,7 +167,8 @@ Phases, one line each:
             VariationalFMRegressor and VariationalFMClassifier (rating
             >= 4) with sweep_strategy="colored", each stopped by its
             callback once VR_FIT_S seconds have passed (s/sweep from its
-            own sweeps): each must resolve to "colored" and keep the
+            own sweeps, or its one sweep's time where one sweep outlasts
+            half the budget): each must resolve to "colored" and keep the
             ELBO check; RMSE below std(y_test), log-loss below the base
             rate's
   gcsweep   one colored gibbs_sweep on the ML-100k design in fp32
@@ -158,10 +194,12 @@ The kernels line gives, for every kernel, its launches in its path's
 fit, its largest fp32 error against the plain version, its fp32 time,
 the plain version's time, the least time the card could take for the
 same work (the larger of the bytes it must move over 3.35 TB/s and its
-fp32 operations over 67 TFLOP/s, the H100 SXM's published peaks) and
-which of the two bounds it, and the time of the one PyTorch call that
-computes the same function where there is one (the torch.bmm of the
-slot-masked operand for the Gram kernels and section levels 1-3,
+operations: fp32 over 67 TFLOP/s, the Gram's bf16 products in "split" /
+"bf16" over 989 TFLOP/s, the H100 SXM's published peaks) and which of
+the two bounds it, and the time of the one PyTorch call that computes
+the same function where there is one (the torch.bmm of the
+slot-masked operand for the Gram kernels and section levels 1-3; in
+"bf16" the bf16 torch.bmm, in "split" the sum of three of them,
 transpose(1, 2).contiguous() for the probe; none for the joint tail, a
 chain of ~1k dependent colors, for its prep kernel's lists (a stable sort
 gives the grouped rows but not the live slots and their starts), nor for
@@ -174,7 +212,12 @@ summed over the tables (or block tails) of the path, at their first
 chunk; ``fused_tile_gram_cross[vi]`` is kernel 1's VI layout on the
 ML-100k design and ``fused_tile_gram_cross[vi10m]`` the same at the
 ML-10M shape (v10m), ``fused_tile_gram_cross[vic10m]`` the same as
-the VI classifier launches it (vcfit10m).  The phase lines of the Gram
+the VI classifier launches it (vcfit10m).  ``mode`` names the Gram mode
+whose numbers an entry gives (the mode its path ran: "split" for the
+rank-32 and VI paths, "bf16" for ``[r128]``; ``[r128 highest]`` is the
+IEEE run beside it), ``launches_by_mode`` the path's launches by mode,
+and ``gram_section[L mode]`` kernel 5's level L in that mode.  The phase
+lines of the Gram
 kernels also give
 ``device_ms``, one call's device time by torch.profiler (the median
 duration of each of its kernels; pass 1 and the carry apart), beside
@@ -199,11 +242,18 @@ SEED = 0
 RANK = 32
 N_ITER = 6  # < 200, so "auto" keeps the fast path
 N_KEPT = 3
+R128_RANK = 128  # the reference's flagship rank (bench.py _bench_rank128)
+R128_N_ITER = 4  # one warm-up sweep, three timed
+R128_IEEE_ITER = 2
 TEST_SHARE = 0.1
 # |kernel − plain| over max|plain| of each Gram chunk: the two sum up to
 # ~10^4 rows per carried chain in different orders (3e-7 in fp32 and
 # 1.4e-15 in fp64 measured on an H100 at these shapes)
 KERNEL_TOL = {"float32": 1e-5, "float64": 1e-12}
+# the reduced Gram modes of kernels 1, 2 and 5 (fp32 only), held against
+# their plain versions in the same mode and against IEEE
+REDUCED_MODES = ("split", "bf16")
+ALL_MODES = ("highest",) + REDUCED_MODES
 # one fp32 sweep, kernel vs plain: the Gram differences above flow
 # through the draws (max |Δw|, |ΔV| measured 3e-5 on O(1) weights) and
 # the exact moment algebra (Σe, Σe² measured 1e-7 to 2e-6 of their
@@ -230,6 +280,7 @@ OSWEEP_CUT_TOL = 1e-3
 
 J_RANK = 10
 J_N_ITER = 200  # >= 200 at <= 500k rows: "auto" prefers the joint engine
+J_FIT_SWEEPS = 30  # jfit's callback stops it there (the smoke's time)
 J_FEATURES = "timesvdpp_flipped"
 # |kernel − plain| over max|plain| of each tail's outputs (G, Atot, Ct,
 # u_new) after ~1k chained colors; fp32 is loose because the Gram-
@@ -256,7 +307,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 
 V_RANK = 10
-V_N_ITER = 10  # cut from 20 for the row-space phase (vrfit)
+V_N_ITER = 5  # cut from the cell's 20 for the smoke's time
 V10M_RANK = 32
 V10M_N_ITER = 3
 # |kernel − plain| over max|plain| of each VI Gram chunk (the same sums
@@ -277,8 +328,8 @@ ELBO_DROP_TOL = 1e-5
 # row-space CAVI (vrfit): each fit stops after the sweep that would take
 # it past VR_FIT_S seconds at its own rate, after VR_MIN_ITER sweeps at
 # least and VR_MAX_ITER at most
-VR_FIT_S = 30.0
-VR_MIN_ITER = 2
+VR_FIT_S = 20.0
+VR_MIN_ITER = 1
 VR_MAX_ITER = 20
 # the colored Gibbs engine on the ML-100k design (gcsweep): one fp32
 # colored sweep against the same sweep in fp64, both on the card, from
@@ -289,8 +340,8 @@ GCSWEEP_TOL = 1e-3
 # the colored fits (gcfit, gcofit) stop as vrfit's do, after GC_MIN_ITER
 # sweeps at least; the joint-row fit without linear terms (gjvfit) after
 # GJV_MAX_ITER sweeps or GJV_FIT_S seconds, whichever comes first
-GC_FIT_S = 30.0
-GC_MIN_ITER = 2
+GC_FIT_S = 20.0
+GC_MIN_ITER = 1
 GC_MAX_ITER = 20
 GJV_FIT_S = 20.0
 GJV_MAX_ITER = 5
@@ -332,9 +383,9 @@ def nbytes(*tensors):
 
 
 def compare_gram(torch, kernel, plain, rows_of, ops, S, kw, tol, label,
-                 row_ops=4):
-    """One Gram kernel vs its plain version on ``ops`` in fp32 and fp64
-    (max error over max |plain|, at most ``tol``), then fp32 times
+                 row_ops=4, modes=REDUCED_MODES):
+    """One Gram kernel vs its plain version on ``ops`` in IEEE fp32 and
+    fp64 (max error over max |plain|, at most ``tol``), then fp32 times
     (``tools.vi_gram.time_kernel``): the kernel by CUDA events (``ms``,
     the wrapper's host work included) and by the profiler's kernel
     durations (``device_ms``: pass 1 and the carry apart; None, with the
@@ -342,7 +393,12 @@ def compare_gram(torch, kernel, plain, rows_of, ops, S, kw, tol, label,
     the one-call yardstick (torch.bmm of the prebuilt slot-masked
     operand), the bound of the kernel's work on this chunk's rows
     (``row_ops`` D operations per row to build it); and the plain
-    version's time."""
+    version's time.  Then, under ``modes[mode]``, the same in each
+    reduced Gram mode in fp32 (kernel vs plain in that mode within
+    KERNEL_TOL; ``vs_ieee``, the kernel's distance from its IEEE output,
+    within the self-check's gate; the yardstick the bf16 torch.bmm, three
+    summed for "split"; no profiler)."""
+    from myfm_tpu_torch.ops import gram
     from myfm_tpu_torch.tools.vi_gram import (cast, check, device_ms,
                                               time_kernel)
 
@@ -357,6 +413,27 @@ def compare_gram(torch, kernel, plain, rows_of, ops, S, kw, tol, label,
     except RuntimeError as exc:
         row.update(device_ms=None, device_ms_error=str(exc))
     row["plain_ms"] = cuda_ms(torch, lambda: plain(*o, S, **kw), 3)
+    if modes:
+        ieee, _ = kernel(*o, S, **kw)
+        row["modes"] = {}
+    for mode in modes:
+        mkw = dict(kw, fast_matmul=mode)
+        try:
+            m = check(kernel, plain, ops, S, mkw,
+                      {"float32": tol["float32"]})
+        except AssertionError as exc:
+            fail(f"{label}, {mode}: {exc}")
+        out, _ = kernel(*o, S, **mkw)
+        torch.cuda.synchronize()
+        m["vs_ieee"] = float((out - ieee).abs().max()) / max(
+            float(ieee.abs().max()), 1.0)
+        if not m["vs_ieee"] <= gram.SELFCHECK_TOL[mode]:
+            fail(f"{label}, {mode}: {m['vs_ieee']:.3e} of scale from IEEE "
+                 f"(gate {gram.SELFCHECK_TOL[mode]:.0e})")
+        m.update(time_kernel(kernel, rows_of, o, S, mkw, row_ops))
+        m["plain_ms"] = cuda_ms(torch, lambda: plain(*o, S, **mkw), 1)
+        row["modes"][mode] = m
+        del out
     return row
 
 
@@ -418,7 +495,10 @@ def kernel_phase(torch, plan, state, y_tiles, label="kernel"):
 
 
 def sweep_phase(torch, plan, trainer, state):
-    """One sweep through the kernel vs one through the plain version."""
+    """One sweep through the kernel vs one through the plain version, in
+    each Gram mode, same state and variates (per mode)."""
+    import dataclasses
+
     from myfm_tpu_torch.ops.categorical import (
         categorical_sweep,
         draw_sweep_variates,
@@ -426,33 +506,39 @@ def sweep_phase(torch, plan, trainer, state):
 
     v = draw_sweep_variates(plan, trainer.cfg, RANK, trainer.generator,
                             torch.float32, trainer.device)
-    args = (plan, state, trainer.y, trainer.y_tiles, v, trainer.cfg)
-    t0 = time.perf_counter()
-    a = categorical_sweep(*args)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    b = categorical_sweep(*args, plain=True)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    res = dict(kernel_s=t1 - t0, plain_s=t2 - t1)
-    for f in ("w", "V"):
-        x, z = getattr(a.core, f), getattr(b.core, f)
-        if not bool(torch.isfinite(x).all()):
-            fail(f"sweep: non-finite {f}")
-        res[f"d{f}"] = float((x - z).abs().max())
-        if res[f"d{f}"] > SWEEP_WEIGHT_TOL:
-            fail(f"sweep: max |Δ{f}| {res[f'd{f}']:.3e} > "
-                 f"{SWEEP_WEIGHT_TOL:.0e}")
-    n = plan.n_rows
-    e2 = float(b.sum_e2)
-    res["dsum_e"] = abs(float(a.sum_e) - float(b.sum_e))
-    res["dsum_e2"] = abs(float(a.sum_e2) - e2)
-    if res["dsum_e"] > SWEEP_MOMENT_TOL * (n * e2) ** 0.5:
-        fail(f"sweep: |Δ sum_e| {res['dsum_e']:.3e} over scale "
-             f"{(n * e2) ** 0.5:.3e}")
-    if res["dsum_e2"] > SWEEP_MOMENT_TOL * e2:
-        fail(f"sweep: |Δ sum_e2| {res['dsum_e2']:.3e} over {e2:.3e}")
-    return res
+    out = {}
+    for mode in ALL_MODES:
+        cfg = dataclasses.replace(trainer.cfg, gram_fast_matmul=mode)
+        args = (plan, state, trainer.y, trainer.y_tiles, v, cfg)
+        t0 = time.perf_counter()
+        a = categorical_sweep(*args)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        b = categorical_sweep(*args, plain=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        res = dict(kernel_s=t1 - t0, plain_s=t2 - t1)
+        for f in ("w", "V"):
+            x, z = getattr(a.core, f), getattr(b.core, f)
+            if not bool(torch.isfinite(x).all()):
+                fail(f"sweep ({mode}): non-finite {f}")
+            res[f"d{f}"] = float((x - z).abs().max())
+            if res[f"d{f}"] > SWEEP_WEIGHT_TOL:
+                fail(f"sweep ({mode}): max |Δ{f}| {res[f'd{f}']:.3e} > "
+                     f"{SWEEP_WEIGHT_TOL:.0e}")
+        n = plan.n_rows
+        e2 = float(b.sum_e2)
+        res["dsum_e"] = abs(float(a.sum_e) - float(b.sum_e))
+        res["dsum_e2"] = abs(float(a.sum_e2) - e2)
+        if res["dsum_e"] > SWEEP_MOMENT_TOL * (n * e2) ** 0.5:
+            fail(f"sweep ({mode}): |Δ sum_e| {res['dsum_e']:.3e} over "
+                 f"scale {(n * e2) ** 0.5:.3e}")
+        if res["dsum_e2"] > SWEEP_MOMENT_TOL * e2:
+            fail(f"sweep ({mode}): |Δ sum_e2| {res['dsum_e2']:.3e} over "
+                 f"{e2:.3e}")
+        out[mode] = res
+        del a, b
+    return out
 
 
 def own_rows(torch, w, V, t):
@@ -505,7 +591,7 @@ def egram_phase(torch, plan, state, y_tiles):
             lambda o, S: (o[0], (o[1].long()[:, :, None] == torch.arange(
                 S, device=o[1].device)).to(o[0].dtype)),
             kops, S, {}, KERNEL_TOL, f"tile_gram vs plain, table {ti}",
-            row_ops=0,
+            row_ops=0, modes=(),
         ))
         mine, _ = gram.tile_gram(*kops, S)
         k1, _ = gram.fused_tile_gram_cross(*ops, S)
@@ -542,9 +628,11 @@ def egram_phase(torch, plan, state, y_tiles):
 
 def sections_phase(torch, plan, state, y_tiles):
     """Kernels 5 and 6 through tools/kernel_sections on the user table's
-    first chunk: the checks (each level vs plain, level 3 bit-equal to the
-    production kernel; the probe bit-equal to the transpose), then the
-    timed runs with the launch counts set to 0 before them."""
+    first chunk: the checks (each level vs plain in each Gram mode, level
+    3 bit-equal to the production kernel in that mode; the probe
+    bit-equal to the transpose), then the timed runs with the launch
+    counts set to 0 before them: every level in IEEE and levels 1-3 in
+    "split" and "bf16"."""
     from myfm_tpu_torch.ops import gram
     from myfm_tpu_torch.tools import kernel_sections as ks
 
@@ -553,19 +641,25 @@ def sections_phase(torch, plan, state, y_tiles):
     S = t.tile_entities
     ops = first_chunk_ops(torch, plan, ti, state.core.w, state.core.V,
                           y_tiles)
-    errs = ks.check_sections(ops, S)
+    try:
+        errs = {mode: ks.check_sections(ops, S, mode) for mode in ALL_MODES}
+    except AssertionError as exc:
+        fail(f"sections: {exc}")
     probe_tpu = torch.randn(4, 2, 256, device="cuda")
     for x in (ops[0], probe_tpu):
         ks.check_probe(x.contiguous())
     gram.gram_section.launches = [0] * len(gram.SECTION_LEVELS)
+    gram.gram_section.mode_launches = gram.section_counts()
     gram.interleave_probe.launches = dict.fromkeys(gram.PROBE_VARIANTS, 0)
-    levels = ks.time_sections(ops, S)
+    levels = [r for mode in ALL_MODES
+              for r in ks.time_sections(ops, S, mode=mode)]
     probe = ks.time_probe(ops[0].contiguous())
     probe_small = ks.time_probe(probe_tpu)
     torch.cuda.synchronize()
     for r in levels:
-        r["launches"] = gram.gram_section.launches[r["level"]]
-        r["err_float32"] = errs[f"level{r['level']}_err"]
+        r["launches"] = gram.gram_section.mode_launches[r["mode"]][
+            r["level"]]
+        r["err_float32"] = errs[r["mode"]][f"level{r['level']}_err"]
     for r in probe:
         r["launches"] = gram.interleave_probe.launches[r["variant"]]
         r["err_float32"] = 0.0  # bit-equal (check_probe)
@@ -574,9 +668,50 @@ def sections_phase(torch, plan, state, y_tiles):
                 probe=probe, probe_tpu_shape=probe_small)
 
 
+def selfcheck_phase(torch):
+    """The Gram modes' self-checks on the card (ops/gram.
+    gram_fast_selfcheck), each timed on its first, uncached call; both
+    must pass, or "auto" would not take the mode."""
+    from myfm_tpu_torch.ops import gram
+
+    out = {}
+    for mode in REDUCED_MODES:
+        t0 = time.perf_counter()
+        ok = gram.gram_fast_selfcheck(mode, "cuda")
+        out[mode] = dict(ok=ok, s=time.perf_counter() - t0)
+        if ok is not True:
+            fail(f"modes: the {mode!r} self-check failed on the card")
+    return out
+
+
+def mode_summary(krows, sec):
+    """The modes line: per Gram mode, kernel 1 at the fast path's first
+    chunks (errors against plain and IEEE, ms, yardstick, bound, summed
+    over the tables) and kernel 5's levels."""
+    out = {}
+    for mode in REDUCED_MODES:
+        rows = [r["modes"][mode] for r in krows]
+        out[mode] = dict(
+            kernel1=dict(
+                rel_float32=max(r["rel_float32"] for r in rows),
+                vs_ieee=max(r["vs_ieee"] for r in rows),
+                ms=sum(r["ms"] for r in rows),
+                ieee_ms=sum(r["ms"] for r in krows),
+                library_ms=sum(r["library_ms"] for r in rows),
+                bound_ms=sum(r["bound_ms"] for r in rows)),
+            kernel5={f"level{r['level']}": dict(
+                ms=r["ms"], err_float32=r["err_float32"],
+                launches=r["launches"], library_ms=r["library_ms"],
+                bound_ms=r["bound_ms"])
+                for r in sec["levels"] if r["mode"] == mode})
+    return out
+
+
 def osweep_phase(torch, plan, y_tr):
     """One ordered-probit sweep through kernel 1 vs one through the plain
-    version, from the same state and variates."""
+    version, from the same state and variates, in each Gram mode."""
+    import dataclasses
+
     from myfm_tpu_torch.ops.categorical import (
         categorical_sweep,
         draw_sweep_variates,
@@ -593,33 +728,39 @@ def osweep_phase(torch, plan, y_tr):
     state = tr._initialize()
     v = draw_sweep_variates(plan, tr.cfg, RANK, tr.generator, torch.float32,
                             tr.device)
-    res = {}
-    outs = []
-    for plain in (False, True):
-        syncs = _newton_minimize.syncs
-        t0 = time.perf_counter()
-        outs.append(categorical_sweep(plan, state, tr.y, tr.y_tiles, v,
-                                      tr.cfg, plain=plain))
-        torch.cuda.synchronize()
-        res["plain_s" if plain else "kernel_s"] = time.perf_counter() - t0
-        res["newton_syncs"] = _newton_minimize.syncs - syncs
-    a, b = (o.core for o in outs)
-    for f in ("w", "V"):
-        x, z = getattr(a, f), getattr(b, f)
-        if not bool(torch.isfinite(x).all()):
-            fail(f"osweep: non-finite {f}")
-        res[f"d{f}"] = float((x - z).abs().max())
-        if res[f"d{f}"] > SWEEP_WEIGHT_TOL:
-            fail(f"osweep: max |Δ{f}| {res[f'd{f}']:.3e} > "
-                 f"{SWEEP_WEIGHT_TOL:.0e}")
-    res["cutpoints"] = a.cutpoints.tolist()
-    res["dcut"] = float((a.cutpoints - b.cutpoints).abs().max())
-    res["accepts"] = [a.n_mh_accept.tolist(), b.n_mh_accept.tolist()]
-    if not (bool(torch.isfinite(a.cutpoints).all())
-            and bool((torch.diff(a.cutpoints) > 0).all())
-            and res["dcut"] <= OSWEEP_CUT_TOL):
-        fail(f"osweep: cutpoints {res['cutpoints']} (Δ {res['dcut']:.3e})")
-    return res
+    per_mode = {}
+    for mode in ALL_MODES:
+        cfg = dataclasses.replace(tr.cfg, gram_fast_matmul=mode)
+        res = {}
+        outs = []
+        for plain in (False, True):
+            syncs = _newton_minimize.syncs
+            t0 = time.perf_counter()
+            outs.append(categorical_sweep(plan, state, tr.y, tr.y_tiles, v,
+                                          cfg, plain=plain))
+            torch.cuda.synchronize()
+            res["plain_s" if plain else "kernel_s"] = (
+                time.perf_counter() - t0)
+            res["newton_syncs"] = _newton_minimize.syncs - syncs
+        a, b = (o.core for o in outs)
+        for f in ("w", "V"):
+            x, z = getattr(a, f), getattr(b, f)
+            if not bool(torch.isfinite(x).all()):
+                fail(f"osweep ({mode}): non-finite {f}")
+            res[f"d{f}"] = float((x - z).abs().max())
+            if res[f"d{f}"] > SWEEP_WEIGHT_TOL:
+                fail(f"osweep ({mode}): max |Δ{f}| {res[f'd{f}']:.3e} > "
+                     f"{SWEEP_WEIGHT_TOL:.0e}")
+        res["cutpoints"] = a.cutpoints.tolist()
+        res["dcut"] = float((a.cutpoints - b.cutpoints).abs().max())
+        res["accepts"] = [a.n_mh_accept.tolist(), b.n_mh_accept.tolist()]
+        if not (bool(torch.isfinite(a.cutpoints).all())
+                and bool((torch.diff(a.cutpoints) > 0).all())
+                and res["dcut"] <= OSWEEP_CUT_TOL):
+            fail(f"osweep ({mode}): cutpoints {res['cutpoints']} (Δ "
+                 f"{res['dcut']:.3e})")
+        per_mode[mode] = res
+    return per_mode
 
 
 def log_loss(P, y):
@@ -993,60 +1134,71 @@ def vkernel_phase(torch, plan, trainer, state):
     return rows
 
 
-def vsweep_phase(torch, plan, plan64, trainer, state, phase="vsweep"):
+def vsweep_phase(torch, plan, plan64, trainer, state, phase="vsweep",
+                 modes=("highest", "split")):
     """One VI sweep through both kernels vs one through their plain
-    versions, from the same state; CAVI draws nothing, and every other
-    op runs deterministically, so the difference is the kernels'.  Both
-    fp32 sweeps are also held against a float64 plain sweep from the same
-    state (on ``plan64``, the design compiled in float64), which tells
-    the kernels' share from fp32's own rounding along the color scans.
-    The trainer's task decides the target column (y, or the latent
-    means τ of the classification task)."""
+    versions, from the same state, in each Gram mode of ``modes`` (the VI
+    paths run IEEE or "split"; "bf16" is held at kernel level in vkernel
+    and v10m); CAVI draws nothing,
+    and every other op runs deterministically, so the difference is the
+    kernels'.  Both fp32 sweeps are also held against a float64 plain
+    IEEE sweep from the same state (on ``plan64``, the design compiled in
+    float64), which tells the kernels' share from fp32's own rounding
+    along the color scans and the mode's.  The trainer's task decides the
+    target column (y, or the latent means τ of the classification
+    task)."""
     import dataclasses
 
     from myfm_tpu_torch.ops.categorical import make_y_tiles
     from myfm_tpu_torch.ops.categorical_vi import categorical_vi_sweep
 
-    res = {}
-    outs = []
     y64 = trainer.y.double()
     st64 = dataclasses.replace(state, core=type(state.core)(**{
         f.name: getattr(state.core, f.name).double()
         for f in dataclasses.fields(state.core)}),
         tau=None if state.tau is None else state.tau.double())
     with deterministic(torch):
-        for plain in (False, True):
-            t0 = time.perf_counter()
-            outs.append(categorical_vi_sweep(
-                plan, state, trainer.y, trainer.y_tiles, trainer.cfg,
-                plain=plain))
-            torch.cuda.synchronize()
-            res["plain_s" if plain else "kernel_s"] = (
-                time.perf_counter() - t0)
-        exact = categorical_vi_sweep(plan64, st64, y64,
-                                     make_y_tiles(plan64, y64), trainer.cfg,
-                                     plain=True).core
-    a, b = (o.core for o in outs)
-    for f in ("w", "w_var", "V", "V_var", "e", "elbo"):
-        x, z, x64 = getattr(a, f), getattr(b, f), getattr(exact, f)
-        if not (bool(torch.isfinite(x).all())
-                and bool(torch.isfinite(z).all())):
-            fail(f"{phase}: non-finite {f}")
-        scale = max(float(z.abs().max()), 1.0)
-        res[f"d{f}"] = float((x - z).abs().max()) / scale
-        res[f"{f}_kernel_vs_f64"] = float(
-            (x.double() - x64).abs().max()) / scale
-        res[f"{f}_plain_vs_f64"] = float(
-            (z.double() - x64).abs().max()) / scale
-        tol = VSWEEP_ELBO_TOL if f == "elbo" else VSWEEP_TOL
-        if not res[f"d{f}"] <= tol:
-            fail(f"{phase}: max |Δ{f}| {res[f'd{f}']:.3e} of scale > "
-                 f"{tol:.0e}")
-    if outs[0].tau is not None and not (
-            bool(torch.isfinite(outs[0].tau).all())
-            and bool(torch.isfinite(outs[1].tau).all())):
-        fail(f"{phase}: non-finite latent means τ")
-    return res
+        exact = categorical_vi_sweep(
+            plan64, st64, y64, make_y_tiles(plan64, y64),
+            dataclasses.replace(trainer.cfg, gram_fast_matmul=False),
+            plain=True).core
+    per_mode = {}
+    for mode in modes:
+        cfg = dataclasses.replace(trainer.cfg, gram_fast_matmul=mode)
+        res = {}
+        outs = []
+        with deterministic(torch):
+            for plain in (False, True):
+                t0 = time.perf_counter()
+                outs.append(categorical_vi_sweep(
+                    plan, state, trainer.y, trainer.y_tiles, cfg,
+                    plain=plain))
+                torch.cuda.synchronize()
+                res["plain_s" if plain else "kernel_s"] = (
+                    time.perf_counter() - t0)
+        a, b = (o.core for o in outs)
+        for f in ("w", "w_var", "V", "V_var", "e", "elbo"):
+            x, z, x64 = getattr(a, f), getattr(b, f), getattr(exact, f)
+            if not (bool(torch.isfinite(x).all())
+                    and bool(torch.isfinite(z).all())):
+                fail(f"{phase} ({mode}): non-finite {f}")
+            scale = max(float(z.abs().max()), 1.0)
+            res[f"d{f}"] = float((x - z).abs().max()) / scale
+            res[f"{f}_kernel_vs_f64"] = float(
+                (x.double() - x64).abs().max()) / scale
+            res[f"{f}_plain_vs_f64"] = float(
+                (z.double() - x64).abs().max()) / scale
+            tol = VSWEEP_ELBO_TOL if f == "elbo" else VSWEEP_TOL
+            if not res[f"d{f}"] <= tol:
+                fail(f"{phase} ({mode}): max |Δ{f}| {res[f'd{f}']:.3e} of "
+                     f"scale > {tol:.0e}")
+        if outs[0].tau is not None and not (
+                bool(torch.isfinite(outs[0].tau).all())
+                and bool(torch.isfinite(outs[1].tau).all())):
+            fail(f"{phase} ({mode}): non-finite latent means τ")
+        per_mode[mode] = res
+        del outs, a, b
+    return per_mode
 
 
 VI_SECTIONS = (
@@ -1114,8 +1266,9 @@ def vsections_phase(torch, plan, trainer, state):
 
 def ea_phases(torch, train, test, jgroup, timer, stamps):
     """The eakernel, eafit, eapredict, eaofit and eaopredict phases on
-    the ML-100k design; returns (kernel 1 rows, kernel 4 rows, and the
-    two kernels' launches in eafit)."""
+    the ML-100k design; returns (kernel 1 rows, kernel 4 rows, the two
+    kernels' launches in eafit, and kernel 1's launches there by Gram
+    mode)."""
     from myfm_tpu_torch import MyFMGibbsRegressor, MyFMOrderedProbit
     from myfm_tpu_torch import predictor as predictor_mod
     from myfm_tpu_torch.design import compile_design
@@ -1167,7 +1320,7 @@ def ea_phases(torch, train, test, jgroup, timer, stamps):
 
     stamps.clear()
     torch.cuda.reset_peak_memory_stats()
-    gram.fused_tile_gram_cross.launches = 0
+    reset_gram_counts(gram)
     joint_tail.joint_tail_pass.launches = 0
     joint_tail.tail_lists.launches = 0
     t_fit = time.perf_counter()
@@ -1186,8 +1339,13 @@ def ea_phases(torch, train, test, jgroup, timer, stamps):
         fail(f"eafit: kernel 1 launched {ea_gram} times, kernel 4 "
              f"{ea_tail} times")
     ttfs, rate = fit_rates(stamps, t_fit)
+    ea_modes = mode_check("eafit", efm.history_,
+                          gram.fused_tile_gram_cross.mode_launches["gibbs"],
+                          "split")
     say("eafit", json.dumps(dict(
-        engine=efm.history_.engine, sweeps=len(stamps),
+        engine=efm.history_.engine,
+        gram_mode=efm.history_.gram_fast_matmul,
+        launches_by_mode=ea_modes, sweeps=len(stamps),
         time_to_first_sweep_s=ttfs, sweeps_per_s=rate,
         fit_s=t_fit_end - t_fit, gram_launches=ea_gram,
         tail_launches=ea_tail, lists_launches=ea_lists,
@@ -1239,7 +1397,7 @@ def ea_phases(torch, train, test, jgroup, timer, stamps):
 
     stamps.clear()
     torch.cuda.reset_peak_memory_stats()
-    gram.fused_tile_gram_cross.launches = 0
+    reset_gram_counts(gram)
     joint_tail.joint_tail_pass.launches = 0
     syncs = _newton_minimize.syncs
     t_fit = time.perf_counter()
@@ -1256,7 +1414,12 @@ def ea_phases(torch, train, test, jgroup, timer, stamps):
              f"{eo_gram}, kernel 4 launches {eo_tail}")
     ttfs, rate = fit_rates(stamps, t_fit)
     say("eaofit", json.dumps(dict(
-        engine=eofm.history_.engine, sweeps=len(stamps),
+        engine=eofm.history_.engine,
+        gram_mode=eofm.history_.gram_fast_matmul,
+        launches_by_mode=mode_check(
+            "eaofit", eofm.history_,
+            gram.fused_tile_gram_cross.mode_launches["gibbs"], "split"),
+        sweeps=len(stamps),
         time_to_first_sweep_s=ttfs, sweeps_per_s=rate,
         fit_s=t_fit_end - t_fit, gram_launches=eo_gram,
         tail_launches=eo_tail,
@@ -1269,7 +1432,7 @@ def ea_phases(torch, train, test, jgroup, timer, stamps):
         "eaopredict", eofm, jX_te, jb_te, jyo_te, jyo_tr,
         int(jyo_tr.max()) + 1)))
     del eofm
-    return ekrows, earows, ea_gram, ea_tail
+    return ekrows, earows, ea_gram, ea_tail, ea_modes
 
 
 def elbo_check(phase, elbos):
@@ -1329,7 +1492,7 @@ def vcfit10m_phase(torch, train, test, grouping, timer, stamps):
     yc_tr, yc_te = (y_tr >= 4).astype(float), (y_te >= 4).astype(int)
     stamps.clear()
     torch.cuda.reset_peak_memory_stats()
-    gram.fused_tile_gram_cross.vi_launches = 0
+    reset_gram_counts(gram)
     t_fit = time.perf_counter()
     fm = VariationalFMClassifier(
         rank=V10M_RANK, random_seed=SEED, device="cuda"
@@ -1348,7 +1511,12 @@ def vcfit10m_phase(torch, train, test, grouping, timer, stamps):
         fail("vcfit10m: predict_proba outside (0, 1)")
     out = dict(
         sweeps=len(stamps), time_to_first_sweep_s=ttfs, sweeps_per_s=rate,
-        vi_launches=launches, peak_gib=peak / 2**30,
+        vi_launches=launches,
+        gram_mode=fm.history_.gram_fast_matmul,
+        launches_by_mode=mode_check(
+            "vcfit10m", fm.history_,
+            gram.fused_tile_gram_cross.mode_launches["vi"], "split"),
+        peak_gib=peak / 2**30,
         elbo_first=fm.history_.elbos[0], elbo_last=fm.history_.elbos[-1],
         elbo_largest_drop=drop,
         **probit_checks("vcfit10m", fm, X_te, b_te, yc_te,
@@ -1420,7 +1588,7 @@ def vrfit_phase(torch, train, test, grouping, stamps):
         ttfs, rate = fit_rates(stamps, t_fit)
         row = dict(engine=fm.history_.engine, sweeps=len(stamps),
                    fit_s=t_fit_s, time_to_first_sweep_s=ttfs,
-                   s_per_sweep=1.0 / rate,
+                   s_per_sweep=s_per_sweep(ttfs, rate),
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                    elbo_first=fm.history_.elbos[0],
                    elbo_last=fm.history_.elbos[-1],
@@ -1576,7 +1744,7 @@ def gibbs_colored_fits(torch, train, test, grouping, stamps):
         lines[phase] = dict(
             engine=fm.history_.engine, sweeps=len(stamps),
             fit_s=time.perf_counter() - t_fit, time_to_first_sweep_s=ttfs,
-            s_per_sweep=1.0 / rate,
+            s_per_sweep=s_per_sweep(ttfs, rate),
             peak_gib=torch.cuda.max_memory_allocated() / 2**30,
             tail_kernel_launches=joint_tail.joint_tail_pass.launches)
         return fm
@@ -1611,11 +1779,156 @@ def gibbs_colored_fits(torch, train, test, grouping, stamps):
     return lines
 
 
+def r128_phases(torch, train, test, grouping, timer, stamps):
+    """The rank-128 phases on the ML-10M design: r128data (the plan at
+    rank 128, which the fast-path gate must accept), r128kernel (kernel 1
+    in IEEE, split and bf16 vs plain at each table's first chunk),
+    r128fit (the same trainer with gram_fast_matmul=False for
+    R128_IEEE_ITER sweeps on that plan, then MyFMGibbsRegressor(rank=128)
+    through "auto", which must take the fast path in "bf16" and launch
+    kernel 1 in bf16 alone: one warm-up sweep and R128_N_ITER - 1 timed)
+    and r128predict (held-out RMSE below std(y_test)).  Returns (kernel
+    rows, bf16 launches in r128fit, IEEE launches beside it)."""
+    import dataclasses
+
+    from myfm_tpu_torch import MyFMGibbsRegressor
+    from myfm_tpu_torch.design_categorical import try_compile_categorical
+    from myfm_tpu_torch.ops import gram
+    from myfm_tpu_torch.ops.gibbs import GibbsConfig
+    from myfm_tpu_torch.trainer import CategoricalGibbsTrainer
+
+    (X_tr, b_tr, y_tr), (X_te, b_te, y_te) = train, test
+    R = R128_RANK
+    t0 = time.perf_counter()
+    plan = try_compile_categorical(
+        X_tr, b_tr, np.asarray(grouping, np.int32), None, np.float32,
+        "cuda", rank=R)
+    t_plan = time.perf_counter() - t0
+    if plan is None:
+        fail("r128data: the ML-10M design at rank 128 did not take the "
+             "fast path")
+    say("r128data", json.dumps(dict(
+        rank=R, plan_s=t_plan,
+        plan_tables=[(t.n_cols, t.n_tiles, t.tile_rows, t.tile_entities)
+                     for t in plan.tables],
+        chunk_tiles=[t.chunk_tiles for t in plan.tables])))
+
+    trainer = CategoricalGibbsTrainer(
+        plan, y_tr, GibbsConfig(task="regression"), R, 0.1, SEED)
+    if trainer.cfg.gram_fast_matmul != "bf16":
+        fail(f"r128kernel: rank {R} resolved to Gram mode "
+             f"{trainer.cfg.gram_fast_matmul!r}, not 'bf16'")
+    state = trainer._initialize()
+    krows = []
+    for ti, t in enumerate(plan.tables):
+        ops = first_chunk_ops(torch, plan, ti, state.core.w, state.core.V,
+                              trainer.y_tiles)
+        row = dict(table=ti, K=ops[0].shape[0], T=t.tile_rows,
+                   S=t.tile_entities, D=R + 2)
+        row.update(compare_gram(
+            torch, gram.fused_tile_gram_cross,
+            gram.fused_tile_gram_cross_reference,
+            lambda o, S: gram.cross_rows(o[0], o[1], o[2], S), ops,
+            t.tile_entities, {}, KERNEL_TOL,
+            f"r128kernel vs plain, table {ti}"))
+        say("r128kernel", json.dumps(row))
+        krows.append(row)
+        del ops
+    del state
+    torch.cuda.empty_cache()
+
+    # the IEEE sweep time at rank 128, on the same plan
+    stamps.clear()
+    reset_gram_counts(gram)
+    ieee = CategoricalGibbsTrainer(
+        plan, y_tr, dataclasses.replace(trainer.cfg, gram_fast_matmul=False),
+        R, 0.1, SEED)
+    t_fit = time.perf_counter()
+    _, ih = ieee.run(R128_IEEE_ITER, 1, lambda *a: timer(*a)[0])
+    torch.cuda.synchronize()
+    ieee_modes = mode_check("r128fit (IEEE)", ih,
+                            gram.fused_tile_gram_cross.mode_launches[
+                                "gibbs"], "highest")
+    ieee_line = dict(sweeps=len(stamps), first_sweep_s=stamps[0] - t_fit,
+                     s_per_sweep=(stamps[-1] - stamps[0])
+                     / max(len(stamps) - 1, 1),
+                     launches_by_mode=ieee_modes)
+    del plan, trainer, ieee, ih
+    torch.cuda.empty_cache()
+
+    stamps.clear()
+    torch.cuda.reset_peak_memory_stats()
+    reset_gram_counts(gram)
+    t_fit = time.perf_counter()
+    fm = MyFMGibbsRegressor(rank=R, random_seed=SEED, device="cuda").fit(
+        X_tr, y_tr, X_rel=b_tr, n_iter=R128_N_ITER, n_kept_samples=N_KEPT,
+        grouping=grouping, callback=timer)
+    torch.cuda.synchronize()
+    t_fit_end = time.perf_counter()
+    counts = mode_check("r128fit", fm.history_,
+                        gram.fused_tile_gram_cross.mode_launches["gibbs"],
+                        "bf16")
+    if fm.history_.engine != "fastpath":
+        fail(f"r128fit: resolved to {fm.history_.engine!r}")
+    ttfs, rate = fit_rates(stamps, t_fit)
+    say("r128fit", json.dumps(dict(
+        engine=fm.history_.engine, gram_mode=fm.history_.gram_fast_matmul,
+        sweeps=len(stamps), time_to_first_sweep_s=ttfs, sweeps_per_s=rate,
+        fit_s=t_fit_end - t_fit, launches_by_mode=counts,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        ieee=ieee_line)))
+    t0 = time.perf_counter()
+    pred = fm.predict(X_te, b_te)
+    t_pred = time.perf_counter() - t0
+    rmse = float(np.sqrt(np.mean((pred - y_te) ** 2)))
+    std = float(y_te.std())
+    if not (pred.shape == y_te.shape and np.isfinite(pred).all()
+            and rmse < std):
+        fail(f"r128predict: rmse {rmse} vs std(y_test) {std}")
+    say("r128predict", json.dumps(dict(
+        rows=int(y_te.size), predict_s=t_pred, rmse=rmse, std_y_test=std)))
+    del fm
+    torch.cuda.empty_cache()
+    return krows, counts["bf16"], ieee_modes["highest"]
+
+
+def reset_gram_counts(gram):
+    """Every launch count of kernels 1 and 2 to 0, by mode too."""
+    gram.fused_tile_gram_cross.launches = 0
+    gram.fused_tile_gram_cross.vi_launches = 0
+    gram.fused_tile_gram_cross.mode_launches = {
+        "gibbs": gram.mode_counts(), "vi": gram.mode_counts()}
+    gram.fused_tile_gram.launches = 0
+    gram.fused_tile_gram.mode_launches = gram.mode_counts()
+
+
+def mode_check(phase, history, counts, want):
+    """A fit's resolved Gram mode (``history.gram_fast_matmul``, the
+    trainer's cfg; False is "highest") must be ``want`` and its kernel
+    launches by mode (``counts``) all in that mode; returns the counts."""
+    from myfm_tpu_torch.ops.gram import gram_mode
+
+    got = history.gram_fast_matmul
+    ran = sorted(m for m, n in counts.items() if n)
+    if got is None or gram_mode(got) != want or ran != [want]:
+        fail(f"{phase}: Gram mode {got!r}, launches by mode {counts}; "
+             f"want {want!r} alone")
+    return dict(counts)
+
+
 def fit_rates(stamps, t_fit):
-    """(time to first sweep, sweeps/s after it) from the callback's
-    per-sweep host stamps."""
+    """(time to first sweep, sweeps/s after it, or None after one sweep)
+    from the callback's per-sweep host stamps."""
     ttfs = stamps[0] - t_fit
+    if len(stamps) < 2:
+        return ttfs, None
     return ttfs, (len(stamps) - 1) / (stamps[-1] - stamps[0])
+
+
+def s_per_sweep(ttfs, rate):
+    """Seconds per sweep after the first, or the first sweep's own time
+    (plan and initialisation included) where a fit ran one."""
+    return ttfs if rate is None else 1.0 / rate
 
 
 def main():
@@ -1653,6 +1966,7 @@ def main():
              for item in _build.ptxas_summary(log)]
     say("build", f"{len(logs)} kernel source(s) built in "
                  f"{time.perf_counter() - t0:.1f} s; " + ", ".join(ptxas))
+    selfchecks = selfcheck_phase(torch)
 
     from myfm_tpu_torch import MyFMGibbsRegressor
     from myfm_tpu_torch.design_categorical import try_compile_categorical
@@ -1678,6 +1992,9 @@ def main():
     trainer = CategoricalGibbsTrainer(
         plan, y_tr, GibbsConfig(task="regression"), RANK, 0.1, SEED,
     )
+    if trainer.cfg.gram_fast_matmul != "split":
+        fail(f"kernel: rank {RANK} resolved to Gram mode "
+             f"{trainer.cfg.gram_fast_matmul!r}, not 'split'")
     state = trainer._initialize()
     krows = kernel_phase(torch, plan, state, trainer.y_tiles)
     for r in krows:
@@ -1692,6 +2009,8 @@ def main():
                                  tile_gram_launches=e_launches)))
     sec = sections_phase(torch, plan, state, trainer.y_tiles)
     say("sections", json.dumps(sec))
+    say("modes", json.dumps(dict(selfcheck=selfchecks,
+                                 **mode_summary(krows, sec))))
     say("osweep", json.dumps(osweep_phase(torch, plan, y_tr)))
     del plan, trainer, state
     torch.cuda.empty_cache()
@@ -1704,7 +2023,7 @@ def main():
         return False, None
 
     torch.cuda.reset_peak_memory_stats()
-    gram.fused_tile_gram_cross.launches = 0
+    reset_gram_counts(gram)
     t_fit = time.perf_counter()
     fm = MyFMGibbsRegressor(rank=RANK, random_seed=SEED, device="cuda").fit(
         X_tr, y_tr, X_rel=blocks_tr, n_iter=N_ITER, n_kept_samples=N_KEPT,
@@ -1713,6 +2032,9 @@ def main():
     pred = fm.predict(X_te, blocks_te)
     torch.cuda.synchronize()
     launches = gram.fused_tile_gram_cross.launches
+    fit_modes = mode_check("fit", fm.history_,
+                           gram.fused_tile_gram_cross.mode_launches["gibbs"],
+                           "split")
     peak = torch.cuda.max_memory_allocated()
     if fm.history_.engine != "fastpath":
         fail(f"fit resolved to {fm.history_.engine!r}, not the fast path")
@@ -1720,10 +2042,11 @@ def main():
         fail("the main path never launched fused_tile_gram_cross")
     ttfs = stamps[0] - t_fit
     sweeps_per_s = (len(stamps) - 1) / (stamps[-1] - stamps[0])
-    say("fit", f"engine {fm.history_.engine}, {len(stamps)} sweeps, "
+    say("fit", f"engine {fm.history_.engine}, Gram mode "
+               f"{fm.history_.gram_fast_matmul}, {len(stamps)} sweeps, "
                f"time to first sweep {ttfs:.2f} s, {sweeps_per_s:.3f} "
-               f"sweeps/s, kernel launches {launches}, peak device "
-               f"memory {peak / 2**30:.2f} GiB")
+               f"sweeps/s, kernel launches {launches} (by mode "
+               f"{fit_modes}), peak device memory {peak / 2**30:.2f} GiB")
 
     rmse = float(np.sqrt(np.mean((pred - y_te) ** 2)))
     std = float(y_te.std())
@@ -1749,7 +2072,7 @@ def main():
     ):
         stamps.clear()
         torch.cuda.reset_peak_memory_stats()
-        gram.fused_tile_gram_cross.launches = 0
+        reset_gram_counts(gram)
         syncs = _newton_minimize.syncs
         t_fit = time.perf_counter()
         pfm = est(rank=RANK, random_seed=SEED, device="cuda").fit(
@@ -1764,7 +2087,13 @@ def main():
         if o_launches[phase] <= 0:
             fail(f"{phase}: never launched fused_tile_gram_cross")
         ttfs, rate = fit_rates(stamps, t_fit)
-        info = dict(engine=pfm.history_.engine, sweeps=len(stamps),
+        info = dict(engine=pfm.history_.engine,
+                    gram_mode=pfm.history_.gram_fast_matmul,
+                    launches_by_mode=mode_check(
+                        phase, pfm.history_,
+                        gram.fused_tile_gram_cross.mode_launches["gibbs"],
+                        "split"),
+                    sweeps=len(stamps),
                     time_to_first_sweep_s=ttfs, sweeps_per_s=rate,
                     fit_s=t_fit_end - t_fit, kernel_launches=o_launches[phase],
                     peak_gib=torch.cuda.max_memory_allocated() / 2**30,
@@ -1778,6 +2107,12 @@ def main():
             ytr_, n_class)))
         del pfm
         torch.cuda.empty_cache()
+
+    # ---- rank 128 on the ML-10M design: kernel 1 in bf16 ----
+    r128rows, r128_launches, r128_ieee_launches = r128_phases(
+        torch, (X_tr, blocks_tr, y_tr), (X_te, blocks_te, y_te), grouping,
+        timer, stamps)
+    say("r128predict", f"so far {time.perf_counter() - t_start:.1f} s")
 
     # ---- the joint engine: ML-100k timeSVD++-flipped, rank 10 ----
     from myfm_tpu_torch.design import compile_design, joint_auto_eligible
@@ -1834,7 +2169,8 @@ def main():
     jfm = MyFMGibbsRegressor(
         rank=J_RANK, random_seed=SEED, device="cuda"
     ).fit(jX_tr, jy_tr, X_rel=jb_tr, n_iter=J_N_ITER, grouping=jgroup,
-          callback=timer)
+          callback=lambda i, *a: (timer(i, *a)[0] or i + 1 >= J_FIT_SWEEPS,
+                                  None))
     torch.cuda.synchronize()
     t_fit_end = time.perf_counter()
     jlaunches = joint_tail.joint_tail_pass.launches
@@ -1948,7 +2284,8 @@ def main():
     with deterministic(torch):
         vcstate = vctrainer._sweep(vctrainer._initialize())
     say("vcsweep", json.dumps(vsweep_phase(
-        torch, vplan, vplan64, vctrainer, vcstate, phase="vcsweep")))
+        torch, vplan, vplan64, vctrainer, vcstate, phase="vcsweep",
+        modes=("split",))))
     del vplan64, vctrainer, vcstate
     say("vsections", json.dumps(
         vsections_phase(torch, vplan, vtrainer, vstate)))
@@ -1957,8 +2294,7 @@ def main():
 
     stamps.clear()
     torch.cuda.reset_peak_memory_stats()
-    gram.fused_tile_gram_cross.vi_launches = 0
-    gram.fused_tile_gram.launches = 0
+    reset_gram_counts(gram)
     t_fit = time.perf_counter()
     vfm = VariationalFMRegressor(
         rank=V_RANK, random_seed=SEED, device="cuda"
@@ -1974,10 +2310,18 @@ def main():
     if v_vi <= 0 or v_meta <= 0:
         fail(f"the VI fit launched fused_tile_gram_cross[vi] {v_vi} and "
              f"fused_tile_gram {v_meta} times")
+    v_modes = dict(
+        vi=mode_check("vfit", vfm.history_,
+                      gram.fused_tile_gram_cross.mode_launches["vi"],
+                      "split"),
+        meta=mode_check("vfit", vfm.history_,
+                        gram.fused_tile_gram.mode_launches, "split"))
     elbos = np.asarray(vfm.history_.elbos, dtype=np.float64)
     drop = elbo_check("vfit", elbos)
     ttfs, rate = fit_rates(stamps, t_fit)
-    say("vfit", f"engine {vfm.history_.engine}, {len(stamps)} sweeps, "
+    say("vfit", f"engine {vfm.history_.engine}, Gram mode "
+                f"{vfm.history_.gram_fast_matmul} (launches by mode "
+                f"{v_modes}), {len(stamps)} sweeps, "
                 f"time to first sweep {ttfs:.2f} s, {rate:.3f} sweeps/s, "
                 f"fit {t_fit_end - t_fit:.1f} s, launches: "
                 f"fused_tile_gram_cross[vi] {v_vi}, fused_tile_gram "
@@ -2028,7 +2372,7 @@ def main():
     torch.cuda.empty_cache()
     stamps.clear()
     torch.cuda.reset_peak_memory_stats()
-    gram.fused_tile_gram_cross.vi_launches = 0
+    reset_gram_counts(gram)
     t_fit = time.perf_counter()
     v10 = VariationalFMRegressor(
         rank=V10M_RANK, random_seed=SEED, device="cuda"
@@ -2036,6 +2380,9 @@ def main():
           grouping=grouping, callback=timer)
     torch.cuda.synchronize()
     v10_launches = gram.fused_tile_gram_cross.vi_launches
+    v10_modes = mode_check("v10m", v10.history_,
+                           gram.fused_tile_gram_cross.mode_launches["vi"],
+                           "split")
     v10_peak = torch.cuda.max_memory_allocated()
     if v10.history_.engine != "fastpath" or v10_launches <= 0:
         fail(f"v10m: engine {v10.history_.engine!r}, VI-layout launches "
@@ -2048,7 +2395,8 @@ def main():
     say("v10m", json.dumps(dict(
         plan_tables=t10, plan_s=round(t_p10, 2), kernel=k10,
         sweeps=len(stamps), time_to_first_sweep_s=ttfs, sweeps_per_s=rate,
-        vi_launches=v10_launches, peak_gib=v10_peak / 2**30,
+        vi_launches=v10_launches, gram_mode=v10.history_.gram_fast_matmul,
+        launches_by_mode=v10_modes, peak_gib=v10_peak / 2**30,
         elbo_first=v10.history_.elbos[0], elbo_last=v10.history_.elbos[-1],
         rmse=rmse10, std_y_test=std,
         whole_run_s=time.perf_counter() - t_start,
@@ -2078,10 +2426,17 @@ def main():
         say(phase, json.dumps(line))
     say("gjvfit", f"whole run so far {time.perf_counter() - t_start:.1f} s")
 
-    def entry(name, source, replaces, launches, rows):
+    def entry(name, source, replaces, launches, rows, mode="highest",
+              modes=None):
+        """One kernel of the kernels line; ``rows`` are its phase rows,
+        read in Gram mode ``mode`` (a row of another mode holds that
+        mode's numbers under "modes"); ``modes`` its path's launches by
+        mode."""
+        rows = [r if r.get("mode", "highest") == mode else r["modes"][mode]
+                for r in rows]
         lib = [r.get("library_ms") for r in rows]
         b = [r["bound_ms"] for r in rows]
-        return {
+        out = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["err_float32"] for r in rows),
@@ -2090,31 +2445,45 @@ def main():
             "bound_ms": sum(b),
             "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": None if None in lib else sum(lib),
+            "mode": mode,
         }
+        if modes is not None:
+            out["launches_by_mode"] = modes
+        return out
 
+    vi_rows = [r for r in vrows if r["kernel"] != "fused_tile_gram"]
+    meta_rows = [r for r in vrows if r["kernel"] == "fused_tile_gram"]
     print(json.dumps({"kernels": [
         entry("fused_tile_gram_cross", GRAM_SOURCE, GRAM_REPLACES, launches,
-              krows),
+              krows, "split", fit_modes),
         entry("fused_tile_gram_cross[vi]", GRAM_SOURCE, GRAM_REPLACES, v_vi,
-              [r for r in vrows if r["kernel"] != "fused_tile_gram"]),
+              vi_rows, "split", v_modes["vi"]),
         entry("fused_tile_gram", GRAM_SOURCE, META_REPLACES, v_meta,
-              [r for r in vrows if r["kernel"] == "fused_tile_gram"]),
+              meta_rows, "split", v_modes["meta"]),
         entry("fused_tile_gram_cross[vi10m]", GRAM_SOURCE, GRAM_REPLACES,
-              v10_launches, k10),
+              v10_launches, k10, "split", v10_modes),
         entry("fused_tile_gram_cross[vic10m]", GRAM_SOURCE, GRAM_REPLACES,
-              vc10_launches, kc10),
+              vc10_launches, kc10, "split", vc10["launches_by_mode"]),
+        entry("fused_tile_gram_cross[r128]", GRAM_SOURCE, GRAM_REPLACES,
+              r128_launches, r128rows, "bf16",
+              {"bf16": r128_launches}),
+        entry("fused_tile_gram_cross[r128 highest]", GRAM_SOURCE,
+              GRAM_REPLACES, r128_ieee_launches, r128rows, "highest",
+              {"highest": r128_ieee_launches}),
         entry("joint_tail_pass", TAIL_SOURCE, TAIL_REPLACES, jlaunches,
               jrows),
         entry("joint_tail_pass[lists]", TAIL_SOURCE, TAIL_REPLACES,
               jl_launches, jlrows),
         entry("fused_tile_gram_cross[ea]", GRAM_SOURCE, GRAM_REPLACES,
-              ea[2], ea[0]),
+              ea[2], ea[0], "split", ea[4]),
         entry("joint_tail_pass[ea]", TAIL_SOURCE, TAIL_REPLACES, ea[3],
               ea[1]),
         entry("tile_gram", GRAM_SOURCE, ROWS_REPLACES, e_launches, erows),
     ] + [
-        entry(f"gram_section[{r['level']}]", SECTIONS_SOURCE,
-              SECTIONS_REPLACES, r["launches"], [r])
+        entry(f"gram_section[{r['level']}]" if r["mode"] == "highest"
+              else f"gram_section[{r['level']} {r['mode']}]",
+              SECTIONS_SOURCE, SECTIONS_REPLACES, r["launches"], [r],
+              r["mode"])
         for r in sec["levels"]
     ] + [
         entry(f"interleave_probe[{r['variant']}]", SECTIONS_SOURCE,

@@ -158,6 +158,9 @@ class LearningHistory:
     # user-visible witness of the auto-dispatch decision, used by the
     # accuracy protocol and the engine-resolution tests
     engine: str = ""
+    # the fast path's resolved Gram mode ("split", "bf16", or False for
+    # IEEE; trainer._resolve_gram_fast_matmul); None on the other engines
+    gram_fast_matmul: Optional[object] = None
 
 
 @dataclasses.dataclass
@@ -211,56 +214,6 @@ class VariationalLearningHistory:
     # resolved VI engine ("fastpath" entity-space CAVI, "colored"
     # staged/chromatic fallback); see LearningHistory.engine
     engine: str = ""
-
-
-@dataclasses.dataclass
-class VariationalFM:
-    """Converged variational posterior (means + variances) of all weights.
-
-    Mirrors the reference ``VariationalFM`` (variational.hpp:63-110);
-    the mean fields double as an ``FM``-compatible view for prediction.
-    """
-
-    w0: float
-    w: np.ndarray
-    V: np.ndarray
-    w0_var: float
-    w_var: np.ndarray
-    V_var: np.ndarray
-    cutpoints: List[np.ndarray] = dataclasses.field(default_factory=list)
-
-    @property
-    def n_factors(self) -> int:
-        return int(self.V.shape[1])
-
-    def predict_score(
-        self, X: Optional[ArrayLike], X_rel: Sequence[RelationBlock] = ()
-    ) -> np.ndarray:
-        return fm_predict_score_numpy(self.w0, self.w, self.V, X, X_rel)
-
-
-@dataclasses.dataclass
-class VariationalFMHyperParameters:
-    """Reference variational.hpp:26-61: adds variances/rates to hypers."""
-
-    alpha: float
-    alpha_rate: float
-    mu_w: np.ndarray
-    mu_w_var: np.ndarray
-    lambda_w: np.ndarray
-    lambda_w_rate: np.ndarray
-    mu_V: np.ndarray
-    mu_V_var: np.ndarray
-    lambda_V: np.ndarray
-    lambda_V_rate: np.ndarray
-
-
-@dataclasses.dataclass
-class VariationalLearningHistory:
-    """Reference variational.hpp:139-145: final hyper + ELBO trace."""
-
-    hypers: Optional[VariationalFMHyperParameters] = None
-    elbos: List[float] = dataclasses.field(default_factory=list)
-    # resolved VI engine ("fastpath" entity-space CAVI); see
-    # LearningHistory.engine
-    engine: str = ""
+    # the fast path's resolved Gram mode; see
+    # LearningHistory.gram_fast_matmul
+    gram_fast_matmul: Optional[object] = None

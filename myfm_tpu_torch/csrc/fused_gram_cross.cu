@@ -99,8 +99,44 @@
 // runs 2); kernel 2's stage and registers lost to both, and so did the
 // square's stage in fp32, so they have neither (PERF.md).
 // Every slot's output is written once (zeros included), or added to where
-// a slot recurs later in the tile.  Arithmetic is IEEE fp32 (or fp64) FMA;
-// no tensor cores.
+// a slot recurs later in the tile.  This is mode 0, IEEE fp32 (or fp64)
+// FMA.
+//
+// The reduced-precision modes (kernels 1 and 2; the TPU kernel's
+// fast_matmul "split" and "bf16", _emit_gram_tail).  Each z value splits
+// into hi = bf16(x) (round to nearest even) and lo = bf16(x - hi); mode 1
+// ("split") forms hi^T hi + hi^T lo + lo^T hi, mode 2 ("bf16") hi^T hi,
+// both with f32 accumulation.  Every bf16 x bf16 product is exact in f32,
+// and the kernel and its plain version (ops/gram.py, the same split in
+// PyTorch) build the same z bit for bit: e's sums of squares are taken in
+// one order with every product and sum rounded (add_sq; an fma in one and
+// not the other would move e by a last bit, which bf16 rounding can turn
+// into the mode's whole error for that row).  So a mode's result differs
+// from its plain version only in the order of the f32 sums.  Against
+// IEEE, split is off by ~1.5e-5 and bf16 by ~4e-3 of the Gram's scale
+// (the self-check, gram_fast_selfcheck, gates them at 2e-4 and 2e-2).
+// fp32 only: there is no fp64 tensor-core path, and an fp64 call with
+// mode != 0 returns cudaErrorInvalidValue.  What bounds them: the same
+// bytes as mode 0, and 2 (bf16) or 6 (split) flops per entry and row on
+// the tensor cores (989 dense bf16 TFLOP/s), so bytes bound them at every
+// shape here.  How they reach the tensor cores (grams_mma in
+// gram_tile.cuh): warp-level mma.sync.m16n8k16 bf16 products on the fp32
+// stage in shared memory, the fragments built in registers as they are
+// loaded (no bf16 copy of the stage, so the rank-128 tile's ~67 KB stage
+// is all the shared memory a block needs; splitting the stage once in
+// place measured slower).  A = z^T and B = z read the same rows, so one
+// 16-row k-chunk's fragment of an 8-column block is both a B operand and
+// half an A operand.  Each warp keeps 2 16 x 8 output fragments in
+// registers across a slot's runs (16 per round of the block: rank 32's
+// square takes one round, the rank-128 square six) and walks each run in
+// 16-row k-chunks of its own rows (the rows past the run's end read as
+// zero), so the work is the rows', not the TPU kernel's masked product
+// over all S slots at once; the square computes only the fragments that
+// hold an entry i >= j and writes each such entry with its mirror.  The
+// kernels are held to 4 blocks per SM (<= 64 registers), and the cross
+// kernels' stage batches its loads: at 8 fragments and 2 blocks per SM
+// the pass took 2x IEEE at rank 32 (PERF.md).  wgmma, TMA and a pipelined
+// stage are left for later (ROADMAP).
 //
 // The carry.  A TPU grid runs in order, so the Pallas kernel threads the
 // running Gram through a scratch buffer; a CUDA grid has no order.  Here
@@ -133,7 +169,8 @@ int myfm_gram_carry_scratch(int K, int E) {
 int myfm_gram_static_smem() { return (int)sizeof(RunList); }
 
 // Returns 0 or the cudaError_t of the first failed launch.
-int myfm_fused_gram_cross(int is_double, const void* aux2,
+// mode: 0 IEEE, 1 split, 2 bf16 (fp32 only).
+int myfm_fused_gram_cross(int is_double, int mode, const void* aux2,
                           const void* const* gths, int n_cross,
                           const void* wvsl, const int* cont_in,
                           const int* cont_out, const int* last_slot,
@@ -143,11 +180,12 @@ int myfm_fused_gram_cross(int is_double, const void* aux2,
   if (is_double) {
     return launch_cross<double>(aux2, gths, n_cross, wvsl, cont_in, cont_out,
                                 last_slot, carry_in, out, carry_out, scratch,
-                                K, T, S, R, q_lo, n_extra, out_rows, stream);
+                                K, T, S, R, q_lo, n_extra, out_rows, mode,
+                                stream);
   }
   return launch_cross<float>(aux2, gths, n_cross, wvsl, cont_in, cont_out,
                              last_slot, carry_in, out, carry_out, scratch, K,
-                             T, S, R, q_lo, n_extra, out_rows, stream);
+                             T, S, R, q_lo, n_extra, out_rows, mode, stream);
 }
 
 // Returns 0 or the cudaError_t of the first failed launch.
@@ -166,21 +204,22 @@ int myfm_tile_gram(int is_double, const void* rows, const int* slot,
                             stream);
 }
 
-// Returns 0 or the cudaError_t of the first failed launch.
-int myfm_fused_gram(int is_double, const void* meta, const void* q_other,
-                    const int* slot, const void* wvsl, const int* cont_in,
-                    const int* cont_out, const int* last_slot,
-                    const void* carry_in, void* out, void* carry_out,
-                    void* scratch, int K, int T, int S, int R, int Rq,
-                    int out_rows, void* stream) {
+// Returns 0 or the cudaError_t of the first failed launch; mode as in
+// myfm_fused_gram_cross.
+int myfm_fused_gram(int is_double, int mode, const void* meta,
+                    const void* q_other, const int* slot, const void* wvsl,
+                    const int* cont_in, const int* cont_out,
+                    const int* last_slot, const void* carry_in, void* out,
+                    void* carry_out, void* scratch, int K, int T, int S,
+                    int R, int Rq, int out_rows, void* stream) {
   if (is_double) {
     return launch_meta<double>(meta, q_other, slot, wvsl, cont_in, cont_out,
                                last_slot, carry_in, out, carry_out, scratch,
-                               K, T, S, R, Rq, out_rows, stream);
+                               K, T, S, R, Rq, out_rows, mode, stream);
   }
   return launch_meta<float>(meta, q_other, slot, wvsl, cont_in, cont_out,
                             last_slot, carry_in, out, carry_out, scratch, K,
-                            T, S, R, Rq, out_rows, stream);
+                            T, S, R, Rq, out_rows, mode, stream);
 }
 
 }  // extern "C"

@@ -12,15 +12,20 @@
 //          back into the checksum and writes the output tile with it (so
 //          the compiler can elide no load);
 //       1  + the Gram loop (gram_pass, the production pass: the run list
-//          and the triangle of register blocks) over the loaded rows
-//          taken as z; the checksum is added to entry [slot 0, 0, 0] of
-//          each tile;
+//          and the triangle of register blocks, or the tensor-core
+//          fragments) over the loaded rows taken as z; the checksum is
+//          added to entry [slot 0, 0, 0] of each tile;
 //       2  the production Gram pass (launch_cross_grams: cross sums, score
 //          and z build, Gram loop), no carry;
 //       3  the whole production kernel (launch_cross: level 2 + the carry
-//          pass), bit-equal to myfm_fused_gram_cross on the same operands.
-//     Levels 2 and 3 run the production launchers of gram_tile.cuh, not a
-//     copy.  fp32 only, as the TPU microbench.
+//          pass), bit-equal to myfm_fused_gram_cross on the same operands
+//          in the same mode.
+//     Levels 1-3 take kernel 1's Gram mode (0 IEEE, 1 split, 2 bf16; see
+//     fused_gram_cross.cu); level 0, the checksum, has none.  Levels 2
+//     and 3 run the production launchers of gram_tile.cuh, not a copy.
+//     fp32 only, as the TPU microbench, which runs every level in split
+//     and level 1 in bf16 too (it has no IEEE mode; IEEE is the port's
+//     own addition).
 //   myfm_interleave_probe replaces the Pallas TPU probe
 //     scripts/probe_transpose.py run (k_transpose): there a [2, T] -> [T, 2]
 //     transpose in a kernel; here the load kernel 1 makes of its aux2
@@ -41,9 +46,10 @@
 // What bounds them.  Every level reads the same bytes (n_cross gathered
 // rows of W = D values per row, the own rows, aux2) and writes the
 // same S x D x D values per tile; levels 1-3 add the Gram loop's
-// D (D + 1) / 2 FMAs per row and level 2 the ~4 D operations of the score
-// and z build.  By bytes alone each level's bound is the same; the gaps
-// between levels are what the sections cost beyond moving their bytes.
+// D (D + 1) / 2 FMAs per row (on the tensor cores in split and bf16) and
+// level 2 the ~4 D operations of the score and z build.  By bytes alone
+// each level's bound is the same; the gaps between levels are what the
+// sections cost beyond moving their bytes.
 // The probe moves 2 x 4 B in and 2 x 4 B out per row and is bound by bytes.
 //
 // What the design does about it.  Levels 0 and 1 keep the production
@@ -57,8 +63,9 @@ namespace {
 
 constexpr int kProbeRows = 1024;  // rows per block of the staged probe
 
-template <int kLevel>
-__global__ void __launch_bounds__(kThreads)
+template <int kLevel, int kMode>
+__global__ void __launch_bounds__(kThreads,
+                                  kMode != kModeIEEE ? kMmaBlocks : 0)
 gram_section_kernel(const float* __restrict__ aux2, CrossPtrs<float> gths,
                     int n_cross, const float* __restrict__ wvsl,
                     float* __restrict__ out, int T, int S, int R) {
@@ -111,13 +118,13 @@ gram_section_kernel(const float* __restrict__ aux2, CrossPtrs<float> gths,
   if (kLevel == 0) {
     for (int p = tid; p < S * D * D; p += blockDim.x) out_tile[p] = total;
   } else {
-    gram_pass<float, false>(z, W, slot, T, S, D, D, out_tile);
+    gram_pass<float, false, kMode>(z, W, slot, T, S, D, D, out_tile);
     __syncthreads();
     if (tid == 0) out_tile[0] += total;
   }
 }
 
-template <int kLevel>
+template <int kLevel, int kMode>
 int launch_section(const void* aux2, const void* const* gths, int n_cross,
                    const void* wvsl, void* out, int K, int T, int S, int R,
                    cudaStream_t st) {
@@ -125,14 +132,14 @@ int launch_section(const void* aux2, const void* const* gths, int n_cross,
   const size_t smem = ((size_t)T * W + (size_t)S * (R + 2) + T) *
                           sizeof(float) + (size_t)T * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
-      gram_section_kernel<kLevel>,
+      gram_section_kernel<kLevel, kMode>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   CrossPtrs<float> cp;
   for (int c = 0; c < kMaxCross; ++c) {
     cp.p[c] = c < n_cross ? static_cast<const float*>(gths[c]) : nullptr;
   }
-  gram_section_kernel<kLevel><<<K, kThreads, smem, st>>>(
+  gram_section_kernel<kLevel, kMode><<<K, kThreads, smem, st>>>(
       static_cast<const float*>(aux2), cp, n_cross,
       static_cast<const float*>(wvsl), static_cast<float*>(out), T, S, R);
   return (int)cudaGetLastError();
@@ -169,36 +176,46 @@ __global__ void interleave_staged_kernel(const float* __restrict__ x,
 
 extern "C" {
 
-// Level 0-3 variant of kernel 1 (Gibbs layout, fp32).  Levels 0-2 write
-// out only; level 3 also runs the carry pass (carry_in, carry_out and
-// scratch as myfm_fused_gram_cross takes them).  Returns 0 or the
+// Level 0-3 variant of kernel 1 (Gibbs layout, fp32) in Gram mode
+// ``mode`` (0 IEEE, 1 split, 2 bf16; level 0 takes 0 only).  Levels 0-2
+// write out only; level 3 also runs the carry pass (carry_in, carry_out
+// and scratch as myfm_fused_gram_cross takes them).  Returns 0 or the
 // cudaError_t of the first failed launch.
-int myfm_gram_section(int level, const void* aux2, const void* const* gths,
-                      int n_cross, const void* wvsl, const int* cont_in,
-                      const int* cont_out, const int* last_slot,
-                      const void* carry_in, void* out, void* carry_out,
-                      void* scratch, int K, int T, int S, int R,
-                      void* stream) {
+int myfm_gram_section(int level, int mode, const void* aux2,
+                      const void* const* gths, int n_cross, const void* wvsl,
+                      const int* cont_in, const int* cont_out,
+                      const int* last_slot, const void* carry_in, void* out,
+                      void* carry_out, void* scratch, int K, int T, int S,
+                      int R, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_cross < 1 || n_cross > kMaxCross || S < 1 || S > kMaxSlots ||
-      K < 1 || T < 1 || R < 0) {
+      K < 1 || T < 1 || R < 0 || !mode_ok<float>(mode) ||
+      (level == 0 && mode != kModeIEEE)) {
     return (int)cudaErrorInvalidValue;
   }
   switch (level) {
     case 0:
-      return launch_section<0>(aux2, gths, n_cross, wvsl, out, K, T, S, R,
-                               st);
+      return launch_section<0, kModeIEEE>(aux2, gths, n_cross, wvsl, out, K,
+                                          T, S, R, st);
     case 1:
-      return launch_section<1>(aux2, gths, n_cross, wvsl, out, K, T, S, R,
-                               st);
+      if (mode == kModeSplit) {
+        return launch_section<1, kModeSplit>(aux2, gths, n_cross, wvsl, out,
+                                             K, T, S, R, st);
+      }
+      if (mode == kModeBf16) {
+        return launch_section<1, kModeBf16>(aux2, gths, n_cross, wvsl, out,
+                                            K, T, S, R, st);
+      }
+      return launch_section<1, kModeIEEE>(aux2, gths, n_cross, wvsl, out, K,
+                                          T, S, R, st);
     case 2:
       return launch_cross_grams<float>(aux2, gths, n_cross, wvsl, out, K, T,
-                                       S, R, 1, 0, R + 2, st);
+                                       S, R, 1, 0, R + 2, mode, st);
     case 3:
       return launch_cross<float>(aux2, gths, n_cross, wvsl, cont_in,
                                  cont_out, last_slot, carry_in, out,
                                  carry_out, scratch, K, T, S, R, 1, 0, R + 2,
-                                 stream);
+                                 mode, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

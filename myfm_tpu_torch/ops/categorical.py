@@ -300,9 +300,12 @@ def _build_table_gram(
     own_rows: torch.Tensor,  # [B, 2+R] own per-entity [w | V | qs]
     tau_tile: torch.Tensor,  # [NT] target in this table's tile order
     plain: bool,
+    fast_matmul=False,
 ):
     """Per-entity Gram G_u = Σ_{n∈u} z zᵀ, z = [1 | e⁰ | φ_other], for
-    table ti, built chunk by chunk of tiles from the current weights.
+    table ti, built chunk by chunk of tiles from the current weights, in
+    the Gram mode ``fast_matmul`` (the resolved ``cfg.gram_fast_matmul``;
+    ops/gram.gram_mode), for one-hot and entity+attribute tables alike.
 
     e⁰ EXCLUDES w0: consumers apply the exact rank-1 correction
     z₁ += w0·z₀ to the Gram statistics (_entity_draws).  ``plain``
@@ -317,7 +320,8 @@ def _build_table_gram(
     carry = V.new_zeros(D, D)
     chunks = table_gram_operands(plan, ti, w, V, eff, own_rows, tau_tile)
     for c, (aux2, gths, wvsl, ci, co, ls) in enumerate(chunks):
-        flat, carry = gram(aux2, gths, wvsl, ci, co, ls, S, carry)
+        flat, carry = gram(aux2, gths, wvsl, ci, co, ls, S, carry,
+                           fast_matmul=fast_matmul)
         # consume this chunk's finalized entities into G over their
         # contiguous id window; the full [K*S, D, D] partial array
         # never exists
@@ -366,7 +370,8 @@ def _table_pass(
     own_rows = torch.cat(
         [w_t[:, None], V_t, (V_t * V_t).sum(dim=1, keepdim=True)], dim=1
     )
-    G = _build_table_gram(plan, ti, w, V, eff, own_rows, tau_tile, plain)
+    G = _build_table_gram(plan, ti, w, V, eff, own_rows, tau_tile, plain,
+                          cfg.gram_fast_matmul or False)
     w_new, V_new, parts = _entity_draws(
         G, w0, w_t, V_t, g_t, alpha, lambda_w, mu_w, lambda_V, mu_V,
         noise_w[t.noise_feat], noise_V[t.noise_feat], cfg, want_moments,
@@ -570,7 +575,8 @@ def _ea_table_pass(
     if eff is None:
         eff = eff_tables(plan, w, V)
     own = eff[ti]  # [B, 2+R] = [w̃ | Ṽ | qs̃]
-    G = _build_table_gram(plan, ti, w, V, eff, own, tau_tile, plain)
+    G = _build_table_gram(plan, ti, w, V, eff, own, tau_tile, plain,
+                          cfg.gram_fast_matmul or False)
     Gf = ea_flat_gram(G, w0, own)
     ops = ea_scan_operands(si, w, V, lambda_w, mu_w, lambda_V, mu_V,
                            group_index, noise_w, noise_V)

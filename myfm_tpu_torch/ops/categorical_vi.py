@@ -203,10 +203,11 @@ def vi_gram_operands(plan: CategoricalPlan, ti: int, w, w_var, V, V_var,
 
 
 def vi_table_gram(plan: CategoricalPlan, ti: int, w, w_var, V, V_var,
-                  tau_tile, eff=None, plain: bool = False):
+                  tau_tile, eff=None, plain: bool = False,
+                  fast_matmul=False):
     """Per-entity Gram rectangles [B, 2+R, 3R+2] of one-hot table ti over
     z = [1 | e⁰ | φ | σ | τ] (e⁰ without w0), built chunk by chunk of
-    tiles through kernel 1's VI layout."""
+    tiles through kernel 1's VI layout in Gram mode ``fast_matmul``."""
     t = plan.tables[ti]
     rank = V.shape[1]
     rows_r = 2 + rank
@@ -217,7 +218,7 @@ def vi_table_gram(plan: CategoricalPlan, ti: int, w, w_var, V, V_var,
     for c, (aux2, gths, wvsl, ci, co, ls) in enumerate(chunks):
         flat, carry = gram(aux2, gths, wvsl, ci, co, ls, t.tile_entities,
                            carry, q_lo=2, n_extra=2 * rank,
-                           out_rows=rows_r)
+                           out_rows=rows_r, fast_matmul=fast_matmul)
         _consume_chunk(G, flat, t, c, rows_r)
     return G
 
@@ -305,7 +306,8 @@ def _vi_table_pass(plan: CategoricalPlan, ti: int, w, w_var, V, V_var,
     """One one-hot table's CAVI w update + factor scan in entity space;
     returns the new (w, w_var, V, V_var)."""
     t = plan.tables[ti]
-    G = vi_table_gram(plan, ti, w, w_var, V, V_var, tau_tile, eff, plain)
+    G = vi_table_gram(plan, ti, w, w_var, V, V_var, tau_tile, eff, plain,
+                      cfg.gram_fast_matmul or False)
     g_t = group_index[t.col_offset : t.col_offset + t.n_cols]
     w_new, wv_new, V_new, s_new = _vi_entity_updates(
         G, w0, _table_slice(w, t), _table_slice(w_var, t),
@@ -529,11 +531,12 @@ def vi_ea_gram_operands(plan: CategoricalPlan, ti: int, w, w_var, V,
 
 
 def vi_ea_table_gram(plan: CategoricalPlan, ti: int, w, w_var, V, V_var,
-                     w0, tau_tile, eff, plain: bool = False):
+                     w0, tau_tile, eff, plain: bool = False,
+                     fast_matmul=False):
     """Per-block-row Gram rectangles [B, 2+R, 3R+2] of entity+attribute
     table ti over z = [1 | e | φ_o | σ_o | τ_o] from the OTHER tables'
     contributions (e includes w0 here), built chunk by chunk of tiles
-    through kernel 2."""
+    through kernel 2 in Gram mode ``fast_matmul``."""
     t = plan.tables[ti]
     rank = V.shape[1]
     rows_r = 2 + rank
@@ -543,7 +546,8 @@ def vi_ea_table_gram(plan: CategoricalPlan, ti: int, w, w_var, V, V_var,
     chunks = vi_ea_gram_operands(plan, ti, w, w_var, V, V_var, w0,
                                  tau_tile, eff)
     for c, ops in enumerate(chunks):
-        flat, carry = gram(*ops, t.tile_entities, carry, out_rows=rows_r)
+        flat, carry = gram(*ops, t.tile_entities, carry, out_rows=rows_r,
+                           fast_matmul=fast_matmul)
         _consume_chunk(G, flat, t, c, rows_r)
     return G
 
@@ -562,7 +566,7 @@ def _vi_ea_table_pass(plan: CategoricalPlan, ti: int, w, w_var, V, V_var,
     B = plan.tables[ti].n_cols
     own = eff[ti]
     G = vi_ea_table_gram(plan, ti, w, w_var, V, V_var, w0, tau_tile, eff,
-                         plain)
+                         plain, cfg.gram_fast_matmul or False)
 
     # own-contribution conversion: z_total = z + U·z₀ with per-entity
     # U = [0, 0, Ṽ, σ̃, τ̃]  ⇒  G ← G + U g₀ᵀ + g₀ Uᵀ + G₀₀ UUᵀ

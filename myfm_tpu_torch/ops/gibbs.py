@@ -83,9 +83,14 @@ class GibbsConfig:
     # kernel when the plan is on CUDA and D = rank + 2 <= 34
     # (trainer._resolve_joint_tail); True requires CUDA tensors.
     joint_tail_kernel: Optional[bool] = None
-    # Gram arithmetic mode.  None = auto, which resolves to IEEE fp32
-    # (False) in this port (trainer._resolve_gram_fast_matmul); the
-    # split / bf16 modes of the TPU package are not ported yet.
+    # fast-path Gram arithmetic mode (kernel 1; ops/gram.gram_mode).
+    # None = auto (trainer._resolve_gram_fast_matmul): float32 on a CUDA
+    # card resolves, after per-mode self-checks on the card
+    # (ops/gram.gram_fast_selfcheck), to the single-pass "bf16" Gram at
+    # rank >= 64 and to the 3-pass bf16 "split" (~1.5e-5 relative)
+    # otherwise; the CPU and float64 keep IEEE.  False forces IEEE, True
+    # or "split" the split mode, "bf16" the single pass (float32 only on
+    # the card: a mode with float64 there raises).
     gram_fast_matmul: Optional[object] = None
 
     @property

@@ -37,6 +37,14 @@ CUDA tensors and runs its plain PyTorch version on CPU tensors.  The
 Gram kernels' output is [K*S, rows, D] (the TPU kernel's [K*S, Dpr, D]
 without its 8-row slot padding) plus the carry [rows, D] leaving the
 last tile, with rows = ``out_rows`` or D.
+
+Kernels 1, 2 and 5 (levels 1-3) take the TPU kernels' Gram arithmetic
+mode ``fast_matmul`` (``gram_mode``): "highest" (IEEE), "split" (three
+bf16 products of each operand's hi = bf16(x) and lo = bf16(x − hi),
+~1.5e-5 of the Gram's scale) or "bf16" (hi·hi alone, ~4e-3); the CUDA
+kernels run the two reduced modes on the tensor cores, in fp32 only.
+``gram_fast_selfcheck`` validates a mode on the card, as the TPU
+package's does on its accelerator.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from __future__ import annotations
 import ctypes
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from . import _build
@@ -51,6 +60,27 @@ from . import _build
 MAX_CROSS = 8
 MAX_SLOTS = 64
 SMEM_LIMIT = 227 * 1024  # bytes of shared memory a Hopper block may use
+GRAM_MODES = ("highest", "split", "bf16")  # the C side's mode 0, 1, 2
+
+
+def gram_mode(fast_matmul) -> str:
+    """The Gram mode of a ``fast_matmul`` value, normalised as the TPU
+    package's kernels do (pallas_gram.py ``_emit_gram_tail``): a string
+    names the mode, else True is "split" and False (or None) "highest".
+    Raises ValueError for a string that names no mode."""
+    mode = (fast_matmul if isinstance(fast_matmul, str)
+            else "split" if fast_matmul else "highest")
+    if mode not in GRAM_MODES:
+        raise ValueError(f"fast_matmul={fast_matmul!r}: not one of "
+                         f"{GRAM_MODES}, True or False")
+    return mode
+
+
+def _bf16_split(z: torch.Tensor):
+    """(hi, lo) of every value in z's own dtype: hi = bf16(z), lo =
+    bf16(z − hi), each rounded to nearest even."""
+    hi = z.to(torch.bfloat16).to(z.dtype)
+    return hi, (z - hi).to(torch.bfloat16).to(z.dtype)
 
 
 def _own_rows(wvsl: torch.Tensor, slot: torch.Tensor, S: int):
@@ -68,15 +98,32 @@ def masked_rows(z: torch.Tensor, m: torch.Tensor, rows: int) -> torch.Tensor:
     return (m[:, :, :, None] * z[:, :, None, :rows]).reshape(K, T, S * rows)
 
 
-def _grams_with_carry(z, m, rows, cont_in, cont_out, last_slot, carry_in):
-    """Σ_t m[k,t,s] z zᵀ over the first ``rows`` rows, then the TPU grid's
-    in-order carry: tiles with neither flag set neither read nor change
-    it.  Returns (flat [K*S, rows, D], carry_out [rows, D])."""
+def _masked_gram(z, m, rows, mode="highest"):
+    """[K, S*rows, D]: Σ_t m[k,t,s] z zᵀ over the first ``rows`` rows in
+    Gram mode ``mode``, as the TPU kernel computes it at any dtype: the
+    masked operand A and z split into bf16 hi / lo parts, then A_hi·z_hi
+    + A_hi·z_lo + A_lo·z_hi ("split") or A_hi·z_hi ("bf16") in z's dtype.
+    m is 0 or 1, so the mask commutes with the split."""
+    if mode == "highest":
+        return torch.bmm(masked_rows(z, m, rows).transpose(1, 2), z)
+    hi, lo = _bf16_split(z)
+    a_hi = masked_rows(hi, m, rows).transpose(1, 2)
+    out = torch.bmm(a_hi, hi)
+    if mode == "split":
+        out = out + torch.bmm(a_hi, lo) + torch.bmm(
+            masked_rows(lo, m, rows).transpose(1, 2), hi)
+    return out
+
+
+def _grams_with_carry(z, m, rows, cont_in, cont_out, last_slot, carry_in,
+                      mode="highest"):
+    """Σ_t m[k,t,s] z zᵀ over the first ``rows`` rows (in Gram mode
+    ``mode``), then the TPU grid's in-order carry: tiles with neither flag
+    set neither read nor change it.  Returns (flat [K*S, rows, D],
+    carry_out [rows, D])."""
     K, T, S = m.shape
     D = z.shape[2]
-    partial = torch.bmm(
-        masked_rows(z, m, rows).transpose(1, 2), z
-    ).reshape(K, S, rows, D)
+    partial = _masked_gram(z, m, rows, mode).reshape(K, S, rows, D)
     carry = (
         z.new_zeros(rows, D) if carry_in is None else carry_in.clone()
     )
@@ -89,6 +136,17 @@ def _grams_with_carry(z, m, rows, cont_in, cont_out, last_slot, carry_in):
         if co[k]:
             carry = partial[k, ls[k]].clone()
     return partial.reshape(K * S, rows, D), carry
+
+
+def _sum_sq(x: torch.Tensor) -> torch.Tensor:
+    """Σ_r x[..., r]² over the last axis in order r = 0, 1, ..., each
+    product and sum rounded on its own: the kernels' order and rounding
+    (csrc/gram_tile.cuh add_sq), so a z row's e is the same bit for bit
+    on both sides and the reduced Gram modes round it alike."""
+    s = torch.zeros_like(x[..., 0])
+    for r in range(x.shape[-1]):
+        s = s + x[..., r] * x[..., r]
+    return s
 
 
 def cross_rows(aux2, gths, wvsl, S: int, q_lo: int = 1, n_extra: int = 0):
@@ -119,7 +177,7 @@ def cross_rows(aux2, gths, wvsl, S: int, q_lo: int = 1, n_extra: int = 0):
         lin_o
         - tau
         + own[:, :, 0]
-        + 0.5 * ((qf * qf).sum(dim=2) - qs_o - own[:, :, 1 + R])
+        + 0.5 * (_sum_sq(qf) - qs_o - own[:, :, 1 + R])
     )
     e = score * ones
     z = torch.cat([ones[:, :, None], e[:, :, None], Z_o], dim=2)
@@ -141,15 +199,16 @@ def fused_tile_gram_cross_reference(
     q_lo: int = 1,
     n_extra: int = 0,
     out_rows: Optional[int] = None,
+    fast_matmul=False,
 ):
     """Plain PyTorch version of kernel 1: returns (flat partial Grams
-    [K*S, rows, D], carry_out [rows, D]); layout as in ``cross_rows``.
-    Works on any device (the comparisons on the card run it on CUDA
-    tensors)."""
+    [K*S, rows, D], carry_out [rows, D]); layout as in ``cross_rows``,
+    Gram mode as ``gram_mode(fast_matmul)``.  Works on any device (the
+    comparisons on the card run it on CUDA tensors)."""
     z, m = cross_rows(aux2, gths, wvsl, S, q_lo, n_extra)
     rows = z.shape[2] if out_rows is None else out_rows
     return _grams_with_carry(z, m, rows, cont_in, cont_out, last_slot,
-                             carry_in)
+                             carry_in, gram_mode(fast_matmul))
 
 
 def meta_rows(meta, q_other, slot, wvsl, S: int):
@@ -165,9 +224,7 @@ def meta_rows(meta, q_other, slot, wvsl, S: int):
     own = torch.bmm(m, wvsl)  # [K, T, 1+R]
     qf = q_other[:, :, :R] + own[:, :, 1:]
     score = meta[:, :, 1] + own[:, :, 0] + 0.5 * (
-        (qf * qf).sum(dim=2)
-        - meta[:, :, 2]
-        - (own[:, :, 1:] ** 2).sum(dim=2)
+        _sum_sq(qf) - meta[:, :, 2] - _sum_sq(own[:, :, 1:])
     )
     e = score * ones
     z = torch.cat([ones[:, :, None], e[:, :, None], q_other], dim=2)
@@ -185,15 +242,16 @@ def fused_tile_gram_reference(
     S: int,
     carry_in: Optional[torch.Tensor] = None,  # [rows, D]
     out_rows: Optional[int] = None,
+    fast_matmul=False,
 ):
     """Plain PyTorch version of kernel 2 (the TPU package's
-    ``fused_tile_gram_reference`` with the ``out_rows`` rectangle):
-    returns (flat partial Grams [K*S, rows, D], carry_out [rows, D]);
-    layout as in ``meta_rows``."""
+    ``fused_tile_gram_reference`` with the ``out_rows`` rectangle and
+    the kernel's Gram modes): returns (flat partial Grams [K*S, rows,
+    D], carry_out [rows, D]); layout as in ``meta_rows``."""
     z, m = meta_rows(meta, q_other, slot, wvsl, S)
     rows = z.shape[2] if out_rows is None else out_rows
     return _grams_with_carry(z, m, rows, cont_in, cont_out, last_slot,
-                             carry_in)
+                             carry_in, gram_mode(fast_matmul))
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -208,14 +266,15 @@ def _bind(lib: ctypes.CDLL):
         )
         lib.myfm_tile_gram.restype = ctypes.c_int
         lib.myfm_fused_gram_cross.argtypes = (
-            [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+            [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int]
             + [ctypes.c_void_p] * 8
             + [ctypes.c_int] * 7
             + [ctypes.c_void_p]
         )
         lib.myfm_fused_gram_cross.restype = ctypes.c_int
         lib.myfm_fused_gram.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 11
+            [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 11
             + [ctypes.c_int] * 6
             + [ctypes.c_void_p]
         )
@@ -275,12 +334,22 @@ def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+def _card_mode(name, mode, dtype) -> int:
+    """The C side's mode number of ``mode``; raises ValueError for a
+    reduced mode outside fp32 (the card has no fp64 tensor-core path, and
+    falling back to IEEE would hide it)."""
+    if mode != "highest" and dtype != torch.float32:
+        raise ValueError(f"{name}: Gram mode {mode!r} needs float32, got "
+                         f"{dtype}")
+    return GRAM_MODES.index(mode)
+
+
 def _launch(name, fn, operands, dims, K, S, rows, D, dtype, device,
-            carry_in, lib=None, first=None):
+            carry_in, lib=None, lead=None):
     """Allocate the outputs and the carry scratch, call the C entry point
-    ``fn`` (``first``, by default the dtype flag; its operand pointers;
-    then carry_in / out / carry_out / scratch; then its integer ``dims``)
-    on the current stream, and raise if the launch failed."""
+    ``fn`` (its ``lead`` integers, by default the dtype flag; its operand
+    pointers; then carry_in / out / carry_out / scratch; then its integer
+    ``dims``) on the current stream, and raise if the launch failed."""
     lib = lib or _bind(_build.load("fused_gram_cross"))
     scratch_lib = _bind(_build.load("fused_gram_cross"))
     if carry_in is None:
@@ -289,11 +358,11 @@ def _launch(name, fn, operands, dims, K, S, rows, D, dtype, device,
     carry_out = torch.empty(rows, D, dtype=dtype, device=device)
     scratch = torch.empty(scratch_lib.myfm_gram_carry_scratch(K, rows * D),
                           dtype=dtype, device=device)
-    if first is None:
-        first = int(dtype == torch.float64)
+    if lead is None:
+        lead = [int(dtype == torch.float64)]
     with torch.cuda.device(device):
         rc = getattr(lib, fn)(
-            first, *operands, _ptr(carry_in), _ptr(out), _ptr(carry_out),
+            *lead, *operands, _ptr(carry_in), _ptr(out), _ptr(carry_out),
             _ptr(scratch), *dims, _stream(),
         )
     if rc != 0:
@@ -313,19 +382,23 @@ def fused_tile_gram_cross(
     q_lo: int = 1,
     n_extra: int = 0,
     out_rows: Optional[int] = None,
+    fast_matmul=False,
 ):
     """Kernel 1: flat partial Grams [K*S, rows, D] and the carry leaving
     the last tile (layout as in ``fused_tile_gram_cross_reference``; the
-    defaults are the Gibbs layout with the full square Gram).  ``e``
-    excludes w0: the consumers apply the exact rank-1 w0 correction to
-    the Gram statistics.  CPU tensors run the plain version; CUDA
-    tensors launch the kernel, or raise.  ``launches`` counts the
-    Gibbs-layout launches, ``vi_launches`` all others."""
+    defaults are the Gibbs layout with the full square Gram) in Gram mode
+    ``gram_mode(fast_matmul)``.  ``e`` excludes w0: the consumers apply
+    the exact rank-1 w0 correction to the Gram statistics.  CPU tensors
+    run the plain version; CUDA tensors launch the kernel, or raise.
+    ``launches`` counts the Gibbs-layout launches, ``vi_launches`` all
+    others, and ``mode_launches[layout][mode]`` both by mode ("gibbs" /
+    "vi")."""
     gths = tuple(gths)
+    mode = gram_mode(fast_matmul)
     if aux2.device.type == "cpu":
         return fused_tile_gram_cross_reference(
             aux2, gths, wvsl, cont_in, cont_out, last_slot, S, carry_in,
-            q_lo, n_extra, out_rows,
+            q_lo, n_extra, out_rows, mode,
         )
     K, two, T = aux2.shape
     R = wvsl.shape[2] - 2
@@ -349,6 +422,7 @@ def fused_tile_gram_cross(
         [(t, (K,)) for t in (cont_in, cont_out, last_slot)],
         K, S, rows, D, carry_in, (T * W + S * (R + 2)) * item + T * 4,
     )
+    code = _card_mode(name, mode, wvsl.dtype)
     gth_ptrs = (ctypes.c_void_p * max(len(gths), 1))(
         *[g.data_ptr() for g in gths]
     )
@@ -358,16 +432,26 @@ def fused_tile_gram_cross(
          _ptr(wvsl), _ptr(cont_in), _ptr(cont_out), _ptr(last_slot)],
         [K, T, S, R, q_lo, n_extra, rows],
         K, S, rows, D, wvsl.dtype, wvsl.device, carry_in,
+        lead=[int(wvsl.dtype == torch.float64), code],
     )
-    if (q_lo, n_extra, out_rows) == (1, 0, None):
+    layout = "gibbs" if (q_lo, n_extra, out_rows) == (1, 0, None) else "vi"
+    if layout == "gibbs":
         fused_tile_gram_cross.launches += 1
     else:
         fused_tile_gram_cross.vi_launches += 1
+    fused_tile_gram_cross.mode_launches[layout][mode] += 1
     return out
+
+
+def mode_counts():
+    """A fresh per-mode launch count."""
+    return dict.fromkeys(GRAM_MODES, 0)
 
 
 fused_tile_gram_cross.launches = 0
 fused_tile_gram_cross.vi_launches = 0
+fused_tile_gram_cross.mode_launches = {"gibbs": mode_counts(),
+                                       "vi": mode_counts()}
 
 
 def fused_tile_gram(
@@ -381,15 +465,19 @@ def fused_tile_gram(
     S: int,
     carry_in: Optional[torch.Tensor] = None,
     out_rows: Optional[int] = None,
+    fast_matmul=False,
 ):
     """Kernel 2: flat partial Grams [K*S, rows, D] and the carry leaving
     the last tile (layout as in ``fused_tile_gram_reference``; ``ones``,
-    meta's first column, is 0 or 1).  CPU tensors run the plain version;
-    CUDA tensors launch the kernel, or raise."""
+    meta's first column, is 0 or 1) in Gram mode
+    ``gram_mode(fast_matmul)``.  CPU tensors run the plain version; CUDA
+    tensors launch the kernel, or raise.  ``launches`` counts the
+    launches, ``mode_launches[mode]`` them by mode."""
+    mode = gram_mode(fast_matmul)
     if meta.device.type == "cpu":
         return fused_tile_gram_reference(
             meta, q_other, slot, wvsl, cont_in, cont_out, last_slot, S,
-            carry_in, out_rows,
+            carry_in, out_rows, mode,
         )
     K, T, Rq = q_other.shape
     R = wvsl.shape[2] - 1
@@ -408,18 +496,68 @@ def fused_tile_gram(
                                                 last_slot)],
         K, S, rows, D, carry_in, (T * D + S * (R + 1)) * item + T * 4,
     )
+    code = _card_mode(name, mode, wvsl.dtype)
     out = _launch(
         name, "myfm_fused_gram",
         [_ptr(meta), _ptr(q_other), _ptr(slot), _ptr(wvsl), _ptr(cont_in),
          _ptr(cont_out), _ptr(last_slot)],
         [K, T, S, R, Rq, rows],
         K, S, rows, D, wvsl.dtype, wvsl.device, carry_in,
+        lead=[int(wvsl.dtype == torch.float64), code],
     )
     fused_tile_gram.launches += 1
+    fused_tile_gram.mode_launches[mode] += 1
     return out
 
 
 fused_tile_gram.launches = 0
+fused_tile_gram.mode_launches = mode_counts()
+
+
+# The self-check's gates: the largest |mode − IEEE| over the IEEE Gram's
+# largest entry (the TPU package's: an order of magnitude above each
+# mode's ~1.5e-5 / ~4e-3).
+SELFCHECK_TOL = {"split": 2e-4, "bf16": 2e-2}
+_selfcheck_cache: dict = {}
+
+
+def gram_fast_selfcheck(mode: str = "split", device="cuda") -> bool:
+    """Whether Gram mode ``mode`` ("split" or "bf16") holds on the card
+    ``device``: kernel 2 in that mode against kernel 2 in IEEE on one
+    small random problem (the TPU package's, ``pallas_gram.py``
+    ``gram_fast_selfcheck``: RandomState(3), K = 4, T = 256, S = 4,
+    R = 32), every entry within ``SELFCHECK_TOL[mode]`` of the IEEE
+    Gram's largest.  Cached per (device, mode); False off CUDA, as the
+    TPU package's is off its accelerator.  A failed build or launch
+    raises: only a failed numerical check returns False."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return False
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (str(device), mode)
+    hit = _selfcheck_cache.get(key)
+    if hit is not None:
+        return hit
+    tol = SELFCHECK_TOL[mode]
+    rng = np.random.RandomState(3)
+    K, T, S, R = 4, 256, 4, 32
+    meta = rng.normal(size=(K, T, 3)).astype(np.float32)
+    meta[:, :, 0] = 1.0
+    q = (rng.normal(size=(K, T, R)) * 0.3).astype(np.float32)
+    slot = rng.randint(0, S, (K, T)).astype(np.int32)
+    slot.sort(axis=1)
+    wvsl = (rng.normal(size=(K, S, 1 + R)) * 0.3).astype(np.float32)
+    flags = (np.zeros(K, np.int32), np.zeros(K, np.int32),
+             np.full(K, S - 1, np.int32))
+    args = [torch.as_tensor(a, device=device)
+            for a in (meta, q, slot, wvsl, *flags)]
+    ieee, _ = fused_tile_gram(*args, S)
+    fast, _ = fused_tile_gram(*args, S, fast_matmul=mode)
+    scale = float(ieee.abs().max())
+    ok = float((fast - ieee).abs().max()) <= tol * scale
+    _selfcheck_cache[key] = ok
+    return ok
 
 
 def tile_gram_reference(
@@ -494,23 +632,37 @@ def entity_grams(table, rows_tiled: torch.Tensor, S: int, D: int,
 SECTION_LEVELS = (0, 1, 2, 3)
 
 
+def _section_mode(level: int, fast_matmul) -> str:
+    if level not in SECTION_LEVELS:
+        raise ValueError(f"gram_section: level {level} not in "
+                         f"{SECTION_LEVELS}")
+    mode = gram_mode(fast_matmul)
+    if level == 0 and mode != "highest":
+        raise ValueError("gram_section: level 0 (the checksum) has no "
+                         f"Gram mode, got {mode!r}")
+    return mode
+
+
 def gram_section_reference(level: int, aux2, gths, wvsl, cont_in, cont_out,
-                           last_slot, S: int):
+                           last_slot, S: int, fast_matmul=False):
     """Plain PyTorch version of section level ``level`` (csrc/
-    gram_sections.cu): (out [K*S, D, D], carry_out or None).  Levels 0
-    and 1 define their output by a per-tile checksum of every operand;
-    level 2 is kernel 1 without the carry, level 3 kernel 1 whole."""
+    gram_sections.cu) in Gram mode ``gram_mode(fast_matmul)`` (levels
+    1-3): (out [K*S, D, D], carry_out or None).  Levels 0 and 1 define
+    their output by a per-tile checksum of every operand; level 2 is
+    kernel 1 without the carry, level 3 kernel 1 whole."""
+    mode = _section_mode(level, fast_matmul)
     if level == 3:
         return fused_tile_gram_cross_reference(
-            aux2, gths, wvsl, cont_in, cont_out, last_slot, S)
+            aux2, gths, wvsl, cont_in, cont_out, last_slot, S,
+            fast_matmul=mode)
     K, _, T = aux2.shape
     R = wvsl.shape[2] - 2
     D = R + 2
     if level == 2:
         z, m = cross_rows(aux2, gths, wvsl, S)
         return _grams_with_carry(z, m, D, cont_in.new_zeros(K),
-                                 cont_out.new_zeros(K), last_slot, None)[0], \
-            None
+                                 cont_out.new_zeros(K), last_slot, None,
+                                 mode)[0], None
     total = sum(g.sum(dim=(1, 2)) for g in gths) \
         + wvsl.sum(dim=(1, 2)) + aux2.sum(dim=(1, 2))
     if level == 0:
@@ -520,7 +672,7 @@ def gram_section_reference(level: int, aux2, gths, wvsl, cont_in, cont_out,
     m = (slot[:, :, None] == torch.arange(S, device=slot.device)).to(
         wvsl.dtype)
     out = _grams_with_carry(gths[0], m, D, cont_in.new_zeros(K),
-                            cont_out.new_zeros(K), last_slot, None)[0]
+                            cont_out.new_zeros(K), last_slot, None, mode)[0]
     out = out.reshape(K, S, D, D)
     out[:, 0, 0, 0] += total
     return out.reshape(K * S, D, D), None
@@ -529,7 +681,8 @@ def gram_section_reference(level: int, aux2, gths, wvsl, cont_in, cont_out,
 def _bind_sections(lib: ctypes.CDLL):
     if lib.myfm_gram_section.argtypes is None:
         lib.myfm_gram_section.argtypes = (
-            [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+            [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int]
             + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         )
         lib.myfm_gram_section.restype = ctypes.c_int
@@ -542,19 +695,20 @@ def _bind_sections(lib: ctypes.CDLL):
 
 
 def gram_section(level: int, aux2, gths, wvsl, cont_in, cont_out,
-                 last_slot, S: int):
+                 last_slot, S: int, fast_matmul=False):
     """Kernel 5: section level ``level`` of kernel 1 on kernel 1's
     operands (Gibbs layout, fp32; layout as in
-    ``gram_section_reference``).  Level 3's output is bit-equal to
-    ``fused_tile_gram_cross`` on the same operands.  CPU tensors run the
-    plain version; CUDA tensors launch the kernel, or raise."""
-    if level not in SECTION_LEVELS:
-        raise ValueError(f"gram_section: level {level} not in "
-                         f"{SECTION_LEVELS}")
+    ``gram_section_reference``) in Gram mode ``gram_mode(fast_matmul)``
+    (levels 1-3; level 0 has none).  Level 3's output is bit-equal to
+    ``fused_tile_gram_cross`` on the same operands in the same mode.  CPU
+    tensors run the plain version; CUDA tensors launch the kernel, or
+    raise.  ``launches[level]`` counts the launches per level,
+    ``mode_launches[mode][level]`` by mode too."""
+    mode = _section_mode(level, fast_matmul)
     gths = tuple(gths)
     if aux2.device.type == "cpu":
         return gram_section_reference(level, aux2, gths, wvsl, cont_in,
-                                      cont_out, last_slot, S)
+                                      cont_out, last_slot, S, mode)
     K, two, T = aux2.shape
     R = wvsl.shape[2] - 2
     D = R + 2
@@ -580,13 +734,21 @@ def gram_section(level: int, aux2, gths, wvsl, cont_in, cont_out,
         [_ptr(aux2), ctypes.cast(gth_ptrs, ctypes.c_void_p), len(gths),
          _ptr(wvsl), _ptr(cont_in), _ptr(cont_out), _ptr(last_slot)],
         [K, T, S, R], K, S, D, D, wvsl.dtype, wvsl.device, None,
-        lib=_bind_sections(_build.load("gram_sections")), first=level,
+        lib=_bind_sections(_build.load("gram_sections")),
+        lead=[level, GRAM_MODES.index(mode)],
     )
     gram_section.launches[level] += 1
+    gram_section.mode_launches[mode][level] += 1
     return out, (carry if level == 3 else None)
 
 
+def section_counts():
+    """A fresh per-mode, per-level launch count."""
+    return {m: [0] * len(SECTION_LEVELS) for m in GRAM_MODES}
+
+
 gram_section.launches = [0] * len(SECTION_LEVELS)  # per level
+gram_section.mode_launches = section_counts()
 
 
 # ---- kernel 6: the (slot, τ) load of kernel 1 ----

@@ -70,9 +70,12 @@ class VariationalConfig:
     reg_0: float = 1.0
     fit_w0: bool = True
     fit_linear: bool = True
-    # Gram arithmetic mode.  None = auto, which resolves to IEEE fp32
-    # (False) in this port (trainer._resolve_gram_fast_matmul); the
-    # split / bf16 modes of the TPU package are not ported yet.
+    # fast-path Gram arithmetic mode (kernels 1 and 2; ops/gram.
+    # gram_mode).  None = auto (trainer._resolve_gram_fast_matmul):
+    # float32 on a CUDA card resolves to the 3-pass bf16 "split" (~1.5e-5
+    # relative) after its self-check on the card; the CPU and float64
+    # keep IEEE.  False forces IEEE, True or "split" the split mode,
+    # "bf16" the single pass (float32 only on the card).
     gram_fast_matmul: Optional[object] = None
 
 

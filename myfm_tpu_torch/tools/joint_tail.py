@@ -167,7 +167,8 @@ def ea_stacks(plan, trainer, state, rank: int) -> List[dict]:
         if si is None:
             continue
         G = _build_table_gram(plan, ti, c.w, c.V, eff, eff[ti],
-                              trainer.y_tiles[ti], plain=False)
+                              trainer.y_tiles[ti], plain=False,
+                              fast_matmul=trainer.cfg.gram_fast_matmul)
         Gf = ea_flat_gram(G, w0, eff[ti])
         B = Gf.shape[1]
         ops = [Gf, Gf.new_zeros((rank, B)), Gf.new_zeros((B,)),

@@ -12,15 +12,21 @@ Gram, Gibbs layout) cut down to its first sections (ops/gram.py
   level 3  + the carry pass (the whole production kernel)
 
 beside each level's plain PyTorch version, one ``torch.bmm`` of the
-slot-masked operand (the yardstick of levels 1-3) and each level's least
-time on an H100 (the bytes it moves over 3.35 TB/s, or its fp32
-operations over 67 TFLOP/s if larger).  Then the probe of kernel 1's
-[K, 2, T] aux2 load into per-row pairs (``interleave_probe``) in its
-two variants beside ``x.transpose(1, 2).contiguous()``.
+slot-masked operand (the yardstick of levels 1-3; in the bf16 Gram modes
+the bf16 ``torch.bmm``, three of them summed for "split") and each
+level's least time on an H100 (the bytes it moves over 3.35 TB/s, or its
+operations if longer: fp32 over 67 TFLOP/s, the Gram's bf16 products
+over 989 TFLOP/s in the reduced modes).  Levels 1-3 run in a Gram mode
+(``--mode``): "highest" (IEEE, the default), "split" or "bf16".  The
+TPU script runs every level in "split" and level 1 in "bf16" too; it has
+no IEEE mode.  Then the probe of kernel 1's [K, 2, T] aux2 load into
+per-row pairs (``interleave_probe``) in its two variants beside
+``x.transpose(1, 2).contiguous()``.
 
 Run it on the card:
 
-    python -m myfm_tpu_torch.tools.kernel_sections [T] [S] [rank]
+    python -m myfm_tpu_torch.tools.kernel_sections [T] [S] [rank] \
+        [--mode highest|split|bf16]
 
 (defaults 256 / 4 / 32 over 4M synthetic rows, as the TPU script).
 ``chip_smoke.py`` calls ``check_sections``, ``time_sections``,
@@ -40,6 +46,7 @@ from ..ops import gram
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12  # dense, on the tensor cores
 # |kernel − plain| over max |plain| per level in fp32: the same sums in
 # another order (levels 0-1 sum a tile's ~10^4 operands into one value)
 SECTION_TOL = 1e-5
@@ -87,32 +94,64 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _bound(nbytes: float, flops: float):
+def _bound(nbytes: float, flops: float, tc_flops: float = 0.0):
+    """(ms, "bytes" | "operations"): the larger of ``nbytes`` over the
+    card's memory rate and ``flops`` fp32 plus ``tc_flops`` bf16
+    tensor-core operations over their peak rates."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / FP32_FLOPS_PER_S * 1e3
+    t_f = (flops / FP32_FLOPS_PER_S + tc_flops / BF16_FLOPS_PER_S) * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def gram_products(mode: str) -> int:
+    """Products per Gram entry and row: 1 (IEEE, bf16) or 3 (split)."""
+    return 3 if mode == "split" else 1
+
+
+def gram_yardstick(mode: str, mz: torch.Tensor, z: torch.Tensor):
+    """The one-call yardstick of a Gram of the masked operand ``mz``
+    [K, S*rows, T] and z [K, T, D] in ``mode``: torch.bmm in fp32
+    ("highest"), in bf16 ("bf16"), or the three bf16 products of the
+    split summed ("split"; three calls, said so where it is printed)."""
+    if mode == "highest":
+        return lambda: torch.bmm(mz, z)
+    a_hi, z_hi = mz.to(torch.bfloat16), z.to(torch.bfloat16)
+    if mode == "bf16":
+        return lambda: torch.bmm(a_hi, z_hi)
+    a_lo = (mz - a_hi.to(mz.dtype)).to(torch.bfloat16)
+    z_lo = (z - z_hi.to(z.dtype)).to(torch.bfloat16)
+    return lambda: (torch.bmm(a_hi, z_hi) + torch.bmm(a_hi, z_lo)
+                    + torch.bmm(a_lo, z_hi))
 
 
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def check_sections(ops: Sequence, S: int) -> Dict[str, float]:
-    """Each level against its plain version (max error over max |plain|,
-    or for levels 0-1 over the largest per-tile sum of |operands| that
-    their checksum adds up, at most SECTION_TOL), and level 3 bit for bit
-    against the production kernel.  Returns the errors; raises on a
-    failed check."""
+def mode_levels(mode: str):
+    """The section levels that run in ``mode``: all in IEEE, 1-3 in the
+    reduced modes (level 0 has no Gram)."""
+    return gram.SECTION_LEVELS if mode == "highest" else (1, 2, 3)
+
+
+def check_sections(ops: Sequence, S: int,
+                   mode: str = "highest") -> Dict[str, float]:
+    """Each level of ``mode`` against its plain version in that mode (max
+    error over max |plain|, or for levels 0-1 over the largest per-tile
+    sum of |operands| that their checksum adds up, at most SECTION_TOL),
+    and level 3 bit for bit against the production kernel in the same
+    mode.
+    Returns the errors; raises on a failed check."""
     aux2, gths, wvsl, ci, co, ls = ops
     abs_total = float((sum(g.abs().sum(dim=(1, 2)) for g in gths)
                        + wvsl.abs().sum(dim=(1, 2))
                        + aux2.abs().sum(dim=(1, 2))).max())
     errs = {}
-    for level in gram.SECTION_LEVELS:
+    for level in mode_levels(mode):
         out, carry = gram.gram_section(level, aux2, gths, wvsl, ci, co, ls,
-                                       S)
+                                       S, mode)
         ref, _ = gram.gram_section_reference(level, aux2, gths, wvsl, ci,
-                                             co, ls, S)
+                                             co, ls, S, mode)
         torch.cuda.synchronize()
         scale = max(float(ref.abs().max()), 1.0,
                     abs_total if level <= 1 else 0.0)
@@ -123,19 +162,21 @@ def check_sections(ops: Sequence, S: int) -> Dict[str, float]:
                                  f" over scale {scale:.3e}")
         if level == 3:
             prod, prod_carry = gram.fused_tile_gram_cross(
-                aux2, gths, wvsl, ci, co, ls, S)
+                aux2, gths, wvsl, ci, co, ls, S, fast_matmul=mode)
             if not (torch.equal(out, prod) and torch.equal(carry,
                                                            prod_carry)):
                 raise AssertionError(
-                    "section level 3 is not bit-equal to the production "
-                    "kernel")
+                    f"section level 3 ({mode}) is not bit-equal to the "
+                    "production kernel")
     return errs
 
 
 def time_sections(ops: Sequence, S: int, reps: int = 10,
-                  plain_reps: int = 2) -> List[dict]:
-    """Per level: kernel ms, ns per row, plain ms, bound ms (and what
-    bounds it), and the torch.bmm yardstick of the Gram levels."""
+                  plain_reps: int = 2, mode: str = "highest",
+                  levels: Sequence[int] = None) -> List[dict]:
+    """Per level (by default every level of ``mode``): kernel ms, ns per
+    row, plain ms, bound ms (and what bounds it), and the yardstick of
+    the Gram levels (``gram_yardstick``)."""
     aux2, gths, wvsl, ci, co, ls = ops
     K, _, T = aux2.shape
     D = wvsl.shape[2]
@@ -146,25 +187,30 @@ def time_sections(ops: Sequence, S: int, reps: int = 10,
     z, _ = gram.cross_rows(aux2, gths, wvsl, S)
     mz = gram.masked_rows(z, m, D).transpose(1, 2)
     raw = gram.masked_rows(gths[0], m, D).transpose(1, 2)
-    bmm_ms = cuda_ms(lambda: torch.bmm(mz, z), reps)
-    bmm_raw_ms = cuda_ms(lambda: torch.bmm(raw, gths[0]), reps)
+    bmm_ms = cuda_ms(gram_yardstick(mode, mz, z), reps)
+    bmm_raw_ms = cuda_ms(gram_yardstick(mode, raw, gths[0]), reps)
     moved = _nbytes(aux2, wvsl, *gths) + K * S * D * D * 4
     n_valid = int((m.sum(dim=2) > 0).sum())
+    gram_flops = n_valid * D * (D + 1) * gram_products(mode)
     rows = []
-    for level in gram.SECTION_LEVELS:
+    for level in levels or mode_levels(mode):
         ms = cuda_ms(lambda: gram.gram_section(level, aux2, gths, wvsl, ci,
-                                               co, ls, S), reps)
+                                               co, ls, S, mode), reps)
         plain_ms = cuda_ms(lambda: gram.gram_section_reference(
-            level, aux2, gths, wvsl, ci, co, ls, S), plain_reps)
+            level, aux2, gths, wvsl, ci, co, ls, S, mode), plain_reps)
         flops = n_rows * D * len(gths)
+        tc_flops = 0
         if level >= 1:
-            flops += n_valid * D * (D + 1)
+            if mode == "highest":
+                flops += gram_flops
+            else:
+                tc_flops = gram_flops
         if level >= 2:
             flops += n_valid * 4 * D
         nbytes = moved + (K * 12 if level == 3 else 0)
-        b_ms, b_by = _bound(nbytes, flops)
+        b_ms, b_by = _bound(nbytes, flops, tc_flops)
         rows.append(dict(
-            level=level, what=LABELS[level], ms=ms,
+            level=level, mode=mode, what=LABELS[level], ms=ms,
             ns_per_row=ms * 1e6 / n_rows, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by,
             library_ms=(None if level == 0
@@ -250,6 +296,12 @@ def main(argv: Sequence[str]) -> int:
     if not torch.cuda.is_available():
         print("kernel_sections: no CUDA device", file=sys.stderr)
         return 1
+    argv = list(argv)
+    mode = "highest"
+    if "--mode" in argv:
+        i = argv.index("--mode")
+        mode = gram.gram_mode(argv[i + 1])
+        del argv[i : i + 2]
     T = int(argv[0]) if len(argv) > 0 else 256
     S = int(argv[1]) if len(argv) > 1 else 4
     rank = int(argv[2]) if len(argv) > 2 else 32
@@ -257,14 +309,16 @@ def main(argv: Sequence[str]) -> int:
     ops = synthetic_operands(T, S, rank)
     n_rows = ops[0].shape[0] * T
     print(f"device {torch.cuda.get_device_name(0)}; T={T} S={S} "
-          f"rank={rank}, {n_rows} rows", flush=True)
-    check_sections(ops, S)
-    for r in time_sections(ops, S):
+          f"rank={rank}, {n_rows} rows, Gram mode {mode}", flush=True)
+    check_sections(ops, S, mode)
+    lib_name = {"highest": "torch.bmm", "bf16": "bf16 torch.bmm",
+                "split": "3 bf16 torch.bmm"}[mode]
+    for r in time_sections(ops, S, mode=mode):
         lib = ("—" if r["library_ms"] is None
                else f"{r['library_ms']:.3f}")
         print(f"L{r['level']} ({r['what']}): {r['ms']:8.3f} ms "
               f"{r['ns_per_row']:6.3f} ns/row; plain {r['plain_ms']:.1f} ms;"
-              f" torch.bmm {lib} ms; bound {r['bound_ms']:.3f} ms "
+              f" {lib_name} {lib} ms; bound {r['bound_ms']:.3f} ms "
               f"({r['bound_by']})", flush=True)
     for shape in ((4, 2, 256), tuple(ops[0].shape)):
         x = torch.randn(shape, device="cuda")

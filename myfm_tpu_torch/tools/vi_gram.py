@@ -33,9 +33,15 @@ slot-masked operand as yardstick.  ``chip_smoke.py`` checks and times
 every Gram kernel of the port with ``check``, ``time_kernel`` and
 ``device_ms``.
 
+With ``--mode split`` or ``--mode bf16`` kernels 1 and 2 run in that
+Gram mode (on the tensor cores; fp32 only, so float64 is not checked),
+beside the bf16 ``torch.bmm`` yardstick (three summed for "split");
+kernel 3 has IEEE only and is skipped.
+
 Run it on the card:
 
-    python -m myfm_tpu_torch.tools.vi_gram [100k|10m|gibbs10m ...]
+    python -m myfm_tpu_torch.tools.vi_gram [100k|10m|gibbs10m ...] \
+        [--mode highest|split|bf16]
 """
 
 from __future__ import annotations
@@ -51,7 +57,8 @@ import torch
 
 from ..design_categorical import compile_categorical_table
 from ..ops import _build, gram
-from .kernel_sections import _bound, _nbytes, cuda_ms
+from .kernel_sections import (_bound, _nbytes, cuda_ms, gram_products,
+                              gram_yardstick)
 
 SHAPES = {
     "100k": dict(rank=10, n_rows=90_000, n_entities=943),
@@ -322,24 +329,34 @@ def device_ms(fn, reps: int = 10, attempts: int = 3,
 
 def time_kernel(kernel, rows_of, ops: Sequence, S: int, kw: dict,
                 row_ops: int = 4, reps: int = 10) -> dict:
-    """Times of one call on ``ops``: by CUDA events around ``reps`` calls
-    (``ms``, the wrapper's host work included), one ``torch.bmm`` of the
-    slot-masked operand (``library_ms``) and the bound of the work on
-    these rows (inputs read once, outputs written once; per valid row the
-    rectangle's unique entries, two operations each, and ``row_ops`` D to
-    build the row)."""
+    """Times of one call on ``ops`` in the Gram mode of ``kw``
+    (``fast_matmul``): by CUDA events around ``reps`` calls (``ms``, the
+    wrapper's host work included), the one-call yardstick of the
+    slot-masked operand (``library_ms``: ``gram_yardstick``, a torch.bmm
+    in fp32, or in bf16, three of them for "split") and the bound of the
+    work on these rows (inputs read once, outputs written once; per valid
+    row the rectangle's unique entries, two operations per product, on
+    the tensor cores in the reduced modes, and ``row_ops`` D fp32
+    operations to build the row)."""
+    mode = gram.gram_mode(kw.get("fast_matmul", False))
     row = dict(ms=cuda_ms(lambda: kernel(*ops, S, **kw), reps))
     out, carry = kernel(*ops, S, **kw)
     z, m = rows_of(ops, S)
     rows, D = out.shape[1], out.shape[2]
     mz = gram.masked_rows(z, m, rows).transpose(1, 2)
-    row["library_ms"] = cuda_ms(lambda: torch.bmm(mz, z), reps)
+    row["library_ms"] = cuda_ms(gram_yardstick(mode, mz, z), reps)
     n_valid = int((m.sum(dim=2) > 0).sum())
     pairs = rows * (rows + 1) // 2 + rows * (D - rows)
     flat = [t for x in ops for t in (x if isinstance(x, list) else [x])]
     moved = _nbytes(*flat, out, carry) + carry.numel() * 4
-    row["bound_ms"], row["bound_by"] = _bound(
-        moved, n_valid * (2 * pairs + row_ops * D))
+    gram_flops = n_valid * 2 * pairs * gram_products(mode)
+    build_flops = n_valid * row_ops * D
+    if mode == "highest":
+        row["bound_ms"], row["bound_by"] = _bound(
+            moved, gram_flops + build_flops)
+    else:
+        row["bound_ms"], row["bound_by"] = _bound(moved, build_flops,
+                                                  gram_flops)
     return row
 
 
@@ -358,7 +375,14 @@ def main(argv: Sequence[str]) -> int:
     if not torch.cuda.is_available():
         print("vi_gram: no CUDA device", file=sys.stderr)
         return 1
-    shapes: List[str] = list(argv) or [*SHAPES, *SQUARE_SHAPES]
+    argv = list(argv)
+    mode = "highest"
+    if "--mode" in argv:
+        i = argv.index("--mode")
+        mode = gram.gram_mode(argv[i + 1])
+        del argv[i : i + 2]
+    shapes: List[str] = argv or [*SHAPES, *SQUARE_SHAPES]
+    tol = TOL if mode == "highest" else {"float32": TOL["float32"]}
     torch.backends.cuda.matmul.allow_tf32 = False
     logs = _build.build_all(("fused_gram_cross",))
     print(f"device {torch.cuda.get_device_name(0)} | {card_line()} | "
@@ -369,13 +393,17 @@ def main(argv: Sequence[str]) -> int:
         square = shape in SQUARE_SHAPES
         kernels = SQUARE_KERNELS if square else KERNELS
         for name, (build, kernel, plain, rows_of) in kernels.items():
+            if name == "tile_gram" and mode != "highest":
+                continue
             ops, S, kw = build(**(SQUARE_SHAPES if square else SHAPES)[shape])
+            if name != "tile_gram":
+                kw = dict(kw, fast_matmul=mode)
             K = ops[0].shape[0]
             # aux2 [K, 2, T] (kernel 1), else [K, T, ...]
             T = ops[0].shape[2 if name.startswith("fused_tile_gram_cross")
                              else 1]
             row = dict(kernel=name, shape=shape, K=K, T=T, S=S, **kw)
-            row.update(check(kernel, plain, ops, S, kw))
+            row.update(check(kernel, plain, ops, S, kw, tol))
             row.update(time_kernel(kernel, rows_of, ops, S, kw,
                                    row_ops=0 if name == "tile_gram" else 4))
             row.update(device_ms(lambda: kernel(*ops, S, **kw)))

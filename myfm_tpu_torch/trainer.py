@@ -31,6 +31,7 @@ from .ops.categorical import (
     make_y_tiles,
 )
 from .ops.forward import predict_score
+from .ops.gram import gram_fast_selfcheck, gram_mode
 from .ops.gibbs import (
     TASK_ORDERED,
     GibbsConfig,
@@ -155,7 +156,9 @@ def run_mcmc_loop(
         trainer.rank, trainer.n_features, trainer.cfg.task,
         trainer.dtype, trainer.device,
     )
-    history = LearningHistory(engine=trainer.engine_name)
+    history = LearningHistory(
+        engine=trainer.engine_name,
+        gram_fast_matmul=trainer.cfg.gram_fast_matmul)
     deferred = callback_allows_async(callback)
     ordered = trainer.cfg.task == TASK_ORDERED
     cut_groups = trainer.cfg.cutpoint_group_classes
@@ -187,18 +190,42 @@ def run_mcmc_loop(
     return predictor, history
 
 
-def _resolve_gram_fast_matmul(cfg: GibbsConfig) -> GibbsConfig:
-    """Resolve gram_fast_matmul=None (auto) to IEEE arithmetic (False),
-    in float32 and float64 alike.  The TPU package's reduced-precision
-    Gram modes ("split", "bf16") are not ported yet."""
-    if cfg.gram_fast_matmul is None:
-        return dataclasses.replace(cfg, gram_fast_matmul=False)
-    if cfg.gram_fast_matmul is not False:
-        raise NotImplementedError(
-            f"gram_fast_matmul={cfg.gram_fast_matmul!r} (split / bf16 "
-            "Gram modes): later slice"
-        )
-    return cfg
+def _resolve_gram_fast_matmul(cfg, dtype, device, rank=None):
+    """Resolve the fast path's Gram mode ``cfg.gram_fast_matmul`` (the
+    TPU package's ``_resolve_gram_fast_matmul``, with a CUDA device in
+    place of its TPU backend).  None (auto), float32 on a CUDA device,
+    after the per-mode self-checks on that card
+    (ops/gram.gram_fast_selfcheck):
+
+    - Gibbs at rank >= 64 (``rank`` given): "bf16", the single-pass
+      product (~4e-3 relative, orders below a Gibbs draw's noise);
+    - otherwise "split", the 3-pass bf16 split (~1.5e-5 relative), also
+      for the deterministic VI paths (``rank`` None);
+    - a mode whose self-check fails is not taken (False: IEEE).
+
+    Everything else (the CPU, float64) resolves to False.  An explicit
+    value is kept, True as "split"; a mode other than False with float64
+    on CUDA raises ValueError: there is no fp64 tensor-core path, and
+    IEEE in its place would hide that."""
+    mode = cfg.gram_fast_matmul
+    cuda = torch.device(device).type == "cuda"
+    f32 = np.dtype(dtype) == np.float32
+    if mode is None:
+        use = False
+        if f32 and cuda:
+            if rank is not None and rank >= 64 and gram_fast_selfcheck(
+                    "bf16", device):
+                use = "bf16"
+            elif gram_fast_selfcheck("split", device):
+                use = "split"
+        return dataclasses.replace(cfg, gram_fast_matmul=use)
+    if mode is not False:
+        mode = gram_mode(mode)
+        if cuda and not f32 and mode != "highest":
+            raise ValueError(
+                f"gram_fast_matmul={cfg.gram_fast_matmul!r} needs float32 "
+                f"on a CUDA device, got {np.dtype(dtype).name}")
+    return dataclasses.replace(cfg, gram_fast_matmul=mode)
 
 
 # The TPU package's gate on its tail kernel (trainer.py
@@ -337,7 +364,7 @@ class CategoricalGibbsTrainer:
         dtype=np.float32,
     ):
         self.plan = plan
-        self.cfg = _resolve_gram_fast_matmul(cfg)
+        self.cfg = _resolve_gram_fast_matmul(cfg, dtype, plan.device, rank)
         if plan.has_side:
             self.cfg = _resolve_joint_tail(self.cfg, plan, rank)
         self.rank = rank

@@ -117,7 +117,8 @@ class CategoricalVITrainer:
         dtype=np.float32,
     ):
         self.plan = plan
-        self.cfg = _resolve_gram_fast_matmul(cfg)
+        self.cfg = _resolve_gram_fast_matmul(cfg, dtype,
+                                             plan.group_index.device)
         self.rank = rank
         self.init_stdev = init_stdev
         self.random_seed = random_seed
@@ -224,8 +225,9 @@ def run_cavi_loop(
     every sweep; otherwise the ELBOs stay device scalars until the chain
     ends."""
     state = trainer._initialize()
-    history = VariationalLearningHistory(hypers=None, elbos=[],
-                                         engine=engine)
+    history = VariationalLearningHistory(
+        hypers=None, elbos=[], engine=engine,
+        gram_fast_matmul=trainer.cfg.gram_fast_matmul)
     deferred = callback_allows_async(callback)
     for it in range(n_iter):
         state = trainer._sweep(state)

@@ -1278,3 +1278,168 @@ def test_probit_sweep_through_the_kernel_matches_plain(task):
     if task == "ordered":
         assert torch.allclose(a.core.cutpoints, b.core.cutpoints,
                               rtol=1e-8)
+
+
+# ---- the reduced-precision Gram modes of kernels 1, 2 and 5 ----
+
+# Kernel vs plain in one Gram mode: every bf16 product is exact in f32,
+# and both sides build the same z rows bit for bit (the e column's sums
+# of squares in one order, csrc/gram_tile.cuh add_sq), so only the order
+# of the f32 sums differs, as in IEEE.
+MODE_TOL = 1e-5
+
+
+_MODE_SHAPES = [(1, 16), (10, 16), (32, 16), (48, 16), (128, 16),
+                (10, 300)]
+# (kernel, R, T): the rectangle at R = 128 (D = 386) fits shared memory
+# only in short tiles, so its T = 300 case is R = 32
+_MODE_CASES = (
+    [(k, R, T) for k in ("cross", "meta")
+     for R, T in _MODE_SHAPES + [(128, 300)]]
+    + [(k, R, T) for k in ("cross_rect", "meta_rect")
+       for R, T in _MODE_SHAPES + [(32, 300)]]
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["highest", "split", "bf16"])
+@pytest.mark.parametrize("S", [1, 64])
+@pytest.mark.parametrize("kernel,R,T", _MODE_CASES)
+def test_gram_modes_match_plain(kernel, R, T, S, mode):
+    """Kernels 1 and 2 in each Gram mode (fp32) against their plain
+    versions in the same mode, within MODE_TOL of scale: the square
+    (Gibbs layout; kernel 2 with out_rows=None) and the VI rectangle (D =
+    3R + 2, out_rows = R + 2), with runs shorter than a 16-row k-chunk,
+    pad rows, slots out of order, runs cut by the run list's 256-row
+    chunks (T = 300), S = 1 and 64, and R = 128 (the IEEE square at D =
+    130 included); the reduced modes also within the self-check's gates
+    of IEEE, and two runs bit-equal."""
+    device = _cuda()
+    base = kernel.split("_")[0]
+    rect = kernel.endswith("_rect")
+    seed = R * 100 + S + T
+    ops, carry = (_rect_problem(base, R, S, seed, T=T) if rect
+                  else _square_problem(base, R, S, seed, T=T))
+
+    def t(a):
+        a = torch.as_tensor(a, device=device)
+        return a.float() if a.is_floating_point() else a
+
+    ops = [[t(g) for g in o] if isinstance(o, list) else t(o) for o in ops]
+    cy = t(carry)
+    fn, plain = {
+        "cross": (gram.fused_tile_gram_cross,
+                  gram.fused_tile_gram_cross_reference),
+        "meta": (gram.fused_tile_gram, gram.fused_tile_gram_reference),
+    }[base]
+    kw = {}
+    if rect:
+        kw = (dict(q_lo=2, n_extra=2 * R, out_rows=2 + R) if base == "cross"
+              else dict(out_rows=2 + R))
+    counts = (fn.mode_launches["gibbs" if not rect else "vi"]
+              if base == "cross" else fn.mode_launches)
+    before = counts[mode]
+    out, c = fn(*ops, S, cy, fast_matmul=mode, **kw)
+    again, c2 = fn(*ops, S, cy, fast_matmul=mode, **kw)
+    torch.cuda.synchronize()
+    assert counts[mode] == before + 2
+    assert torch.equal(out, again) and torch.equal(c, c2)
+    ref, ref_c = plain(*ops, S, cy, fast_matmul=mode, **kw)
+    assert out.shape == ref.shape
+    scale = max(float(ref.abs().max()), 1.0)
+    assert float((out - ref).abs().max()) <= MODE_TOL * scale
+    assert float((c - ref_c).abs().max()) <= MODE_TOL * scale
+    if mode != "highest":
+        ieee, _ = fn(*ops, S, cy, **kw)
+        assert float((out - ieee).abs().max()) <= \
+            gram.SELFCHECK_TOL[mode] * float(ieee.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["split", "bf16"])
+def test_section_levels_in_modes(mode):
+    """Kernel 5 at levels 1-3 in each reduced mode against its plain
+    version in that mode, level 3 bit-equal to kernel 1 in the same mode
+    (tools/kernel_sections.check_sections), on synthetic tiles and on a
+    real packing."""
+    from myfm_tpu_torch.tools import kernel_sections as ks
+
+    _cuda()
+    ops = ks.synthetic_operands(256, 4, 32, n_rows=200_000)
+    before = list(gram.gram_section.mode_launches[mode])
+    ks.check_sections(ops, 4, mode)
+    assert [a - b for a, b in zip(gram.gram_section.mode_launches[mode],
+                                  before)] == [0, 1, 1, 1]
+    args = _problem(256, 8, 2, seed=3, dtype=np.float32)
+    aux2, gths, wvsl, flags, S, _ = args
+    t = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
+    ks.check_sections([t(aux2), [t(g) for g in gths], t(wvsl),
+                       *[t(f) for f in flags]], S, mode)
+    with pytest.raises(ValueError, match="no Gram mode"):
+        gram.gram_section(0, *ops, 4, mode)
+
+
+@pytest.mark.cuda
+def test_mode_selfcheck_and_resolution_on_the_card():
+    """Both self-checks pass on the card; "auto" resolves to "split" for
+    Gibbs below rank 64 and for VI, to "bf16" at rank >= 64; an explicit
+    mode is kept (True as "split"); a mode with float64 raises."""
+    import dataclasses
+
+    from myfm_tpu_torch.ops.gibbs import GibbsConfig
+    from myfm_tpu_torch.ops.variational import VariationalConfig
+    from myfm_tpu_torch.trainer import _resolve_gram_fast_matmul
+
+    device = _cuda()
+    assert gram.gram_fast_selfcheck("split", device)
+    assert gram.gram_fast_selfcheck("bf16", device)
+    g = GibbsConfig()
+    f32 = np.float32
+
+    def resolved(cfg, dtype=f32, rank=None):
+        return _resolve_gram_fast_matmul(cfg, dtype, device,
+                                         rank).gram_fast_matmul
+
+    assert resolved(g, rank=32) == "split"
+    assert resolved(g, rank=128) == "bf16"
+    assert resolved(VariationalConfig()) == "split"
+    assert resolved(g, np.float64, 128) is False
+    assert resolved(dataclasses.replace(g, gram_fast_matmul=True)) == "split"
+    assert resolved(dataclasses.replace(g, gram_fast_matmul="bf16"),
+                    rank=32) == "bf16"
+    assert resolved(dataclasses.replace(g, gram_fast_matmul=False),
+                    rank=128) is False
+    for mode in (True, "split", "bf16"):
+        with pytest.raises(ValueError, match="float32"):
+            resolved(dataclasses.replace(g, gram_fast_matmul=mode),
+                     np.float64)
+    # the kernels refuse a reduced mode in float64 as well
+    args = _problem(32, 4, 1, seed=1, dtype=np.float64)
+    with pytest.raises(ValueError, match="float32"):
+        _run(args, device, lambda *a: gram.fused_tile_gram_cross(
+            *a, fast_matmul="split"))
+
+
+@pytest.mark.cuda
+def test_rank128_fit_on_card_resolves_to_bf16():
+    """A small rank-128 fit on the card takes the fast path in "bf16" and
+    launches kernel 1 in that mode only."""
+    _cuda()
+    rng = np.random.RandomState(2)
+    n, n_u, n_i = 4000, 60, 40
+    u, i = rng.randint(0, n_u, n), rng.randint(0, n_i, n)
+    y = rng.normal(size=n_u)[u] + rng.normal(size=n_i)[i] + 3.0
+    from myfm_tpu_torch import RelationBlock
+
+    blocks = [RelationBlock(u, sps.identity(n_u, format="csr")),
+              RelationBlock(i, sps.identity(n_i, format="csr"))]
+    counts = gram.fused_tile_gram_cross.mode_launches["gibbs"]
+    before = dict(counts)
+    fm = MyFMGibbsRegressor(rank=128, random_seed=0, device="cuda").fit(
+        None, y, X_rel=blocks, n_iter=3)
+    assert fm.history_.engine == "fastpath"
+    assert fm.history_.gram_fast_matmul == "bf16"
+    assert counts["bf16"] > before["bf16"]
+    assert counts["split"] == before["split"]
+    assert counts["highest"] == before["highest"]
+    assert np.isfinite(fm.predict(None, blocks)).all()
