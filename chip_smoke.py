@@ -96,12 +96,16 @@ Phases, one line each:
             and chunk tiles per table, plan time; the fast-path gate
             must accept it
   r128kernel kernel 1 vs plain at each table's first chunk at rank 128,
-            IEEE (fp32 + fp64, with device ms), "split" and "bf16"
+            IEEE (fp32 + fp64), "split" and "bf16", each with its device
+            ms of pass 1 and of the carry walk apart, the Gram pass that
+            ran ("wgmma" in both reduced modes) and two launches
+            bit-equal (every kernel-1/2 comparison reports the last two)
   r128fit   the trainer on that plan with gram_fast_matmul=False for
             R128_IEEE_ITER sweeps (the IEEE sweep time), then
             MyFMGibbsRegressor(rank=128) through "auto": "fastpath",
-            "bf16", kernel 1 launched in bf16 alone; one warm-up and
-            three timed sweeps, time to first sweep, peak memory
+            "bf16", kernel 1 launched in bf16 alone and every launch on
+            the wgmma pass; one warm-up and three timed sweeps, time to
+            first sweep, peak memory
   r128predict held-out RMSE below std(y_test)
   jdata     the ML-100k timeSVD++-flipped design and its joint plan:
             (B, C, Pf) of each block's tail, compile time
@@ -383,7 +387,7 @@ def nbytes(*tensors):
 
 
 def compare_gram(torch, kernel, plain, rows_of, ops, S, kw, tol, label,
-                 row_ops=4, modes=REDUCED_MODES):
+                 row_ops=4, modes=REDUCED_MODES, mode_device=False):
     """One Gram kernel vs its plain version on ``ops`` in IEEE fp32 and
     fp64 (max error over max |plain|, at most ``tol``), then fp32 times
     (``tools.vi_gram.time_kernel``): the kernel by CUDA events (``ms``,
@@ -397,16 +401,38 @@ def compare_gram(torch, kernel, plain, rows_of, ops, S, kw, tol, label,
     reduced Gram mode in fp32 (kernel vs plain in that mode within
     KERNEL_TOL; ``vs_ieee``, the kernel's distance from its IEEE output,
     within the self-check's gate; the yardstick the bf16 torch.bmm, three
-    summed for "split"; no profiler)."""
+    summed for "split"; the profiler's pass-1 / carry split too with
+    ``mode_device``).  Every mode's row names the Gram pass that ran
+    (``pass``: the one whose count in the wrapper's ``pass_launches``
+    rose by the two launches there, failing if another did or the rule
+    ops/gram.gram_pass names another) and holds two launches to the same
+    bits (``deterministic``)."""
     from myfm_tpu_torch.ops import gram
     from myfm_tpu_torch.tools.vi_gram import (cast, check, device_ms,
                                               time_kernel)
+
+    def pass_and_bits(row, mkw):
+        mode = gram.gram_mode(mkw.get("fast_matmul", False))
+        before = dict(kernel.pass_launches)
+        a, ca = kernel(*o, S, **mkw)
+        b, cb = kernel(*o, S, **mkw)
+        torch.cuda.synchronize()
+        if not (torch.equal(a, b) and torch.equal(ca, cb)):
+            fail(f"{label}, {mode}: two launches gave different bits")
+        ran = {p: n - before[p] for p, n in kernel.pass_launches.items()
+               if n != before[p]}
+        rule = gram.gram_pass(mode, a.shape[2], a.shape[1])
+        if ran != {rule: 2}:
+            fail(f"{label}, {mode}: passes launched {ran}, the rule names "
+                 f"{rule}")
+        row.update(deterministic=True, **{"pass": rule})
 
     try:
         row = check(kernel, plain, ops, S, kw, tol)
     except AssertionError as exc:
         fail(f"{label}: {exc}")
     o = cast(ops, torch.float32)
+    pass_and_bits(row, kw)
     row.update(time_kernel(kernel, rows_of, o, S, kw, row_ops))
     try:
         row.update(device_ms(lambda: kernel(*o, S, **kw)))
@@ -430,7 +456,13 @@ def compare_gram(torch, kernel, plain, rows_of, ops, S, kw, tol, label,
         if not m["vs_ieee"] <= gram.SELFCHECK_TOL[mode]:
             fail(f"{label}, {mode}: {m['vs_ieee']:.3e} of scale from IEEE "
                  f"(gate {gram.SELFCHECK_TOL[mode]:.0e})")
+        pass_and_bits(m, mkw)
         m.update(time_kernel(kernel, rows_of, o, S, mkw, row_ops))
+        if mode_device:
+            try:
+                m.update(device_ms(lambda: kernel(*o, S, **mkw)))
+            except RuntimeError as exc:
+                m.update(device_ms=None, device_ms_error=str(exc))
         m["plain_ms"] = cuda_ms(torch, lambda: plain(*o, S, **mkw), 1)
         row["modes"][mode] = m
         del out
@@ -1830,7 +1862,7 @@ def r128_phases(torch, train, test, grouping, timer, stamps):
             gram.fused_tile_gram_cross_reference,
             lambda o, S: gram.cross_rows(o[0], o[1], o[2], S), ops,
             t.tile_entities, {}, KERNEL_TOL,
-            f"r128kernel vs plain, table {ti}"))
+            f"r128kernel vs plain, table {ti}", mode_device=True))
         say("r128kernel", json.dumps(row))
         krows.append(row)
         del ops
@@ -1868,13 +1900,18 @@ def r128_phases(torch, train, test, grouping, timer, stamps):
     counts = mode_check("r128fit", fm.history_,
                         gram.fused_tile_gram_cross.mode_launches["gibbs"],
                         "bf16")
+    passes = dict(gram.fused_tile_gram_cross.pass_launches)
     if fm.history_.engine != "fastpath":
         fail(f"r128fit: resolved to {fm.history_.engine!r}")
+    if passes != dict(gram.pass_counts(), wgmma=counts["bf16"]):
+        fail(f"r128fit: kernel 1 ran the Gram passes {passes}, not the "
+             f"wgmma pass alone ({counts['bf16']} launches)")
     ttfs, rate = fit_rates(stamps, t_fit)
     say("r128fit", json.dumps(dict(
         engine=fm.history_.engine, gram_mode=fm.history_.gram_fast_matmul,
         sweeps=len(stamps), time_to_first_sweep_s=ttfs, sweeps_per_s=rate,
         fit_s=t_fit_end - t_fit, launches_by_mode=counts,
+        launches_by_pass=passes,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
         ieee=ieee_line)))
     t0 = time.perf_counter()
@@ -1893,13 +1930,15 @@ def r128_phases(torch, train, test, grouping, timer, stamps):
 
 
 def reset_gram_counts(gram):
-    """Every launch count of kernels 1 and 2 to 0, by mode too."""
+    """Every launch count of kernels 1 and 2 to 0, by mode and pass too."""
     gram.fused_tile_gram_cross.launches = 0
     gram.fused_tile_gram_cross.vi_launches = 0
     gram.fused_tile_gram_cross.mode_launches = {
         "gibbs": gram.mode_counts(), "vi": gram.mode_counts()}
+    gram.fused_tile_gram_cross.pass_launches = gram.pass_counts()
     gram.fused_tile_gram.launches = 0
     gram.fused_tile_gram.mode_launches = gram.mode_counts()
+    gram.fused_tile_gram.pass_launches = gram.pass_counts()
 
 
 def mode_check(phase, history, counts, want):
@@ -2447,6 +2486,9 @@ def main():
             "library_ms": None if None in lib else sum(lib),
             "mode": mode,
         }
+        passes = sorted({r["pass"] for r in rows if "pass" in r})
+        if passes:
+            out["pass"] = "+".join(passes)
         if modes is not None:
             out["launches_by_mode"] = modes
         return out

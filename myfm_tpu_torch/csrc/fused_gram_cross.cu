@@ -1,6 +1,6 @@
 // Per-entity Gram statistics of one categorical table, for Hopper (sm_90a).
 //
-// Three entry points share one Gram pass and one carry pass (their device
+// Three entry points share the Gram passes and one carry walk (their device
 // code is in gram_tile.cuh, which gram_sections.cu includes too):
 //
 //   myfm_fused_gram_cross  replaces the Pallas TPU kernel
@@ -135,38 +135,90 @@
 // hold an entry i >= j and writes each such entry with its mirror.  The
 // kernels are held to 4 blocks per SM (<= 64 registers), and the cross
 // kernels' stage batches its loads: at 8 fragments and 2 blocks per SM
-// the pass took 2x IEEE at rank 32 (PERF.md).  wgmma, TMA and a pipelined
-// stage are left for later (ROADMAP).
+// the pass took 2x IEEE at rank 32 (PERF.md).
+//
+// The wgmma pass (wgmma_chunk in gram_tile.cuh) takes the fp32 square at
+// D >= 64 in both reduced modes: the Gibbs layout at rank >= 62, where
+// "auto" runs "bf16", and kernel 2's square.  The mma.sync pass rebuilt
+// each operand fragment from the fp32 stage for every 16-row k-chunk and
+// held 2 fragments per warp, so the rank-128 square's 89 fragments took 6
+// walks of the tile.  Here each run of a slot is written once as bf16 (hi,
+// and lo for split) into a ring in wgmma's K-major core-matrix layout, and
+// each warpgroup runs m64n64k16 wgmma over its 64 x 64 blocks of the
+// lower triangle from shared-memory descriptors, 32 fp32 accumulators per
+// thread per block.  The fp32 stage stays, cut into 128-row chunks (64 in
+// "split", whose two rings would otherwise leave one block per SM), so the
+// z rows are built by the same code as every other pass (the kernel and
+// plain version build the same z bit for bit; the zcols are read where
+// they were loaded, the [valid, e] pair kept apart).  At rank 128, T = 128
+// the chunk (66.5 KB) and the bf16 ring (34 KB) hold 2 blocks per SM.
+// The gathered rows of a tile are one contiguous block per table, summed
+// over the tables as they arrive (stage_cross, shared with the other
+// cross kernels): 16-byte streaming loads (evict first, so the L2 keeps
+// the Grams being written), 4 per table in flight per thread.  They are
+// a gather of whole rows, so TMA's tiled mode does not fit them, and a
+// 1-D bulk or cp.async copy saves no bytes.  What bounds the pass is
+// bytes: the gathered rows in and the S x D x D fp32 Grams out per tile;
+// with its products, the ring and the z build taken out, the pass ran
+// within 10% of its time (PERF.md), so the tensor-core work is no longer
+// what holds it, the memory pipeline is.  A chunk's loads finish before
+// its z build: copying the next chunk's first table ahead with cp.async
+// while this chunk's products and stores ran (blocks persistent over
+// their tiles, 2 per SM) took 5-8% longer, and two tables ahead at 1
+// block per SM no less; the other resident block's loads already overlap
+// a block's products and stores (PERF.md).
+// The launcher chooses the pass by D (gram_pass_id, myfm_gram_pass); a
+// launch failure raises, there is no fallback to another pass.
 //
 // The carry.  A TPU grid runs in order, so the Pallas kernel threads the
-// running Gram through a scratch buffer; a CUDA grid has no order.  Here
-// the carry is a linear recurrence over tiles,
-//   c_{k+1} = A_k c_k + b_k,  with, when cont_out[k]:
-//     A_k = (cont_in[k] && last_slot[k] == 0),  b_k = G[k, last_slot[k]]
-//   and otherwise A_k = 1, b_k = 0,
-// and out[k, 0] += c_k wherever cont_in[k].  Three small deterministic
-// kernels resolve it after the Gram pass, on the out_rows x D entries of
-// the rectangle: per segment of SEG_TILES tiles the composed (A, b); a scan
-// over the segments (one thread per entry, K/SEG_TILES steps) for the carry
-// entering each segment; and a pass that applies the carries inside each
-// segment in tile order.  No atomics, so every run gives the same bits,
-// and a popular entity that spans hundreds of tiles is resolved by many
-// threads, not one.
+// running Gram through a scratch buffer; a CUDA grid has no order.  One
+// launch after pass 1 (carry_walk in gram_tile.cuh) walks the tiles in
+// order, entry by entry, exactly as the plain version:
+//   if cont_in[k]:  out[k, 0] = out[k, 0] + c
+//   if cont_out[k]: c = out[k, last_slot[k]]
+// so the carried Grams are bit-equal to the plain version's wherever pass
+// 1's partials are.  Blocks of 64 entries x 16-128 tiles (carry_seg:
+// short segments where a call has few tiles, so they fill the SMs) take
+// tickets in order; a block walks from its first tile that resets the
+// carry (whose outgoing carry does not depend on the incoming one) without
+// waiting and publishes the carry leaving its segment; only tiles before
+// that reset wait for the previous segment's.  A popular entity's chain (7,910 tiles
+// of one 8,192-tile call for the ML-10M item table at rank 128; PERF.md)
+// waits once per segment, not once per tile: folding the carry into
+// pass 1's epilogue would have serialised that chain tile by tile.  Per
+// continuing tile the walk reads the partial once and writes it once (the
+// three-launch carry it replaced read it three times and wrote it once).
+// No atomics on values, so every run gives the same bits.
 
 #include "gram_tile.cuh"
 
 extern "C" {
 
-// Scratch elements (of the output's dtype) the wrappers allocate for the
-// carry pass over K tiles of E = out_rows * D entries per slot.
+// Workspace of the carry walk over K tiles of E = out_rows * D entries per
+// slot, which the wrappers allocate: the carries leaving each segment
+// (elements of the output's dtype), and the ticket and flags (ints, zeroed
+// before every launch).
 int myfm_gram_carry_scratch(int K, int E) {
-  const int nseg = (K + kSegTiles - 1) / kSegTiles;
-  return nseg * (2 * E + 1);
+  const int G = carry_seg(K, E);
+  return ((K + G - 1) / G) * E;
+}
+int myfm_gram_carry_sync(int K, int E) {
+  const int G = carry_seg(K, E);
+  return 1 + ((K + G - 1) / G) * ((E + kCarryThreads - 1) / kCarryThreads);
 }
 
 // Static shared memory of the Gram pass (its run list), which every
 // pass-1 kernel uses on top of its dynamic stage.
 int myfm_gram_static_smem() { return (int)sizeof(RunList); }
+
+// The Gram pass a pass-1 launch takes in Gram mode ``mode`` (0 IEEE, 1
+// split, 2 bf16) for a [out_rows, D] Gram: 0 FMA, 1 mma.sync, 2 wgmma.
+int myfm_gram_pass(int mode, int D, int out_rows) {
+  return gram_pass_id(mode, D, out_rows);
+}
+
+// Dynamic shared memory of the wgmma pass's ring(s) at width D in mode.
+int myfm_gram_ring_bytes(int D, int mode) { return (int)ring_bytes(D, mode); }
 
 // Returns 0 or the cudaError_t of the first failed launch.
 // mode: 0 IEEE, 1 split, 2 bf16 (fp32 only).
@@ -175,33 +227,35 @@ int myfm_fused_gram_cross(int is_double, int mode, const void* aux2,
                           const void* wvsl, const int* cont_in,
                           const int* cont_out, const int* last_slot,
                           const void* carry_in, void* out, void* carry_out,
-                          void* scratch, int K, int T, int S, int R, int q_lo,
-                          int n_extra, int out_rows, void* stream) {
+                          void* scratch, int* sync, int K, int T, int S,
+                          int R, int q_lo, int n_extra, int out_rows,
+                          void* stream) {
   if (is_double) {
     return launch_cross<double>(aux2, gths, n_cross, wvsl, cont_in, cont_out,
                                 last_slot, carry_in, out, carry_out, scratch,
-                                K, T, S, R, q_lo, n_extra, out_rows, mode,
-                                stream);
+                                sync, K, T, S, R, q_lo, n_extra, out_rows,
+                                mode, stream);
   }
   return launch_cross<float>(aux2, gths, n_cross, wvsl, cont_in, cont_out,
-                             last_slot, carry_in, out, carry_out, scratch, K,
-                             T, S, R, q_lo, n_extra, out_rows, mode, stream);
+                             last_slot, carry_in, out, carry_out, scratch,
+                             sync, K, T, S, R, q_lo, n_extra, out_rows, mode,
+                             stream);
 }
 
 // Returns 0 or the cudaError_t of the first failed launch.
 int myfm_tile_gram(int is_double, const void* rows, const int* slot,
                    const int* cont_in, const int* cont_out,
                    const int* last_slot, const void* carry_in, void* out,
-                   void* carry_out, void* scratch, int K, int T, int S, int D,
-                   void* stream) {
+                   void* carry_out, void* scratch, int* sync, int K, int T,
+                   int S, int D, void* stream) {
   if (is_double) {
     return launch_rows<double>(rows, slot, cont_in, cont_out, last_slot,
-                               carry_in, out, carry_out, scratch, K, T, S, D,
-                               stream);
+                               carry_in, out, carry_out, scratch, sync, K, T,
+                               S, D, stream);
   }
   return launch_rows<float>(rows, slot, cont_in, cont_out, last_slot,
-                            carry_in, out, carry_out, scratch, K, T, S, D,
-                            stream);
+                            carry_in, out, carry_out, scratch, sync, K, T, S,
+                            D, stream);
 }
 
 // Returns 0 or the cudaError_t of the first failed launch; mode as in
@@ -210,16 +264,16 @@ int myfm_fused_gram(int is_double, int mode, const void* meta,
                     const void* q_other, const int* slot, const void* wvsl,
                     const int* cont_in, const int* cont_out,
                     const int* last_slot, const void* carry_in, void* out,
-                    void* carry_out, void* scratch, int K, int T, int S,
-                    int R, int Rq, int out_rows, void* stream) {
+                    void* carry_out, void* scratch, int* sync, int K, int T,
+                    int S, int R, int Rq, int out_rows, void* stream) {
   if (is_double) {
     return launch_meta<double>(meta, q_other, slot, wvsl, cont_in, cont_out,
                                last_slot, carry_in, out, carry_out, scratch,
-                               K, T, S, R, Rq, out_rows, mode, stream);
+                               sync, K, T, S, R, Rq, out_rows, mode, stream);
   }
   return launch_meta<float>(meta, q_other, slot, wvsl, cont_in, cont_out,
-                            last_slot, carry_in, out, carry_out, scratch, K,
-                            T, S, R, Rq, out_rows, mode, stream);
+                            last_slot, carry_in, out, carry_out, scratch,
+                            sync, K, T, S, R, Rq, out_rows, mode, stream);
 }
 
 }  // extern "C"

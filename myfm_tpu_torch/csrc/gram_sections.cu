@@ -16,10 +16,13 @@
 //          fragments) over the loaded rows taken as z; the checksum is
 //          added to entry [slot 0, 0, 0] of each tile;
 //       2  the production Gram pass (launch_cross_grams: cross sums, score
-//          and z build, Gram loop), no carry;
+//          and z build, Gram loop; the wgmma pass where production takes
+//          it), no carry;
 //       3  the whole production kernel (launch_cross: level 2 + the carry
-//          pass), bit-equal to myfm_fused_gram_cross on the same operands
+//          walk), bit-equal to myfm_fused_gram_cross on the same operands
 //          in the same mode.
+//     Level 1 runs gram_pass (FMA or mma.sync) at every width: at D >= 64
+//     in split and bf16 it times the mma.sync pass, not production's.
 //     Levels 1-3 take kernel 1's Gram mode (0 IEEE, 1 split, 2 bf16; see
 //     fused_gram_cross.cu); level 0, the checksum, has none.  Levels 2
 //     and 3 run the production launchers of gram_tile.cuh, not a copy.
@@ -178,15 +181,15 @@ extern "C" {
 
 // Level 0-3 variant of kernel 1 (Gibbs layout, fp32) in Gram mode
 // ``mode`` (0 IEEE, 1 split, 2 bf16; level 0 takes 0 only).  Levels 0-2
-// write out only; level 3 also runs the carry pass (carry_in, carry_out
-// and scratch as myfm_fused_gram_cross takes them).  Returns 0 or the
+// write out only; level 3 also runs the carry walk (carry_in, carry_out,
+// scratch and sync as myfm_fused_gram_cross takes them).  Returns 0 or the
 // cudaError_t of the first failed launch.
 int myfm_gram_section(int level, int mode, const void* aux2,
                       const void* const* gths, int n_cross, const void* wvsl,
                       const int* cont_in, const int* cont_out,
                       const int* last_slot, const void* carry_in, void* out,
-                      void* carry_out, void* scratch, int K, int T, int S,
-                      int R, void* stream) {
+                      void* carry_out, void* scratch, int* sync, int K,
+                      int T, int S, int R, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_cross < 1 || n_cross > kMaxCross || S < 1 || S > kMaxSlots ||
       K < 1 || T < 1 || R < 0 || !mode_ok<float>(mode) ||
@@ -214,8 +217,8 @@ int myfm_gram_section(int level, int mode, const void* aux2,
     case 3:
       return launch_cross<float>(aux2, gths, n_cross, wvsl, cont_in,
                                  cont_out, last_slot, carry_in, out,
-                                 carry_out, scratch, K, T, S, R, 1, 0, R + 2,
-                                 mode, stream);
+                                 carry_out, scratch, sync, K, T, S, R, 1, 0,
+                                 R + 2, mode, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

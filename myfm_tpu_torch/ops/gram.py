@@ -33,7 +33,9 @@ first rows (all D columns): the VI consumers read only the rows
 
 Each wrapper launches its hand-written CUDA kernel
 (csrc/fused_gram_cross.cu; csrc/gram_sections.cu for kernels 5 and 6) on
-CUDA tensors and runs its plain PyTorch version on CPU tensors.  The
+CUDA tensors and runs its plain PyTorch version on CPU tensors.  Kernels
+1-3 run a Gram pass chosen by the Gram's width and mode (``gram_pass``),
+then one in-order carry walk (the plain version's ``carry_in_order``).  The
 Gram kernels' output is [K*S, rows, D] (the TPU kernel's [K*S, Dpr, D]
 without its 8-row slot padding) plus the carry [rows, D] leaving the
 last tile, with rows = ``out_rows`` or D.
@@ -115,26 +117,35 @@ def _masked_gram(z, m, rows, mode="highest"):
     return out
 
 
-def _grams_with_carry(z, m, rows, cont_in, cont_out, last_slot, carry_in,
-                      mode="highest"):
-    """Σ_t m[k,t,s] z zᵀ over the first ``rows`` rows (in Gram mode
-    ``mode``), then the TPU grid's in-order carry: tiles with neither flag
-    set neither read nor change it.  Returns (flat [K*S, rows, D],
-    carry_out [rows, D])."""
-    K, T, S = m.shape
-    D = z.shape[2]
-    partial = _masked_gram(z, m, rows, mode).reshape(K, S, rows, D)
-    carry = (
-        z.new_zeros(rows, D) if carry_in is None else carry_in.clone()
-    )
+def carry_in_order(partial, cont_in, cont_out, last_slot, carry_in=None):
+    """The TPU grid's in-order carry over pass 1's partial Grams
+    ``partial`` [K, S, rows, D], in place: in tile order, ``partial[k, 0]
+    += carry`` where cont_in[k], then ``carry = partial[k, last_slot[k]]``
+    where cont_out[k]; tiles with neither flag set neither read nor change
+    it.  ``carry_in`` None is a zero carry.  Returns the carry leaving the
+    last tile."""
+    carry = (partial.new_zeros(partial.shape[2:]) if carry_in is None
+             else carry_in.clone())
     ci = cont_in.tolist()
     co = cont_out.tolist()
     ls = last_slot.tolist()
-    for k in range(K):
+    for k in range(partial.shape[0]):
         if ci[k]:
             partial[k, 0] += carry
         if co[k]:
             carry = partial[k, ls[k]].clone()
+    return carry
+
+
+def _grams_with_carry(z, m, rows, cont_in, cont_out, last_slot, carry_in,
+                      mode="highest"):
+    """Σ_t m[k,t,s] z zᵀ over the first ``rows`` rows (in Gram mode
+    ``mode``), then ``carry_in_order``.  Returns (flat [K*S, rows, D],
+    carry_out [rows, D])."""
+    K, T, S = m.shape
+    D = z.shape[2]
+    partial = _masked_gram(z, m, rows, mode).reshape(K, S, rows, D)
+    carry = carry_in_order(partial, cont_in, cont_out, last_slot, carry_in)
     return partial.reshape(K * S, rows, D), carry
 
 
@@ -261,29 +272,73 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 def _bind(lib: ctypes.CDLL):
     if lib.myfm_fused_gram_cross.argtypes is None:
         lib.myfm_tile_gram.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+            [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
             + [ctypes.c_void_p]
         )
         lib.myfm_tile_gram.restype = ctypes.c_int
         lib.myfm_fused_gram_cross.argtypes = (
             [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int]
-            + [ctypes.c_void_p] * 8
+            + [ctypes.c_void_p] * 9
             + [ctypes.c_int] * 7
             + [ctypes.c_void_p]
         )
         lib.myfm_fused_gram_cross.restype = ctypes.c_int
         lib.myfm_fused_gram.argtypes = (
-            [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 11
+            [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 12
             + [ctypes.c_int] * 6
             + [ctypes.c_void_p]
         )
         lib.myfm_fused_gram.restype = ctypes.c_int
-        lib.myfm_gram_carry_scratch.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.myfm_gram_carry_scratch.restype = ctypes.c_int
+        for fn in ("myfm_gram_carry_scratch", "myfm_gram_carry_sync"):
+            getattr(lib, fn).argtypes = [ctypes.c_int] * 2
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.myfm_gram_ring_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.myfm_gram_ring_bytes.restype = ctypes.c_int
+        lib.myfm_gram_pass.argtypes = [ctypes.c_int] * 3
+        lib.myfm_gram_pass.restype = ctypes.c_int
         lib.myfm_gram_static_smem.argtypes = []
         lib.myfm_gram_static_smem.restype = ctypes.c_int
     return lib
+
+
+# The Gram passes of a pass-1 launch (csrc/gram_tile.cuh gram_pass_id):
+# IEEE FMA, the mma.sync tensor-core pass, the wgmma pass (the fp32 square
+# at D >= WGMMA_MIN_D in "split" and "bf16").
+GRAM_PASSES = ("fma", "mma", "wgmma")
+WGMMA_MIN_D = 64
+# z rows of the wgmma pass's stage chunk and bf16 ring(s), by mode
+RING_ROWS = {"split": 64, "bf16": 128}
+
+
+def gram_pass(mode: str, D: int, rows: int) -> str:
+    """The Gram pass the card runs for a [rows, D] Gram in Gram mode
+    ``mode``: the C launcher's choice (``myfm_gram_pass``, which the card
+    tests hold this to)."""
+    if mode == "highest":
+        return "fma"
+    return "wgmma" if rows == D and D >= WGMMA_MIN_D else "mma"
+
+
+def _card_pass(mode: str, D: int, rows: int) -> str:
+    """The Gram pass the C launcher takes for a [rows, D] Gram in Gram
+    mode ``mode`` (``myfm_gram_pass``, the rule its launch follows): what
+    the wrappers' ``pass_launches`` count after a launch (``gram_pass``
+    is its mirror, for sizing the stage before one)."""
+    lib = _bind(_build.load("fused_gram_cross"))
+    return GRAM_PASSES[lib.myfm_gram_pass(GRAM_MODES.index(mode), D, rows)]
+
+
+def _stage_bytes(pass_name, mode, T, width, D, item, head=0):
+    """Dynamic shared memory of a pass-1 stage of T rows of ``width``
+    values: the whole tile, or for the wgmma pass one chunk of at most
+    RING_ROWS[mode] rows (``head`` more values per row) behind the bf16
+    ring (two rings, hi and lo, in "split"; ``myfm_gram_ring_bytes``)."""
+    if pass_name != "wgmma":
+        return T * width * item
+    rows = RING_ROWS[mode]
+    ring = -(-D // 8) * 8 * rows * 2 * (2 if mode == "split" else 1)
+    return ring + min(T, rows) * (width + head) * item
 
 
 def _check_common(name, floats, ints, K, S, rows, D, carry_in, smem):
@@ -346,24 +401,30 @@ def _card_mode(name, mode, dtype) -> int:
 
 def _launch(name, fn, operands, dims, K, S, rows, D, dtype, device,
             carry_in, lib=None, lead=None):
-    """Allocate the outputs and the carry scratch, call the C entry point
-    ``fn`` (its ``lead`` integers, by default the dtype flag; its operand
-    pointers; then carry_in / out / carry_out / scratch; then its integer
-    ``dims``) on the current stream, and raise if the launch failed."""
+    """Allocate the outputs and the carry walk's workspace, call the C
+    entry point ``fn`` (its ``lead`` integers, by default the dtype flag;
+    its operand pointers; then carry_in / out / carry_out / scratch /
+    sync; then its integer ``dims``) on the current stream, and raise if
+    the launch failed."""
     lib = lib or _bind(_build.load("fused_gram_cross"))
     scratch_lib = _bind(_build.load("fused_gram_cross"))
     if carry_in is None:
         carry_in = torch.zeros(rows, D, dtype=dtype, device=device)
     out = torch.empty(K * S, rows, D, dtype=dtype, device=device)
     carry_out = torch.empty(rows, D, dtype=dtype, device=device)
-    scratch = torch.empty(scratch_lib.myfm_gram_carry_scratch(K, rows * D),
-                          dtype=dtype, device=device)
+    is_double = int(dtype == torch.float64)
+    scratch = torch.empty(
+        scratch_lib.myfm_gram_carry_scratch(K, rows * D),
+        dtype=dtype, device=device)
+    sync = torch.zeros(
+        scratch_lib.myfm_gram_carry_sync(K, rows * D),
+        dtype=torch.int32, device=device)
     if lead is None:
-        lead = [int(dtype == torch.float64)]
+        lead = [is_double]
     with torch.cuda.device(device):
         rc = getattr(lib, fn)(
             *lead, *operands, _ptr(carry_in), _ptr(out), _ptr(carry_out),
-            _ptr(scratch), *dims, _stream(),
+            _ptr(scratch), _ptr(sync), *dims, _stream(),
         )
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
@@ -391,8 +452,9 @@ def fused_tile_gram_cross(
     the exact rank-1 w0 correction to the Gram statistics.  CPU tensors
     run the plain version; CUDA tensors launch the kernel, or raise.
     ``launches`` counts the Gibbs-layout launches, ``vi_launches`` all
-    others, and ``mode_launches[layout][mode]`` both by mode ("gibbs" /
-    "vi")."""
+    others, ``mode_launches[layout][mode]`` both by mode ("gibbs" /
+    "vi"), and ``pass_launches[pass]`` all by the Gram pass that ran
+    (``gram_pass``: "fma", "mma", "wgmma")."""
     gths = tuple(gths)
     mode = gram_mode(fast_matmul)
     if aux2.device.type == "cpu":
@@ -417,12 +479,15 @@ def fused_tile_gram_cross(
             raise ValueError(f"{name}: gathered rows {tuple(gth.shape)} "
                              f"!= {(K, T, W)}")
     item = wvsl.element_size()
+    code = _card_mode(name, mode, wvsl.dtype)
+    pass_name = gram_pass(mode, D, rows)
     _check_common(
         name, [aux2, wvsl, *gths],
         [(t, (K,)) for t in (cont_in, cont_out, last_slot)],
-        K, S, rows, D, carry_in, (T * W + S * (R + 2)) * item + T * 4,
+        K, S, rows, D, carry_in,
+        _stage_bytes(pass_name, mode, T, W, D, item, head=2)
+        + S * (R + 2) * item + T * 4,
     )
-    code = _card_mode(name, mode, wvsl.dtype)
     gth_ptrs = (ctypes.c_void_p * max(len(gths), 1))(
         *[g.data_ptr() for g in gths]
     )
@@ -440,6 +505,7 @@ def fused_tile_gram_cross(
     else:
         fused_tile_gram_cross.vi_launches += 1
     fused_tile_gram_cross.mode_launches[layout][mode] += 1
+    fused_tile_gram_cross.pass_launches[_card_pass(mode, D, rows)] += 1
     return out
 
 
@@ -448,10 +514,16 @@ def mode_counts():
     return dict.fromkeys(GRAM_MODES, 0)
 
 
+def pass_counts():
+    """A fresh per-pass launch count."""
+    return dict.fromkeys(GRAM_PASSES, 0)
+
+
 fused_tile_gram_cross.launches = 0
 fused_tile_gram_cross.vi_launches = 0
 fused_tile_gram_cross.mode_launches = {"gibbs": mode_counts(),
                                        "vi": mode_counts()}
+fused_tile_gram_cross.pass_launches = pass_counts()
 
 
 def fused_tile_gram(
@@ -472,7 +544,8 @@ def fused_tile_gram(
     meta's first column, is 0 or 1) in Gram mode
     ``gram_mode(fast_matmul)``.  CPU tensors run the plain version; CUDA
     tensors launch the kernel, or raise.  ``launches`` counts the
-    launches, ``mode_launches[mode]`` them by mode."""
+    launches, ``mode_launches[mode]`` them by mode, ``pass_launches``
+    by Gram pass (as kernel 1's)."""
     mode = gram_mode(fast_matmul)
     if meta.device.type == "cpu":
         return fused_tile_gram_reference(
@@ -490,13 +563,16 @@ def fused_tile_gram(
                          f"{tuple(q_other.shape)}, wvsl "
                          f"{tuple(wvsl.shape)}, S={S}")
     item = wvsl.element_size()
+    code = _card_mode(name, mode, wvsl.dtype)
+    pass_name = gram_pass(mode, D, rows)
     _check_common(
         name, [meta, q_other, wvsl],
         [(slot, (K, T))] + [(t, (K,)) for t in (cont_in, cont_out,
                                                 last_slot)],
-        K, S, rows, D, carry_in, (T * D + S * (R + 1)) * item + T * 4,
+        K, S, rows, D, carry_in,
+        _stage_bytes(pass_name, mode, T, D, D, item) + S * (R + 1) * item
+        + T * 4,
     )
-    code = _card_mode(name, mode, wvsl.dtype)
     out = _launch(
         name, "myfm_fused_gram",
         [_ptr(meta), _ptr(q_other), _ptr(slot), _ptr(wvsl), _ptr(cont_in),
@@ -507,11 +583,13 @@ def fused_tile_gram(
     )
     fused_tile_gram.launches += 1
     fused_tile_gram.mode_launches[mode] += 1
+    fused_tile_gram.pass_launches[_card_pass(mode, D, rows)] += 1
     return out
 
 
 fused_tile_gram.launches = 0
 fused_tile_gram.mode_launches = mode_counts()
+fused_tile_gram.pass_launches = pass_counts()
 
 
 # The self-check's gates: the largest |mode − IEEE| over the IEEE Gram's
@@ -590,7 +668,8 @@ def tile_gram(
     """Kernel 3: flat partial Grams [K*S, D, D] of the given rows and the
     carry leaving the last tile (``carry_in`` None is a zero carry).  CPU
     tensors run the plain version; CUDA tensors launch the kernel, or
-    raise."""
+    raise.  ``launches`` counts the launches, ``pass_launches`` them by
+    Gram pass (IEEE only: "fma")."""
     if rows.device.type == "cpu":
         return tile_gram_reference(rows, slot, cont_in, cont_out, last_slot,
                                    S, carry_in)
@@ -608,10 +687,12 @@ def tile_gram(
         [K, T, S, D], K, S, D, D, rows.dtype, rows.device, carry_in,
     )
     tile_gram.launches += 1
+    tile_gram.pass_launches[_card_pass("highest", D, D)] += 1
     return out
 
 
 tile_gram.launches = 0
+tile_gram.pass_launches = pass_counts()
 
 
 def entity_grams(table, rows_tiled: torch.Tensor, S: int, D: int,
@@ -683,7 +764,7 @@ def _bind_sections(lib: ctypes.CDLL):
         lib.myfm_gram_section.argtypes = (
             [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int]
-            + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         )
         lib.myfm_gram_section.restype = ctypes.c_int
         lib.myfm_interleave_probe.argtypes = (

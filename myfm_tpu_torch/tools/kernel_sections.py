@@ -9,7 +9,7 @@ Gram, Gibbs layout) cut down to its first sections (ops/gram.py
   level 0  operand loads into shared memory and the output writes
   level 1  + the Gram loop over the loaded rows
   level 2  + the cross sums, the score and the z build (production pass 1)
-  level 3  + the carry pass (the whole production kernel)
+  level 3  + the carry walk (the whole production kernel)
 
 beside each level's plain PyTorch version, one ``torch.bmm`` of the
 slot-masked operand (the yardstick of levels 1-3; in the bf16 Gram modes
@@ -54,7 +54,7 @@ LABELS = {
     0: "loads + output writes",
     1: "+ Gram loop on the loaded rows",
     2: "+ cross sums, score, z build (production pass 1)",
-    3: "+ carry pass (whole production kernel)",
+    3: "+ carry walk (whole production kernel)",
 }
 
 

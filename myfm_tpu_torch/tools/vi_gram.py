@@ -18,13 +18,19 @@ The square shape runs the full D x D Gram: kernel 1's Gibbs layout
 ``gram.cross_rows`` builds from the same operands, packed at ``rank=R``:
 
   gibbs10m  rank 32: D = 34 (T = 256); one 1M-row chunk
+  gibbs100k rank 10: D = 12; 90,000 rows, 943 entities (the ML-100k
+            fast path's calls of a few hundred tiles)
+  r128days, r128users, r128items (``r128`` names all three)
+            rank 128: D = 130 (T = 128); the first call of each table of
+            the smoke's ML-10M design (``tools/carry_chains.design_tables``:
+            90% of the synthetic ML-10M rows), packed as the plan packs it
 
 For each kernel and shape it prints one JSON line: the kernel against
 its plain version in float32 (within 1e-5 of the output's scale) and
 float64 (1e-12); in float32 the time by CUDA events around 10 calls
 (host work of the wrapper included), the device time of one call by
 ``torch.profiler`` (the median duration of each of the call's kernels:
-pass 1, the three carry kernels, the carry_in fill; a trace that misses
+pass 1, the carry walk, the workspace fills; a trace that misses
 pass 1 or the carry, or holds far more or fewer events than the calls
 launched, is taken again, and the tool fails if none is whole), the
 least time the card could take (the bytes moved over 3.35 TB/s, or the
@@ -38,19 +44,31 @@ Gram mode (on the tensor cores; fp32 only, so float64 is not checked),
 beside the bf16 ``torch.bmm`` yardstick (three summed for "split");
 kernel 3 has IEEE only and is skipped.
 
+With ``--other DIR`` (the root of another checkout, for example ``git
+archive`` of a parent commit unpacked under ``build/``; it may be given
+more than once), that checkout's ``ops.gram`` is loaded beside this one
+(its kernels built from its own sources into its own directory) and
+each kernel is timed on the same operands in turns, other, this, this,
+other (``ab[DIR]``: CUDA-event and device ms of each), with the largest
+difference of the outputs.
+
 Run it on the card:
 
-    python -m myfm_tpu_torch.tools.vi_gram [100k|10m|gibbs10m ...] \
-        [--mode highest|split|bf16]
+    python -m myfm_tpu_torch.tools.vi_gram [100k|10m|gibbs10m|gibbs100k|r128 ...] \
+        [--mode highest|split|bf16] [--other DIR ...]
 """
 
 from __future__ import annotations
 
+import functools
+import importlib
 import json
+import shutil
 import statistics
 import subprocess
 import sys
-from typing import Dict, List, Sequence, Tuple
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,26 +84,45 @@ SHAPES = {
 }
 SQUARE_SHAPES = {
     "gibbs10m": dict(rank=32, n_rows=1 << 20, n_entities=7_000),
+    "gibbs100k": dict(rank=10, n_rows=90_000, n_entities=943),
+    **{f"r128{t}": dict(rank=128, n_rows=0, n_entities=0, table=t)
+       for t in ("days", "users", "items")},
 }
+# names that stand for several shapes
+GROUPS = {"r128": ["r128days", "r128users", "r128items"]}
 # |kernel − plain| over max |plain|: the same sums over up to ~10^4 rows
 # per carried chain in another order
 TOL = {"float32": 1e-5, "float64": 1e-12}
 ZIPF = 0.7  # entity n draws rows in proportion to (n + 1)^-ZIPF
 
 
+@functools.lru_cache(maxsize=1)
+def _design_tables():
+    from .carry_chains import design_tables
+
+    return {name: (ent, B) for name, ent, B in design_tables("10m")}
+
+
 def _packing(rank: int, n_rows: int, n_entities: int, seed: int,
-             fixed_ts=None, pack_rank=None):
+             fixed_ts=None, pack_rank=None, table: Optional[str] = None):
     """A table packed at the Gram's width (``pack_rank``, by default the
-    VI Gram's ``3R``) from skewed entity counts, cut to its first chunk
-    of tiles: (table, K, flags)."""
-    rng = np.random.RandomState(seed)
-    p = (1.0 + np.arange(n_entities)) ** -ZIPF
-    counts = rng.multinomial(n_rows, p / p.sum())
-    ent = np.repeat(rng.permutation(n_entities), counts)
-    tab = compile_categorical_table(
-        ent, n_entities, 0, n_rows, np.float32, "cpu",
-        rank=3 * rank if pack_rank is None else pack_rank, fixed_ts=fixed_ts)
-    K = tab.chunk_tiles
+    VI Gram's ``3R``) from skewed entity counts, or the ML-10M design's
+    table ``table`` as the plan packs it, cut to its first chunk of
+    tiles: (table, K, flags)."""
+    pack = 3 * rank if pack_rank is None else pack_rank
+    if table is not None:
+        ent, B = _design_tables()[table]
+        tab = compile_categorical_table(ent, B, 0, ent.shape[0], np.float32,
+                                        "cpu", rank=pack, max_inflation=4.0)
+    else:
+        rng = np.random.RandomState(seed)
+        p = (1.0 + np.arange(n_entities)) ** -ZIPF
+        counts = rng.multinomial(n_rows, p / p.sum())
+        ent = np.repeat(rng.permutation(n_entities), counts)
+        tab = compile_categorical_table(
+            ent, n_entities, 0, n_rows, np.float32, "cpu", rank=pack,
+            fixed_ts=fixed_ts)
+    K = min(tab.chunk_tiles, tab.n_tiles)
     flags = [f[:K].contiguous() for f in (tab.cont_in, tab.cont_out,
                                           tab.last_slot)]
     return tab, K, flags
@@ -147,11 +184,11 @@ def meta_operands(rank: int, n_rows: int, n_entities: int, seed: int = 0,
 
 
 def _gibbs(rank: int, n_rows: int, n_entities: int, seed: int, device,
-           fixed_ts):
+           fixed_ts, table=None):
     """Kernel 1's Gibbs-layout operands in float32, packed at ``rank=R``,
     and the packing's slot per tile row [K, T] (pad rows at slot 0)."""
     tab, K, flags = _packing(rank, n_rows, n_entities, seed, fixed_ts,
-                             pack_rank=rank)
+                             pack_rank=rank, table=table)
     T, S, R = tab.tile_rows, tab.tile_entities, rank
     g = torch.Generator(device=device).manual_seed(seed + 2)
 
@@ -175,22 +212,24 @@ def _gibbs(rank: int, n_rows: int, n_entities: int, seed: int, device,
 
 
 def gibbs_operands(rank: int, n_rows: int, n_entities: int, seed: int = 0,
-                   device="cuda", fixed_ts=None):
+                   device="cuda", fixed_ts=None, table=None):
     """Kernel 1's Gibbs-layout operands in float32: ([aux2, gths, wvsl,
     cont_in, cont_out, last_slot], S, {}).  The gathered rows of two
     other tables are [w | V | qs] (R + 2 columns), zero on pad rows; own
     rows [w | V | qs]."""
-    ops, S, _ = _gibbs(rank, n_rows, n_entities, seed, device, fixed_ts)
+    ops, S, _ = _gibbs(rank, n_rows, n_entities, seed, device, fixed_ts,
+                       table)
     return ops, S, {}
 
 
 def rows_operands(rank: int, n_rows: int, n_entities: int, seed: int = 0,
-                  device="cuda", fixed_ts=None):
+                  device="cuda", fixed_ts=None, table=None):
     """Kernel 3's operands as ``entity_grams`` gives them: ([rows, slot,
     cont_in, cont_out, last_slot], S, {}), rows [K, T, R + 2] the z rows
     that ``gram.cross_rows`` builds from ``gibbs_operands`` (zero on pad
     rows), slot the packing's."""
-    ops, S, slot = _gibbs(rank, n_rows, n_entities, seed, device, fixed_ts)
+    ops, S, slot = _gibbs(rank, n_rows, n_entities, seed, device, fixed_ts,
+                          table)
     z, _ = gram.cross_rows(ops[0], ops[1], ops[2], S)
     return [z.contiguous(), slot] + ops[3:], S, {}
 
@@ -360,6 +399,43 @@ def time_kernel(kernel, rows_of, ops: Sequence, S: int, kw: dict,
     return row
 
 
+def other_gram(root: str, i: int = 0):
+    """The ``ops.gram`` module of the checkout at ``root``, loaded as a
+    package of another name (``myfm_tpu_torch_other<i>``; its kernels
+    build into its own directory)."""
+    home = Path(__file__).resolve().parents[2] / "build" / "vi_gram_other"
+    dst = home / f"myfm_tpu_torch_other{i}"
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(Path(root).resolve() / "myfm_tpu_torch", dst)
+    if str(home) not in sys.path:
+        sys.path.insert(0, str(home))
+    return importlib.import_module(f"myfm_tpu_torch_other{i}.ops.gram")
+
+
+def ab(this, other, ops: Sequence, S: int, kw: dict) -> dict:
+    """One call of kernel ``this`` and of ``other`` (another checkout's
+    wrapper of the same kernel) on ``ops``, timed in turns other, this,
+    this, other: CUDA-event ms (``cuda_ms`` of 10 calls) and the device
+    split (``device_ms``) of each, and the largest difference of their
+    outputs over the output's scale."""
+    def one(fn):
+        row = dict(ms=cuda_ms(lambda: fn(*ops, S, **kw), 10))
+        try:
+            row.update(device_ms(lambda: fn(*ops, S, **kw)))
+        except RuntimeError as exc:
+            row.update(device_ms=None, device_ms_error=str(exc))
+        return row
+
+    out = dict(other=[one(other)], this=[one(this), one(this)])
+    out["other"].append(one(other))
+    a, _ = this(*ops, S, **kw)
+    b, _ = other(*ops, S, **kw)
+    torch.cuda.synchronize()
+    out["max_diff_vs_other"] = float((a - b).abs().max()) / max(
+        float(b.abs().max()), 1.0)
+    return out
+
+
 def card_line() -> str:
     """The card's name and power limit as nvidia-smi gives them."""
     try:
@@ -381,7 +457,13 @@ def main(argv: Sequence[str]) -> int:
         i = argv.index("--mode")
         mode = gram.gram_mode(argv[i + 1])
         del argv[i : i + 2]
-    shapes: List[str] = argv or [*SHAPES, *SQUARE_SHAPES]
+    others = {}
+    while "--other" in argv:
+        i = argv.index("--other")
+        others[argv[i + 1]] = other_gram(argv[i + 1], len(others))
+        del argv[i : i + 2]
+    shapes: List[str] = [s for a in argv for s in GROUPS.get(a, [a])] or [
+        *SHAPES, "gibbs10m", "gibbs100k"]
     tol = TOL if mode == "highest" else {"float32": TOL["float32"]}
     torch.backends.cuda.matmul.allow_tf32 = False
     logs = _build.build_all(("fused_gram_cross",))
@@ -407,6 +489,10 @@ def main(argv: Sequence[str]) -> int:
             row.update(time_kernel(kernel, rows_of, ops, S, kw,
                                    row_ops=0 if name == "tile_gram" else 4))
             row.update(device_ms(lambda: kernel(*ops, S, **kw)))
+            if others:
+                row["ab"] = {root: ab(kernel, getattr(mod, kernel.__name__),
+                                      ops, S, kw)
+                             for root, mod in others.items()}
             print(json.dumps(row), flush=True)
             del ops
             torch.cuda.empty_cache()

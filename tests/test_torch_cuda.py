@@ -1443,3 +1443,282 @@ def test_rank128_fit_on_card_resolves_to_bf16():
     assert counts["split"] == before["split"]
     assert counts["highest"] == before["highest"]
     assert np.isfinite(fm.predict(None, blocks)).all()
+
+
+# ---- the wgmma pass (squares of D >= 64 in "split" / "bf16") and the
+# in-order carry walk of kernels 1-3 ----
+
+_WGMMA_CASES = (
+    [("cross", R, T, S) for R in (62, 96, 128) for T in (16, 128, 300)
+     for S in (1, 2, 8)]
+    + [("meta", R, 300, 8) for R in (60, 128)]
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["split", "bf16"])
+@pytest.mark.parametrize("kernel,R,T,S", _WGMMA_CASES)
+def test_wgmma_pass_matches_plain(kernel, R, T, S, mode):
+    """Kernel 1's Gibbs layout at D = 64, 98 and 130 (and kernel 2's
+    square at D = 64 and 132) runs the wgmma pass in both reduced modes:
+    ragged tiles (T = 16, 300: runs cut by the pass's 128-row chunks),
+    pad rows, slots out of order, against the plain version within
+    MODE_TOL of scale, two launches bit-equal."""
+    device = _cuda()
+    ops, carry = _square_problem(kernel, R, S, seed=R * 10 + S + T, T=T)
+
+    def t(a):
+        a = torch.as_tensor(a, device=device)
+        return a.float() if a.is_floating_point() else a
+
+    ops = [[t(g) for g in o] if isinstance(o, list) else t(o) for o in ops]
+    cy = t(carry)
+    fn, plain = {
+        "cross": (gram.fused_tile_gram_cross,
+                  gram.fused_tile_gram_cross_reference),
+        "meta": (gram.fused_tile_gram, gram.fused_tile_gram_reference),
+    }[kernel]
+    D = carry.shape[0]
+    assert gram.gram_pass(mode, D, D) == "wgmma"
+    before = dict(fn.pass_launches)
+    out, c = fn(*ops, S, cy, fast_matmul=mode)
+    again, c2 = fn(*ops, S, cy, fast_matmul=mode)
+    torch.cuda.synchronize()
+    assert fn.pass_launches["wgmma"] == before["wgmma"] + 2
+    assert fn.pass_launches["mma"] == before["mma"]
+    assert torch.equal(out, again) and torch.equal(c, c2)
+    ref, ref_c = plain(*ops, S, cy, fast_matmul=mode)
+    scale = max(float(ref.abs().max()), 1.0)
+    assert float((out - ref).abs().max()) <= MODE_TOL * scale
+    assert float((c - ref_c).abs().max()) <= MODE_TOL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["split", "bf16"])
+@pytest.mark.parametrize("n_cross,T,aligned", [
+    (1, 128, True), (3, 128, True), (2, 300, True), (2, 128, False),
+])
+def test_wgmma_pass_over_any_tables(n_cross, T, aligned, mode):
+    """Kernel 1's wgmma pass at rank 128 over 600 tiles with one, two or
+    three gathered tables, ragged T = 300, and a table whose rows are not
+    16-byte aligned (the stage loads them value by value instead of in
+    16-byte packs), against the plain version within MODE_TOL of scale,
+    two launches bit-equal."""
+    device = _cuda()
+    R, S, K = 128, 2, 600
+    ops, carry = _square_problem("cross", R, S, seed=T + n_cross, T=T, K=K)
+    rng = np.random.RandomState(n_cross)
+    gths = (ops[1] + [rng.normal(size=(K, T, R + 2))])[:n_cross]
+
+    def t(a):
+        a = torch.as_tensor(a, device=device)
+        return a.float() if a.is_floating_point() else a
+
+    gths = [t(g) for g in gths]
+    if not aligned:
+        flat = torch.empty(gths[0].numel() + 1, device=device)
+        gths[0] = flat[1:].view_as(gths[0]).copy_(gths[0])
+        assert gths[0].data_ptr() % 16 != 0
+    ops = [t(ops[0]), gths] + [t(o) for o in ops[2:]]
+    cy = t(carry)
+    fn = gram.fused_tile_gram_cross
+    before = dict(fn.pass_launches)
+    out, c = fn(*ops, S, cy, fast_matmul=mode)
+    again, c2 = fn(*ops, S, cy, fast_matmul=mode)
+    torch.cuda.synchronize()
+    assert fn.pass_launches["wgmma"] == before["wgmma"] + 2
+    assert torch.equal(out, again) and torch.equal(c, c2)
+    ref, ref_c = gram.fused_tile_gram_cross_reference(*ops, S, cy,
+                                                      fast_matmul=mode)
+    scale = max(float(ref.abs().max()), 1.0)
+    assert float((out - ref).abs().max()) <= MODE_TOL * scale
+    assert float((c - ref_c).abs().max()) <= MODE_TOL * scale
+
+
+@pytest.mark.cuda
+def test_carry_segments_fill_the_card():
+    """The carry walk's segment length (carry_seg in csrc/gram_tile.cuh,
+    read back from the workspace size ceil(K / G) * E): the longest of
+    128 / 64 / 32 / 16 tiles that still gives 264 blocks of (segment, 64
+    entries), at most 64 where E >= 4096."""
+    _cuda()
+    from myfm_tpu_torch.ops import _build
+
+    lib = gram._bind(_build.load("fused_gram_cross"))
+
+    def seg(K, E):
+        n = lib.myfm_gram_carry_scratch(K, E) // E
+        return next(G for G in (16, 32, 64, 128) if -(-K // G) == n)
+
+    assert seg(4096, 34 * 34) == 128      # rank 32, Gibbs square
+    assert seg(8192, 130 * 130) == 64     # rank 128
+    assert seg(400, 12 * 32) == 16        # kernel 2 at ML-100k
+    assert seg(180, 12 * 12) == 16        # a small call: fewest tiles
+    assert seg(2000, 12 * 32) == 32       # 63 x 6 >= 264 > 32 x 6
+    assert lib.myfm_gram_carry_sync(400, 12 * 32) == 1 + 25 * 6
+
+
+def _chain_flags(case, K, S, rng):
+    """(cont_in, cont_out, last_slot, carry_in nonzero) of a chain case:
+    "span" one entity over all K tiles, "through" an S = 1 pass-through
+    chain entered with a carry, "random" any flags."""
+    if case == "span":
+        ci, co = np.ones(K, np.int32), np.ones(K, np.int32)
+        ci[0], co[-1] = 0, 0
+        return ci, co, np.zeros(K, np.int32), False
+    if case == "through":
+        return (np.ones(K, np.int32), np.ones(K, np.int32),
+                np.zeros(K, np.int32), True)
+    return (rng.randint(0, 2, K).astype(np.int32),
+            rng.randint(0, 2, K).astype(np.int32),
+            rng.randint(0, S, K).astype(np.int32), True)
+
+
+_CARRY_CASES = [("span", 300, 1), ("through", 257, 1), ("random", 129, 3),
+                ("random", 1, 2), ("random", 700, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,K,S", _CARRY_CASES)
+@pytest.mark.parametrize("kernel,mode,dtype", [
+    ("cross", "highest", torch.float32), ("cross", "highest", torch.float64),
+    ("cross", "bf16", torch.float32), ("cross_vi", "split", torch.float32),
+    ("meta", "highest", torch.float64), ("meta", "split", torch.float32),
+    ("rows", "highest", torch.float32), ("rows", "highest", torch.float64),
+])
+def test_carry_walk_is_the_in_order_carry(kernel, mode, dtype, case, K, S):
+    """Kernels 1 (Gibbs layout at R = 62, the wgmma pass in bf16; its VI
+    rectangle), 2 and 3 on chains of tiles: one entity over all K tiles,
+    an S = 1 pass-through chain entered with a carry, random flags, K not
+    a multiple of the walk's segments (16 to 128 tiles, by K and the
+    width) nor of its 64-entry slices.  Each launch equals, bit for bit, the in-order carry
+    (ops/gram.carry_in_order) applied to the same kernel's partials
+    without a carry, and two launches give the same bits."""
+    device = _cuda()
+    rng = np.random.RandomState(K + S)
+    T = 16
+    R = 62 if kernel == "cross" else 6
+    slot = np.sort(rng.randint(0, S, (K, T)), axis=1)
+    slot[:, -2:] = S
+    flags = _chain_flags(case, K, S, rng)
+    ci, co, ls = (torch.as_tensor(f, device=device) for f in flags[:3])
+    zero = torch.zeros(K, dtype=torch.int32, device=device)
+
+    def t(a):
+        return torch.as_tensor(a, device=device, dtype=dtype)
+
+    kw = {} if mode == "highest" else dict(fast_matmul=mode)
+    if kernel in ("cross", "cross_vi"):
+        ext = dict(q_lo=2, n_extra=2 * R, out_rows=2 + R) \
+            if kernel == "cross_vi" else {}
+        kw.update(ext)
+        q_lo, n_extra = ext.get("q_lo", 1), ext.get("n_extra", 0)
+        W = q_lo + R + n_extra + 1
+        aux2 = t(np.stack([slot, rng.normal(size=(K, T))], axis=1))
+        gths = [t(rng.normal(size=(K, T, W)) * 0.5) for _ in range(2)]
+        wvsl = t(rng.normal(size=(K, S, R + 2)) * 0.5)
+        D, rows = R + n_extra + 2, ext.get("out_rows", R + n_extra + 2)
+
+        def run(a, b, c, cin):
+            return gram.fused_tile_gram_cross(aux2, gths, wvsl, a, b, c, S,
+                                              cin, **kw)
+    elif kernel == "meta":
+        meta = t(np.stack([np.ones((K, T)), rng.normal(size=(K, T)),
+                           rng.random((K, T))], axis=2))
+        q = t(rng.normal(size=(K, T, R + 2)))
+        sl = torch.as_tensor(slot.astype(np.int32), device=device)
+        wvsl = t(rng.normal(size=(K, S, R + 1)) * 0.5)
+        D = rows = R + 4
+
+        def run(a, b, c, cin):
+            return gram.fused_tile_gram(meta, q, sl, wvsl, a, b, c, S, cin,
+                                        **kw)
+    else:
+        D = rows = R + 2
+        zr = t(rng.normal(size=(K, T, D)))
+        sl = torch.as_tensor(slot.astype(np.int32), device=device)
+
+        def run(a, b, c, cin):
+            return gram.tile_gram(zr, sl, a, b, c, S, cin)
+
+    cin = t(rng.normal(size=(rows, D))) if flags[3] else None
+    out, c = run(ci, co, ls, cin)
+    again, c2 = run(ci, co, ls, cin)
+    partial, _ = run(zero, zero, ls, None)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(c, c2)
+    partial = partial.view(K, S, rows, D)
+    want_c = gram.carry_in_order(partial, ci, co, ls, cin)
+    assert torch.equal(out, partial.view(K * S, rows, D))
+    assert torch.equal(c, want_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["split", "bf16"])
+def test_section_level3_is_production_on_the_wgmma_pass(mode):
+    """Kernel 5's level 3 at rank 128 (D = 130, the wgmma pass) is bit for
+    bit kernel 1 in the same mode, and level 2 its carry-free pass."""
+    device = _cuda()
+    args = _problem(128, 2, 2, seed=5, dtype=np.float32, R=128, N=6_000,
+                    B=40)
+    aux2, gths, wvsl, flags, S, _ = args
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    ops = [t(aux2), [t(g) for g in gths], t(wvsl), *[t(f) for f in flags]]
+    before = dict(gram.fused_tile_gram_cross.pass_launches)
+    out, c = gram.fused_tile_gram_cross(*ops, S, fast_matmul=mode)
+    lv3, c3 = gram.gram_section(3, *ops, S, mode)
+    lv2, _ = gram.gram_section(2, *ops, S, mode)
+    torch.cuda.synchronize()
+    assert gram.fused_tile_gram_cross.pass_launches["wgmma"] == \
+        before["wgmma"] + 1
+    assert torch.equal(out, lv3) and torch.equal(c, c3)
+    K = aux2.shape[0]
+    zero = torch.zeros(K, dtype=torch.int32, device=device)
+    part, _ = gram.fused_tile_gram_cross(ops[0], ops[1], ops[2], zero, zero,
+                                         ops[5], S, fast_matmul=mode)
+    assert torch.equal(part, lv2)
+
+
+@pytest.mark.cuda
+def test_rank128_fit_runs_the_wgmma_pass():
+    """Every kernel-1 launch of a small rank-128 fit ("auto" -> "bf16")
+    runs the wgmma pass."""
+    _cuda()
+    rng = np.random.RandomState(3)
+    n, n_u, n_i = 4000, 60, 40
+    u, i = rng.randint(0, n_u, n), rng.randint(0, n_i, n)
+    y = rng.normal(size=n_u)[u] + rng.normal(size=n_i)[i] + 3.0
+    from myfm_tpu_torch import RelationBlock
+
+    blocks = [RelationBlock(u, sps.identity(n_u, format="csr")),
+              RelationBlock(i, sps.identity(n_i, format="csr"))]
+    passes = gram.fused_tile_gram_cross.pass_launches
+    before = dict(passes)
+    launches = gram.fused_tile_gram_cross.launches
+    fm = MyFMGibbsRegressor(rank=128, random_seed=0, device="cuda").fit(
+        None, y, X_rel=blocks, n_iter=2)
+    assert fm.history_.gram_fast_matmul == "bf16"
+    ran = gram.fused_tile_gram_cross.launches - launches
+    assert ran > 0
+    assert passes["wgmma"] - before["wgmma"] == ran
+    assert passes["mma"] == before["mma"]
+    assert passes["fma"] == before["fma"]
+
+
+@pytest.mark.cuda
+def test_pass_rule_and_ring_match_the_launcher():
+    """ops/gram.gram_pass and the wgmma stage's ring size are the C
+    launcher's (myfm_gram_pass, myfm_gram_ring_bytes)."""
+    _cuda()
+    from myfm_tpu_torch.ops import _build
+
+    lib = gram._bind(_build.load("fused_gram_cross"))
+    for mode in gram.GRAM_MODES:
+        m = gram.GRAM_MODES.index(mode)
+        for D in (12, 34, 63, 64, 98, 130, 132, 386):
+            for rows in sorted({D, 2 + (D - 2) // 3, 1}):
+                assert gram.GRAM_PASSES[lib.myfm_gram_pass(m, D, rows)] == \
+                    gram.gram_pass(mode, D, rows)
+            if mode != "highest":
+                assert lib.myfm_gram_ring_bytes(D, m) == gram._stage_bytes(
+                    "wgmma", mode, 0, 0, D, 4)
