@@ -56,7 +56,14 @@ Phases, one line each:
 
   device    the card (and nvidia-smi's name / power limit)
   build     nvcc builds every kernel from csrc/ (in parallel)
-  data      the synthetic design and its fast-path plan
+  data      the synthetic design and its fast-path plan: seconds of the
+            design, of the fingerprint (the plan cache's key) and of the
+            card build's windows (counts and tiling, ``_plan_tiles``,
+            upload, the card derivation, finalize windows, the rest)
+  plan      the same plan built twice, the O(rows) layouts packed on the
+            host by the native planner (built here first, with g++) and
+            derived on the card; every table tensor bit-equal, each
+            build's seconds and windows
   kernel    fused_tile_gram_cross, kernel vs plain, at each table's
             first chunk of tiles (the main path's shapes), fp32 + fp64,
             then under "modes" in "split" and "bf16" (fp32; kernel vs
@@ -82,16 +89,38 @@ Phases, one line each:
   osweep    one ordered-probit categorical_sweep through kernel 1 vs one
             through the plain version, same state and variates, in each
             mode
-  fit       the estimator; the kernel's launch counter must rise, all
-            in "split", the mode "auto" resolved (history_)
+  fit       the estimator, from an emptied plan cache (so it compiles
+            its plan); the kernel's launch counter must rise, all in
+            "split", the mode "auto" resolved (history_); whether the plan
+            came from the cache and the cache's device bytes (beside every
+            peak-memory reading from here on)
   predict   held-out RMSE, below std(y_test)
   ofit      MyFMOrderedProbit(rank=32) on ratings 1..5 as classes 0..4,
             6 sweeps; "auto" must resolve to the fast path, kernel 1 must
             launch, every kept sample's cutpoints finite and increasing
   opredict  predict_proba rows sum to 1; held-out log-loss below the
             class-frequency predictor's
-  cfit      MyFMGibbsClassifier(rank=32) on rating >= 4, 6 sweeps
+  cfit      MyFMGibbsClassifier(rank=32) on rating >= 4, 6 sweeps;
+            ofit and cfit refit fit's design and must take its plan from
+            the cache (their time to first sweep is the refit's)
   cpredict  held-out log-loss below the base rate's; accuracy, AUC
+  ckpt      CategoricalGibbsTrainer on a plan of that design (rank 32,
+            regression, deterministic torch ops): 4 sweeps in one go
+            against 2 checkpointed at 2 and resumed to 4 in a fresh
+            trainer; the last 2 samples bit-equal (a difference fails
+            unless torch names a nondeterministic op, and then over
+            1e-6 of scale); the checkpoint's bytes, write and read
+            seconds
+  drain     the estimator on the cached plan, 100 sweeps keeping every
+            sample with an eager user callback, then with the pipelined
+            harvest: each fit's seconds and sweeps/s, the loop's host
+            syncs per sweep, the synchronising calls torch's sync-debug
+            mode counts per sweep, the harvest's peak pinned bytes and
+            the host allocator's pinned blocks; then MyFMOrderedProbit,
+            6 sweeps each way under deterministic torch ops: samples,
+            cutpoints, hyper and MH accept traces bit-equal (the rule
+            of ckpt).  The plan cache is emptied after it, and again
+            before the joint, VI, ML-10M VI and row-space phases
   r128data  the same design compiled at rank 128 (D = 130): (B, K, T, S)
             and chunk tiles per table, plan time; the fast-path gate
             must accept it
@@ -246,6 +275,11 @@ SEED = 0
 RANK = 32
 N_ITER = 6  # < 200, so "auto" keeps the fast path
 N_KEPT = 3
+DRAIN_ITER = 100  # the timed harvest pair: a chain keeping every sample
+DRAIN_CHECK_ITER = 6  # the deterministic pair: > _SNAP_LAG sweeps
+# two chains that should be bit-equal but ran an op torch names
+# nondeterministic: largest difference over the largest value
+CHAIN_TOL = 1e-6
 R128_RANK = 128  # the reference's flagship rank (bench.py _bench_rank128)
 R128_N_ITER = 4  # one warm-up sweep, three timed
 R128_IEEE_ITER = 2
@@ -1382,6 +1416,7 @@ def ea_phases(torch, train, test, jgroup, timer, stamps):
         fit_s=t_fit_end - t_fit, gram_launches=ea_gram,
         tail_launches=ea_tail, lists_launches=ea_lists,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        plan_cache_gib=cache_gib(),
     )))
 
     # serving must take the entity-space plan: count its scorer's calls,
@@ -1456,6 +1491,7 @@ def ea_phases(torch, train, test, jgroup, timer, stamps):
         fit_s=t_fit_end - t_fit, gram_launches=eo_gram,
         tail_launches=eo_tail,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        plan_cache_gib=cache_gib(),
         newton_syncs=_newton_minimize.syncs - syncs,
         cutpoints_last=cutpoint_checks("eaofit", eofm),
         mh_accepts=eofm.history_.n_mh_accept,
@@ -1548,7 +1584,7 @@ def vcfit10m_phase(torch, train, test, grouping, timer, stamps):
         launches_by_mode=mode_check(
             "vcfit10m", fm.history_,
             gram.fused_tile_gram_cross.mode_launches["vi"], "split"),
-        peak_gib=peak / 2**30,
+        peak_gib=peak / 2**30, plan_cache_gib=cache_gib(),
         elbo_first=fm.history_.elbos[0], elbo_last=fm.history_.elbos[-1],
         elbo_largest_drop=drop,
         **probit_checks("vcfit10m", fm, X_te, b_te, yc_te,
@@ -1622,6 +1658,7 @@ def vrfit_phase(torch, train, test, grouping, stamps):
                    fit_s=t_fit_s, time_to_first_sweep_s=ttfs,
                    s_per_sweep=s_per_sweep(ttfs, rate),
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   plan_cache_gib=cache_gib(),
                    elbo_first=fm.history_.elbos[0],
                    elbo_last=fm.history_.elbos[-1],
                    elbo_largest_drop=elbo_check(f"vrfit {task}",
@@ -1778,6 +1815,7 @@ def gibbs_colored_fits(torch, train, test, grouping, stamps):
             fit_s=time.perf_counter() - t_fit, time_to_first_sweep_s=ttfs,
             s_per_sweep=s_per_sweep(ttfs, rate),
             peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            plan_cache_gib=cache_gib(),
             tail_kernel_launches=joint_tail.joint_tail_pass.launches)
         return fm
 
@@ -1913,6 +1951,7 @@ def r128_phases(torch, train, test, grouping, timer, stamps):
         fit_s=t_fit_end - t_fit, launches_by_mode=counts,
         launches_by_pass=passes,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        plan_cache_gib=cache_gib(),
         ieee=ieee_line)))
     t0 = time.perf_counter()
     pred = fm.predict(X_te, b_te)
@@ -1964,6 +2003,284 @@ def fit_rates(stamps, t_fit):
     return ttfs, (len(stamps) - 1) / (stamps[-1] - stamps[0])
 
 
+def cache_gib():
+    """Device memory the plan cache holds (GiB)."""
+    from myfm_tpu_torch.design_cache import plan_cache_bytes
+
+    return plan_cache_bytes("cuda") / 2**30
+
+
+def plan_phase(torch, X, blocks, grouping):
+    """The ML-10M fast-path plan built twice: the O(rows) layouts packed
+    on the host by the native planner and uploaded, then derived on the
+    card from the entity ids and the counts-only metadata (the default
+    on CUDA).  Every tensor of every table must be bit-equal.  Returns
+    the card plan and the phase line: each build's seconds and windows
+    (``compile_categorical_table``'s timings, summed over the tables;
+    "other" is the rest of the build: mappings, cross-table maps), and
+    the fingerprint's seconds."""
+    import dataclasses
+
+    from myfm_tpu_torch._native import build as build_planner
+    from myfm_tpu_torch.design_cache import design_fingerprint
+    from myfm_tpu_torch.design_categorical import try_compile_categorical
+
+    t0 = time.perf_counter()
+    build_planner()
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    design_fingerprint(X, blocks, grouping)
+    t_fp = time.perf_counter() - t0
+    line = dict(native_build_s=t_native, fingerprint_s=t_fp)
+    plans = {}
+    for name, on_card in (("host", False), ("card", True)):
+        windows = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = try_compile_categorical(
+            X, blocks, np.asarray(grouping, np.int32), None, np.float32,
+            "cuda", rank=RANK, derive_src_on_device=on_card,
+            timings=windows)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        if plan is None:
+            fail("plan: the design did not compile to the fast path")
+        windows["other"] = total - sum(windows.values())
+        line[name] = dict(s=total, windows=windows)
+        plans[name] = plan
+    for ti, (a, b) in enumerate(zip(plans["host"].tables,
+                                    plans["card"].tables)):
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            same = (torch.equal(x, y) and x.dtype == y.dtype
+                    if isinstance(x, torch.Tensor)
+                    else np.array_equal(x, y))
+            if not same:
+                fail(f"plan: table {ti} field {f.name} differs between "
+                     "the host pack and the card derivation")
+    for a, b in zip(plans["host"].cross_ent, plans["card"].cross_ent):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            fail("plan: the cross-table entity maps differ")
+    line["bit_equal"] = True
+    return plans["card"], line
+
+
+def nondeterministic_ops(caught):
+    """The ops torch's deterministic mode warned about, by name."""
+    return sorted({str(w.message).split(" does not have")[0]
+                   for w in caught if "deterministic" in str(w.message)})
+
+
+def chain_check(phase, pairs, nondet):
+    """Two chains' host values, pair by pair: bit-equal, or the largest
+    difference.  A difference fails unless torch named a
+    nondeterministic op, and then above CHAIN_TOL of scale.  Returns the
+    reading."""
+    diff, scale, equal = 0.0, 0.0, True
+    for x, y in pairs:
+        x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+        if x.shape != y.shape:
+            fail(f"{phase}: shapes {x.shape} and {y.shape} differ")
+        equal = equal and np.array_equal(x, y)
+        if x.size:
+            diff = max(diff, float(np.abs(x - y).max()))
+            scale = max(scale, float(np.abs(x).max()))
+    rel = diff / max(scale, 1e-30)
+    if not equal and (not nondet or rel > CHAIN_TOL):
+        fail(f"{phase}: the chains differ by {rel:.3e} of scale; "
+             f"nondeterministic ops {nondet}")
+    return dict(bit_equal=equal, max_abs_diff=diff, max_rel_diff=rel,
+                nondeterministic_ops=nondet)
+
+
+def sample_pairs(a_samples, b_samples):
+    """(a, b) host arrays of two lists of kept samples: w0, w, V and
+    every cutpoint vector."""
+    if len(a_samples) != len(b_samples):
+        fail(f"{len(a_samples)} and {len(b_samples)} kept samples")
+    for a, b in zip(a_samples, b_samples):
+        yield np.float64(a.w0), np.float64(b.w0)
+        yield a.w, b.w
+        yield a.V, b.V
+        if len(a.cutpoints) != len(b.cutpoints):
+            fail("the samples' cutpoint groups differ")
+        yield from zip(a.cutpoints, b.cutpoints)
+
+
+def ckpt_phase(torch, train, grouping):
+    """Resume on the card: CategoricalGibbsTrainer on the ML-10M plan
+    (compiled here), rank 32, regression, under ``deterministic``: 4
+    sweeps in one go, and 2 sweeps checkpointed at 2 then resumed to 4
+    in a fresh trainer.  The last 2 kept samples go through
+    ``chain_check``.  Also the checkpoint's bytes and its write and read
+    seconds."""
+    import os
+    import tempfile
+    import warnings
+
+    from myfm_tpu_torch import checkpoint
+    from myfm_tpu_torch.design_categorical import try_compile_categorical
+    from myfm_tpu_torch.ops.gibbs import GibbsConfig
+    from myfm_tpu_torch.ops._build import BUILD_DIR
+    from myfm_tpu_torch.trainer import CategoricalGibbsTrainer
+
+    X_tr, blocks_tr, y_tr = train
+    plan = try_compile_categorical(
+        X_tr, blocks_tr, np.asarray(grouping, np.int32), None, np.float32,
+        "cuda", rank=RANK)
+    if plan is None:
+        fail("ckpt: the design did not compile to the fast path")
+    io_s = {"write": [], "read": []}
+    real = checkpoint.save_checkpoint, checkpoint.load_checkpoint
+
+    def timed(kind, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            io_s[kind].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def trainer():
+        return CategoricalGibbsTrainer(
+            plan, y_tr, GibbsConfig(task="regression"), RANK, 0.1, SEED)
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    checkpoint.save_checkpoint = timed("write", real[0])
+    checkpoint.load_checkpoint = timed("read", real[1])
+    try:
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as d, \
+                warnings.catch_warnings(record=True) as caught, \
+                deterministic(torch):
+            warnings.simplefilter("always")
+            path = os.path.join(d, "chain.npz")
+            t0 = time.perf_counter()
+            full, _ = trainer().run(4, 4)
+            trainer().run(2, 1, checkpoint_path=path, checkpoint_every=2)
+            size = os.path.getsize(path)
+            resumed, _ = trainer().run(4, 4, checkpoint_path=path,
+                                       resume=True)
+            torch.cuda.synchronize()
+            t_all = time.perf_counter() - t0
+    finally:
+        checkpoint.save_checkpoint, checkpoint.load_checkpoint = real
+    if len(resumed.samples) != 2:
+        fail(f"ckpt: the resumed run kept {len(resumed.samples)} samples")
+    line = chain_check("ckpt", sample_pairs(full.samples[-2:],
+                                            resumed.samples),
+                       nondeterministic_ops(caught))
+    line.update(checkpoint_bytes=size, write_s=io_s["write"],
+                read_s=io_s["read"],
+                sweeps=dict(full=4, first=2, resumed=2), phase_s=t_all)
+    return line
+
+
+def drain_phase(torch, train, grouping):
+    """The harvest on the cached ML-10M design (rank 32).
+
+    Timed: MyFMGibbsRegressor for DRAIN_ITER sweeps with every sample
+    kept, once with an eager user callback and once with the default
+    (pipelined) harvest, default ops.  Per run: the whole fit's seconds
+    (plan from the cache, initialisation included) and its sweeps per
+    second, the loop's host syncs per sweep
+    (``run_mcmc_loop.host_syncs``), the synchronising calls torch's
+    sync-debug mode reports per sweep, the peak pinned bytes the
+    harvest held (``_HostCopy.peak_pinned_bytes``), the pinned blocks
+    the host allocator made (``num_host_alloc``) and the bytes it holds
+    after the fit; and the largest difference of the two chains' V,
+    which default ops (atomic scatters) may give.
+
+    Checked: MyFMOrderedProbit for DRAIN_CHECK_ITER sweeps, eager then
+    pipelined, under ``deterministic``: every kept sample's w0, w, V and
+    cutpoints, the hyper trace and the MH accept trace through
+    ``chain_check``."""
+    import warnings
+
+    from myfm_tpu_torch import MyFMGibbsRegressor, MyFMOrderedProbit
+    from myfm_tpu_torch.design_cache import get_or_build
+    from myfm_tpu_torch.trainer import _HostCopy, run_mcmc_loop
+
+    X_tr, blocks_tr, y_tr = train
+
+    def host_alloc():
+        """The host allocator's pinned blocks made so far and the bytes
+        it holds (None where this torch has no such counters)."""
+        stats = getattr(torch.cuda, "host_memory_stats", dict)()
+        return (stats.get("num_host_alloc"),
+                stats.get("allocated_bytes.current"))
+
+    def fit(est, y, n_iter, callback):
+        hits = get_or_build.hits
+        fm = est(rank=RANK, random_seed=SEED, device="cuda").fit(
+            X_tr, y, X_rel=blocks_tr, n_iter=n_iter, n_kept_samples=n_iter,
+            grouping=grouping, callback=callback)
+        torch.cuda.synchronize()
+        if get_or_build.hits - hits != 1:
+            fail("drain: a fit did not take its plan from the cache")
+        return fm
+
+    harvests = (("eager", lambda *a: (False, None)), ("pipelined", None))
+    line, fits = {}, {}
+    for name, callback in harvests:
+        syncs = run_mcmc_loop.host_syncs
+        _HostCopy.peak_pinned_bytes = _HostCopy.pinned_bytes
+        allocs, _ = host_alloc()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                fits[name] = fit(MyFMGibbsRegressor, y_tr, DRAIN_ITER,
+                                 callback)
+                fit_s = time.perf_counter() - t0
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch_syncs = sum("synchroniz" in str(w.message) for w in caught)
+        allocs_after, held = host_alloc()
+        line[name] = dict(
+            fit_s=fit_s, sweeps_per_s=DRAIN_ITER / fit_s,
+            loop_syncs_per_sweep=(run_mcmc_loop.host_syncs - syncs)
+            / DRAIN_ITER,
+            torch_syncs_per_sweep=torch_syncs / DRAIN_ITER,
+            peak_pinned_bytes=_HostCopy.peak_pinned_bytes,
+            pinned_left_bytes=_HostCopy.pinned_bytes,
+            host_allocs=(None if allocs is None
+                         else allocs_after - allocs),
+            host_alloc_bytes=held)
+        if _HostCopy.pinned_bytes:
+            fail(f"drain: {_HostCopy.pinned_bytes} pinned bytes still "
+                 "held after the fit")
+    line.update(sweeps=DRAIN_ITER, kept=DRAIN_ITER,
+                default_ops_max_abs_diff_V=max(
+                    float(np.abs(a.V - b.V).max()) for a, b in zip(
+                        fits["eager"].predictor_.samples,
+                        fits["pipelined"].predictor_.samples)))
+    del fits
+
+    yo = (y_tr - 1).astype(np.int64)
+    with warnings.catch_warnings(record=True) as caught, \
+            deterministic(torch):
+        warnings.simplefilter("always")
+        eager, lazy = (fit(MyFMOrderedProbit, yo, DRAIN_CHECK_ITER, cb)
+                       for _, cb in harvests)
+    pairs = list(sample_pairs(eager.predictor_.samples,
+                              lazy.predictor_.samples))
+    for a, b in zip(eager.history_.hypers, lazy.history_.hypers):
+        pairs += [(getattr(a, k), getattr(b, k)) for k in
+                  ("alpha", "mu_w", "lambda_w", "mu_V", "lambda_V")]
+    pairs += list(zip(eager.history_.n_mh_accept_trace,
+                      lazy.history_.n_mh_accept_trace))
+    if (len(eager.history_.hypers) != DRAIN_CHECK_ITER
+            or len(lazy.history_.hypers) != DRAIN_CHECK_ITER):
+        fail("drain: a checked fit's hyper trace is short")
+    line["check"] = dict(task="ordered", sweeps=DRAIN_CHECK_ITER,
+                         **chain_check("drain", pairs,
+                                       nondeterministic_ops(caught)))
+    return line
+
+
 def s_per_sweep(ttfs, rate):
     """Seconds per sweep after the first, or the first sweep's own time
     (plan and initialisation included) where a fit ran one."""
@@ -2007,8 +2324,8 @@ def main():
                  f"{time.perf_counter() - t0:.1f} s; " + ", ".join(ptxas))
     selfchecks = selfcheck_phase(torch)
 
-    from myfm_tpu_torch import MyFMGibbsRegressor
-    from myfm_tpu_torch.design_categorical import try_compile_categorical
+    from myfm_tpu_torch import MyFMGibbsRegressor, clear_plan_cache
+    from myfm_tpu_torch.design_cache import get_or_build
     from myfm_tpu_torch.ops.gibbs import GibbsConfig
     from myfm_tpu_torch.trainer import CategoricalGibbsTrainer
 
@@ -2016,17 +2333,17 @@ def main():
     (X_tr, blocks_tr, y_tr), (X_te, blocks_te, y_te), grouping, shape = (
         build_design(SEED)
     )
-    plan = try_compile_categorical(
-        X_tr, blocks_tr, np.asarray(grouping, np.int32), None, np.float32,
-        "cuda", rank=RANK,
-    )
-    if plan is None:
-        fail("the design did not compile to the fast path")
+    t_design = time.perf_counter() - t0
+    plan, pline = plan_phase(torch, X_tr, blocks_tr, grouping)
     tiling = [(t.n_cols, t.n_tiles, t.tile_rows, t.tile_entities)
               for t in plan.tables]
-    say("data", f"{shape} train {y_tr.size} test {y_te.size}; plan "
-                f"(B, K, T, S) per table {tiling} in "
-                f"{time.perf_counter() - t0:.1f} s")
+    say("data", f"{shape} train {y_tr.size} test {y_te.size}; design "
+                f"{t_design:.1f} s; plan (B, K, T, S) per table {tiling} in "
+                f"{pline['card']['s']:.2f} s on the card path: fingerprint "
+                f"{pline['fingerprint_s']:.2f} s (the cache's key), then "
+                + ", ".join(f"{k} {v:.3f} s" for k, v in
+                            pline["card"]["windows"].items()))
+    say("plan", json.dumps(pline))
 
     trainer = CategoricalGibbsTrainer(
         plan, y_tr, GibbsConfig(task="regression"), RANK, 0.1, SEED,
@@ -2063,11 +2380,14 @@ def main():
 
     torch.cuda.reset_peak_memory_stats()
     reset_gram_counts(gram)
+    clear_plan_cache()
+    hits = get_or_build.hits
     t_fit = time.perf_counter()
     fm = MyFMGibbsRegressor(rank=RANK, random_seed=SEED, device="cuda").fit(
         X_tr, y_tr, X_rel=blocks_tr, n_iter=N_ITER, n_kept_samples=N_KEPT,
         grouping=grouping, callback=timer,
     )
+    fit_cached = get_or_build.hits > hits
     pred = fm.predict(X_te, blocks_te)
     torch.cuda.synchronize()
     launches = gram.fused_tile_gram_cross.launches
@@ -2083,9 +2403,11 @@ def main():
     sweeps_per_s = (len(stamps) - 1) / (stamps[-1] - stamps[0])
     say("fit", f"engine {fm.history_.engine}, Gram mode "
                f"{fm.history_.gram_fast_matmul}, {len(stamps)} sweeps, "
+               f"plan from the cache {fit_cached}, "
                f"time to first sweep {ttfs:.2f} s, {sweeps_per_s:.3f} "
                f"sweeps/s, kernel launches {launches} (by mode "
-               f"{fit_modes}), peak device memory {peak / 2**30:.2f} GiB")
+               f"{fit_modes}), peak device memory {peak / 2**30:.2f} GiB "
+               f"(plan cache {cache_gib():.3f} GiB)")
 
     rmse = float(np.sqrt(np.mean((pred - y_te) ** 2)))
     std = float(y_te.std())
@@ -2113,11 +2435,15 @@ def main():
         torch.cuda.reset_peak_memory_stats()
         reset_gram_counts(gram)
         syncs = _newton_minimize.syncs
+        hits = get_or_build.hits
         t_fit = time.perf_counter()
         pfm = est(rank=RANK, random_seed=SEED, device="cuda").fit(
             X_tr, ytr_, X_rel=blocks_tr, n_iter=P_N_ITER,
             n_kept_samples=N_KEPT, grouping=grouping, callback=timer,
         )
+        if get_or_build.hits - hits != 1:
+            fail(f"{phase}: the refit of fit's design missed the plan "
+                 "cache")
         torch.cuda.synchronize()
         t_fit_end = time.perf_counter()
         o_launches[phase] = gram.fused_tile_gram_cross.launches
@@ -2132,10 +2458,11 @@ def main():
                         phase, pfm.history_,
                         gram.fused_tile_gram_cross.mode_launches["gibbs"],
                         "split"),
-                    sweeps=len(stamps),
+                    sweeps=len(stamps), plan_from_cache=True,
                     time_to_first_sweep_s=ttfs, sweeps_per_s=rate,
                     fit_s=t_fit_end - t_fit, kernel_launches=o_launches[phase],
                     peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    plan_cache_gib=cache_gib(),
                     newton_syncs=_newton_minimize.syncs - syncs)
         if n_class > 2:
             info["cutpoints_last"] = cutpoint_checks(phase, pfm)
@@ -2147,6 +2474,15 @@ def main():
         del pfm
         torch.cuda.empty_cache()
 
+    # ---- the fit's surface: resume, and the harvest on the cached plan
+    say("ckpt", json.dumps(ckpt_phase(torch, (X_tr, blocks_tr, y_tr),
+                                      grouping)))
+    torch.cuda.empty_cache()
+    say("drain", json.dumps(drain_phase(
+        torch, (X_tr, blocks_tr, y_tr), grouping)))
+    clear_plan_cache()
+    torch.cuda.empty_cache()
+
     # ---- rank 128 on the ML-10M design: kernel 1 in bf16 ----
     r128rows, r128_launches, r128_ieee_launches = r128_phases(
         torch, (X_tr, blocks_tr, y_tr), (X_te, blocks_te, y_te), grouping,
@@ -2154,6 +2490,8 @@ def main():
     say("r128predict", f"so far {time.perf_counter() - t_start:.1f} s")
 
     # ---- the joint engine: ML-100k timeSVD++-flipped, rank 10 ----
+    clear_plan_cache()
+    torch.cuda.empty_cache()
     from myfm_tpu_torch.design import compile_design, joint_auto_eligible
     from myfm_tpu_torch.trainer import GibbsTrainer
 
@@ -2226,7 +2564,7 @@ def main():
                 f"time to first sweep {ttfs:.2f} s, {sweeps_per_s:.3f} "
                 f"sweeps/s, fit {t_fit_end - t_fit:.1f} s, tail kernel "
                 f"launches {jlaunches}, peak device memory "
-                f"{jpeak / 2**30:.3f} GiB")
+                f"{jpeak / 2**30:.3f} GiB (plan cache {cache_gib():.3f} GiB)")
 
     t0 = time.perf_counter()
     jpred = jfm.predict(jX_te, jb_te)
@@ -2267,6 +2605,7 @@ def main():
         time_to_first_sweep_s=ttfs, sweeps_per_s=rate,
         fit_s=t_fit_end - t_fit, tail_kernel_launches=jo_launches,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        plan_cache_gib=cache_gib(),
         newton_syncs=_newton_minimize.syncs - syncs,
         cutpoints_last=cutpoint_checks("jofit", jofm),
         mh_accepts=jofm.history_.n_mh_accept,
@@ -2281,6 +2620,7 @@ def main():
     say("ea", f"so far {time.perf_counter() - t_start:.1f} s")
 
     # ---- VI: the same ML-100k design, entity+attribute fast path ----
+    clear_plan_cache()
     torch.cuda.empty_cache()
     from myfm_tpu_torch import VariationalFMRegressor
     from myfm_tpu_torch.ops.variational import VariationalConfig
@@ -2367,7 +2707,7 @@ def main():
                 f"{v_meta}; ELBO first {elbos[0]:.6e} last {elbos[-1]:.6e}"
                 f", largest decrease {drop:.3e} (tolerance "
                 f"{ELBO_DROP_TOL:.0e} of |ELBO|); peak device memory "
-                f"{vpeak / 2**30:.3f} GiB")
+                f"{vpeak / 2**30:.3f} GiB (plan cache {cache_gib():.3f} GiB)")
 
     t0 = time.perf_counter()
     vpred = vfm.predict(jX_te, jb_te)
@@ -2382,6 +2722,8 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- VI at the ML-10M shape (the fast-path design), rank 32 ----
+    clear_plan_cache()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     p10 = compile_vi_fast_plan(X_tr, blocks_tr,
                                np.asarray(grouping, np.int32), np.float32,
@@ -2436,6 +2778,7 @@ def main():
         sweeps=len(stamps), time_to_first_sweep_s=ttfs, sweeps_per_s=rate,
         vi_launches=v10_launches, gram_mode=v10.history_.gram_fast_matmul,
         launches_by_mode=v10_modes, peak_gib=v10_peak / 2**30,
+        plan_cache_gib=cache_gib(),
         elbo_first=v10.history_.elbos[0], elbo_last=v10.history_.elbos[-1],
         rmse=rmse10, std_y_test=std,
         whole_run_s=time.perf_counter() - t_start,
@@ -2451,6 +2794,8 @@ def main():
     say("vcfit10m", json.dumps(vc10))
 
     # ---- row-space CAVI (the colored sweep) on the ML-100k design ----
+    clear_plan_cache()
+    torch.cuda.empty_cache()
     say("vrfit", json.dumps(vrfit_phase(
         torch, (jX_tr, jb_tr, jy_tr), (jX_te, jb_te, jy_te), vgroup,
         stamps)))

@@ -35,9 +35,13 @@ engines, resolved as the TPU package resolves them:
   PyTorch) on every other design, or with ``sweep_strategy`` "colored"
   or "serial".
 
-The split and bf16 Gram modes and multiple devices are later slices and
-raise ``NotImplementedError``.  The package
-imports neither JAX nor ``myfm_tpu``.
+Plans are cached by design content (``clear_plan_cache`` frees them),
+the Gibbs trainers checkpoint and resume their chains
+(``trainer.run(..., checkpoint_path=, checkpoint_every=, resume=)``),
+and the design planner's sequential passes run in a native library
+built at first use.  Multiple devices are a later slice and raise
+``NotImplementedError``.  The package imports neither JAX nor
+``myfm_tpu``.
 """
 
 from .base import ConfigBuilder, MyFMBase, std_cdf
@@ -56,6 +60,11 @@ from .gibbs import (
     MyFMGibbsRegressor,
     MyFMOrderedProbit,
     MyFMRegressor,
+)
+from .design_cache import clear_plan_cache
+from .ops.special import (
+    mean_var_truncated_normal_left,
+    mean_var_truncated_normal_right,
 )
 from .predictor import Predictor, VariationalPredictor
 from .relational import RelationBlock
@@ -89,5 +98,8 @@ __all__ = [
     "VariationalFMRegressor",
     "VariationalFMClassifier",
     "VariationalPredictor",
+    "mean_var_truncated_normal_left",
+    "mean_var_truncated_normal_right",
+    "clear_plan_cache",
     "__version__",
 ]

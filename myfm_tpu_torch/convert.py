@@ -8,8 +8,9 @@ MH accept counts, a ``CategoricalState`` with its latent τ, a ``VIState`` or
 row-space ``DesignPlan``) by their attributes alone, read every array
 with
 ``np.asarray``, and build the port's counterpart on a torch device — so
-both packages can be run on the same numbers.  Nothing here imports the
-TPU package or JAX.
+both packages can be run on the same numbers.  ``state_from_jax_checkpoint``
+reads a chain checkpoint the TPU package wrote.  Nothing here imports
+the TPU package or JAX.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .checkpoint import state_fields, with_fields
 from .containers import FM
 from .design import (
     BlockPlan,
@@ -166,3 +168,29 @@ def design_plan_from_numpy(plan, device) -> DesignPlan:
     """The port's row-space DesignPlan from a TPU-package DesignPlan
     (every array read with ``np.asarray``, dtypes kept)."""
     return _plan_node(DesignPlan, plan, device)
+
+
+def state_from_jax_checkpoint(path: str, like):
+    """(state, iteration) from a checkpoint of the TPU package's
+    ``save_checkpoint``: an npz of the state pytree's leaves
+    (``leaf_0``, ...) and the sweeps done.  The leaves are the state's
+    fields in order, nested states depth first, None fields left out,
+    so ``like`` (the port's state of the same chain, e.g. a trainer's
+    ``_initialize()``) gives the structure, which fields are None, and
+    each tensor's device and dtype.  The chain's generator state is not
+    in such a file: the TPU package derives its keys from the seed."""
+    with np.load(path) as data:
+        ref = dict(state_fields(like))
+        present = [name for name, v in ref.items() if v is not None]
+        n_leaves = sum(1 for k in data.files if k.startswith("leaf_"))
+        if n_leaves != len(present):
+            raise ValueError(
+                f"{path} holds {n_leaves} leaves, the state has "
+                f"{len(present)} fields that are not None: {present}")
+        values = dict.fromkeys(ref)
+        for i, name in enumerate(present):
+            r = ref[name]
+            values[name] = torch.tensor(data[f"leaf_{i}"], dtype=r.dtype,
+                                        device=r.device)
+        iteration = int(data["iteration"])
+    return with_fields(like, values), iteration

@@ -202,24 +202,31 @@ def joint_auto_eligible(
 # ---------------------------------------------------------------------------
 
 
-def greedy_color(csc: sps.csc_matrix) -> List[np.ndarray]:
+def greedy_color(csc: sps.csc_matrix, plain: bool = False
+                 ) -> List[np.ndarray]:
     """Partition columns into row-disjoint sets (a valid coloring).
 
     Greedy single pass in column order with per-row counters ``c``:
     a column's color is ``max(c[rows])``, after which ``c[rows]`` is
-    raised to ``color + 1``.  The same pass as the TPU package's native
-    planner and numpy fallback, so it assigns the same colors."""
+    raised to ``color + 1``.  The native planner runs the pass
+    (_native/planner.cc, the TPU package's); ``plain`` runs the numpy
+    loop it replaces.  Both assign the TPU package's colors."""
     n_rows, n_cols = csc.shape
     indptr, indices = csc.indptr, csc.indices
-    c = np.zeros(n_rows, dtype=np.int32)
-    assign = np.zeros(n_cols, dtype=np.int32)
-    for f in range(n_cols):
-        rows = indices[indptr[f] : indptr[f + 1]]
-        if rows.size == 0:
-            continue
-        col = int(c[rows].max())
-        assign[f] = col
-        c[rows] = np.maximum(c[rows], col + 1)
+    if plain:
+        c = np.zeros(n_rows, dtype=np.int32)
+        assign = np.zeros(n_cols, dtype=np.int32)
+        for f in range(n_cols):
+            rows = indices[indptr[f] : indptr[f + 1]]
+            if rows.size == 0:
+                continue
+            col = int(c[rows].max())
+            assign[f] = col
+            c[rows] = np.maximum(c[rows], col + 1)
+    else:
+        from ._native import greedy_color_native
+
+        assign = greedy_color_native(n_rows, n_cols, indptr, indices)
     n_colors = int(assign.max()) + 1 if n_cols else 0
     order = np.argsort(assign, kind="stable")
     bounds = np.searchsorted(assign[order], np.arange(n_colors + 1))

@@ -8,8 +8,14 @@ PyTorch counterpart of ``myfm_tpu/design_categorical.py``.  A table
 ``T`` rows holding at most ``S`` entities, and the per-entity Gram
 statistics come from one kernel launch per chunk of tiles (ops/gram.py).
 
-The layout is packed on the host in numpy and uploaded once; every
-layout array is bit-equal to the TPU package's at the same (T, S).
+Every layout array is bit-equal to the TPU package's at the same (T, S).
+On a CUDA device the O(rows) layouts (each tile row's source row and
+slot) are derived on the card from the uploaded entity ids and the
+counts-only packing metadata (``_plan_tiles``, ``_derive_src_slot_device``),
+as the TPU package derives them on its TPU; elsewhere, or with
+``derive_src_on_device=False``, the native planner packs them on the
+host (``_native.pack_tiles_native``; ``_pack_tiles`` is its plain numpy
+version).  Both give the same bits.
 What differs is how (T, S) is chosen: the TPU package ranks tilings by a
 VMEM-gated cost model of its Pallas kernel, while this port uses a rule
 of its own fitted to the CUDA kernel (``choose_tiling``).  Whether a
@@ -29,6 +35,7 @@ paths (ops/categorical.py, ops/categorical_vi.py) run such plans.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -60,9 +67,17 @@ SIDE_MAX_COLORS = 2048
 
 def _packed_rows(counts: np.ndarray, T: int, S: int) -> int:
     """Exact padded row count of the greedy packing (``_pack_tiles``),
-    computed from the cardinality sequence without materializing the
-    layout: one step per entity, an entity longer than the room left in
-    its tile closing that tile and ``(rest - 1) // T`` full ones."""
+    from the native planner."""
+    from ._native import packed_rows_native
+
+    return packed_rows_native(counts, T, S)
+
+
+def _packed_rows_reference(counts: np.ndarray, T: int, S: int) -> int:
+    """The plain version of ``_packed_rows``, computed from the
+    cardinality sequence without materializing the layout: one step per
+    entity, an entity longer than the room left in its tile closing that
+    tile and ``(rest - 1) // T`` full ones."""
     counts = np.asarray(counts)
     total = 0
     row_fill = 0
@@ -569,6 +584,170 @@ def torch_dtype(dtype) -> torch.dtype:
             np.dtype(np.float64): torch.float64}[np.dtype(dtype)]
 
 
+def _plan_tiles(counts: np.ndarray, T: int, S: int):
+    """Counts-only tile packing: the greedy walk of ``_pack_tiles`` over
+    the cardinalities alone, materializing no O(rows) array.  The
+    src / slot layouts are derived on the device from ``ent_main`` and
+    the per-segment layout returned here (``_derive_src_slot_device``).
+
+    Returns (seg_starts, seg_shift, seg_slot, meta): segment i covers
+    the entity-sorted positions [seg_starts[i], seg_starts[i+1]) and
+    goes to tile rows pos + seg_shift[i] with slot seg_slot[i]; a last
+    sentinel segment covers the positions past the last real row (masked
+    rows, which sort last).  meta = (n_tiles, cont_in, cont_out,
+    last_slot, ent_slots, final_part), bit-equal to ``_pack_tiles``'s
+    (the TPU package's ``_plan_tiles``, line for line)."""
+    n_entities = counts.shape[0]
+    seg_starts: List[int] = []
+    seg_dest: List[int] = []
+    seg_slot: List[int] = []
+    tile_first: List[int] = []
+    tile_last: List[int] = []
+    tile_last_slot: List[int] = []
+    tile_slot_ents: List[List[int]] = []
+    cur_slot_ents: List[int] = []
+    final_tile = np.full(n_entities, -1, dtype=np.int64)
+    final_slot = np.zeros(n_entities, dtype=np.int64)
+
+    row_fill = 0
+    ent_fill = 0
+    cur_first = -1
+    cur_last = -1
+
+    def close_tile():
+        nonlocal row_fill, ent_fill, cur_first, cur_last, cur_slot_ents
+        tile_first.append(cur_first)
+        tile_last.append(cur_last)
+        tile_last_slot.append(max(ent_fill - 1, 0))
+        tile_slot_ents.append(
+            cur_slot_ents + [n_entities] * (S - len(cur_slot_ents))
+        )
+        row_fill = 0
+        ent_fill = 0
+        cur_first = -1
+        cur_last = -1
+        cur_slot_ents = []
+
+    pos = 0
+    for u in range(n_entities):
+        c = int(counts[u])
+        if c == 0:
+            continue
+        taken = 0
+        while taken < c:
+            if row_fill >= T or ent_fill >= S:
+                close_tile()
+            take = min(c - taken, T - row_fill)
+            seg_starts.append(pos)
+            seg_dest.append(len(tile_first) * T + row_fill)
+            seg_slot.append(ent_fill)
+            if cur_first < 0:
+                cur_first = u
+            cur_last = u
+            cur_slot_ents.append(u)
+            final_tile[u] = len(tile_first)
+            final_slot[u] = ent_fill
+            pos += take
+            taken += take
+            row_fill += take
+            ent_fill += 1
+    if row_fill:
+        close_tile()
+    close_tile()  # the trailing all-pad tile, as in _pack_tiles
+
+    n_tiles = len(tile_first)
+    tf = np.asarray(tile_first, dtype=np.int64)
+    tl = np.asarray(tile_last, dtype=np.int64)
+    cont_in = np.zeros(n_tiles, dtype=np.int32)
+    cont_out = np.zeros(n_tiles, dtype=np.int32)
+    if n_tiles > 1:
+        same = (tf[1:] == tl[:-1]) & (tf[1:] >= 0)
+        cont_in[1:] = same.astype(np.int32)
+        cont_out[:-1] = same.astype(np.int32)
+    last_slot = np.asarray(tile_last_slot, dtype=np.int32)
+    ent_slots = np.asarray(tile_slot_ents, dtype=np.int32).reshape(
+        n_tiles, S
+    )
+    final_part = np.where(
+        final_tile >= 0,
+        final_tile * S + final_slot,
+        (n_tiles - 1) * S,
+    ).astype(np.int32)
+
+    starts = np.asarray(seg_starts + [pos], dtype=np.int32)
+    shift = np.asarray(
+        [d - s for d, s in zip(seg_dest, seg_starts)] + [0],
+        dtype=np.int32,
+    )
+    slots = np.asarray(seg_slot + [0], dtype=np.int32)
+    meta = (n_tiles, cont_in, cont_out, last_slot, ent_slots, final_part)
+    return starts, shift, slots, meta
+
+
+def _derive_src_slot_device(
+    ent_main: torch.Tensor,  # [n] int32, masked rows carry id n_entities
+    seg_starts: torch.Tensor,  # [n_seg+1] ascending, sentinel last
+    seg_shift: torch.Tensor,  # [n_seg+1] (sentinel 0)
+    seg_slot: torch.Tensor,  # [n_seg+1] int32 (sentinel 0)
+    nt: int,
+    n_rows: int,
+):
+    """The src / slot tile layouts [nt] int32 derived on ent_main's
+    device: a stable argsort of ent_main gives the entity-sorted row
+    order (masked ids sort last, as the host's argsort over the real
+    rows leaves them out), a search of each sorted position among the
+    segment starts gives its packing segment, and two scatters place the
+    row indices and the slots at their tile rows.  Tile rows no segment
+    reaches keep (src = n_rows, slot = 0).  Positions in the sentinel
+    segment are routed to index nt of buffers one longer, which is
+    sliced off (the TPU package drops them with ``mode="drop"``)."""
+    device = ent_main.device
+    order = torch.argsort(ent_main, stable=True).to(torch.int32)
+    p = torch.arange(ent_main.shape[0], dtype=torch.int64, device=device)
+    starts = seg_starts.to(torch.int64)
+    seg = torch.searchsorted(starts, p, right=True) - 1
+    sentinel = starts.shape[0] - 1
+    dest = torch.where(seg < sentinel, p + seg_shift.to(torch.int64)[seg],
+                       nt)
+    src = torch.full((nt + 1,), n_rows, dtype=torch.int32, device=device)
+    slot = torch.zeros(nt + 1, dtype=torch.int32, device=device)
+    src[dest] = order
+    slot[dest] = seg_slot.to(torch.int32)[seg]
+    return src[:nt], slot[:nt]
+
+
+def _upload_ids(a: np.ndarray, max_id: int, device) -> torch.Tensor:
+    """Ids 0..max_id uploaded in the narrowest dtype that holds them
+    and widened to int32 on the device."""
+    if max_id <= np.iinfo(np.uint8).max:
+        a = a.astype(np.uint8)
+    elif max_id <= np.iinfo(np.int16).max:
+        a = a.astype(np.int16)
+    else:
+        a = a.astype(np.int32)
+    return torch.as_tensor(np.ascontiguousarray(a), device=device).to(
+        torch.int32)
+
+
+def _window_clock(timings: Optional[dict], device):
+    """A mark(name) that adds the seconds since the last mark to
+    ``timings[name]`` (after a synchronize on a CUDA device, so device
+    work lands in its own window); a no-op without ``timings``."""
+    if timings is None:
+        return lambda name: None
+    sync = torch.device(device).type == "cuda"
+    last = [time.perf_counter()]
+
+    def mark(name):
+        if sync:
+            torch.cuda.synchronize(device)
+        now = time.perf_counter()
+        timings[name] = timings.get(name, 0.0) + now - last[0]
+        last[0] = now
+
+    return mark
+
+
 def compile_categorical_table(
     ent: np.ndarray,
     n_entities: int,
@@ -580,8 +759,10 @@ def compile_categorical_table(
     max_inflation: Optional[float] = None,
     fixed_ts: Optional[Tuple[int, int]] = None,
     gate_rank: Optional[int] = None,
+    derive_src_on_device: Optional[bool] = None,
+    timings: Optional[dict] = None,
 ) -> Optional[CategoricalTable]:
-    """Pack one table on the host and upload its layout to ``device``.
+    """Pack one table and put its layout on ``device``.
 
     ``fixed_ts`` pins (T, S); otherwise ``choose_tiling`` picks them.
     With ``max_inflation`` the table is accepted exactly when the TPU
@@ -589,9 +770,21 @@ def compile_categorical_table(
     ``rank``, pads by at most ``max_inflation``), else None is returned
     and the caller falls back to another engine.  An accepted table
     keeps ``choose_tiling``'s pick when that is under the gate, else
-    takes ``least_inflating_tiling``."""
+    takes ``least_inflating_tiling``.  Rows whose ``ent`` is
+    ``n_entities`` are masked: they enter no tile.
+
+    ``derive_src_on_device`` (default: True on a CUDA device) derives
+    the src / slot layouts on the device from the uploaded entity ids
+    and the counts-only metadata; False packs them on the host with the
+    native planner and uploads them.  ``timings`` (a dict) collects the
+    seconds of the windows "counts" (cardinalities and tiling), "pack"
+    (``_plan_tiles`` or the host pack), "upload", "derive" and
+    "finalize"."""
+    mark = _window_clock(timings, device)
+    device = torch.device(device)
     ent = np.asarray(ent, dtype=np.int64)
-    counts = np.bincount(ent, minlength=n_entities)
+    real = ent < n_entities
+    counts = np.bincount(ent[real], minlength=n_entities)
     if fixed_ts is not None:
         T, S = fixed_ts
     else:
@@ -603,11 +796,39 @@ def compile_categorical_table(
                 return None
             if inflation > max_inflation:
                 T, S, _ = least_inflating_tiling(counts, rank, itemsize)
-    order = np.argsort(ent, kind="stable")
-    (src, slot, ent_tile, cont_in, cont_out, last_slot, ent_slots,
-     final_part) = _pack_tiles(ent[order], order, n_entities, T, S)
-    nt = src.shape[0]
-    K = nt // T
+    mark("counts")
+    if derive_src_on_device is None:
+        derive_src_on_device = device.type == "cuda"
+    if derive_src_on_device:
+        seg_starts, seg_shift, seg_slot, meta = _plan_tiles(counts, T, S)
+        (K, cont_in, cont_out, last_slot, ent_slots, final_part) = meta
+        nt = K * T
+    else:
+        from ._native import pack_tiles_native
+
+        order = np.nonzero(real)[0][np.argsort(ent[real], kind="stable")]
+        (src, slot, _, cont_in, cont_out, last_slot, ent_slots,
+         final_part) = pack_tiles_native(order, counts, ent.shape[0], T, S)
+        nt = src.shape[0]
+        K = nt // T
+    mark("pack")
+
+    def up(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    ent_main = _upload_ids(ent, n_entities, device)
+    if derive_src_on_device:
+        seg = [up(a) for a in (seg_starts, seg_shift, seg_slot)]
+    else:
+        src_d = up(src)
+        slot_d = _upload_ids(slot, S, device)
+    mark("upload")
+    if derive_src_on_device:
+        src_d, slot_d = _derive_src_slot_device(ent_main, *seg, nt, n_rows)
+    ent_pad = torch.cat([ent_main, ent_main.new_full((1,), n_entities)])
+    ent_tile = ent_pad[torch.clamp(src_d, max=n_rows).long()]
+    slot_f = torch.where(src_d < n_rows, slot_d, S).to(torch_dtype(dtype))
+    mark("derive")
     D = rank + 2
     chunk_tiles = max(
         1,
@@ -621,16 +842,11 @@ def compile_categorical_table(
         np.asarray(final_part, dtype=np.int64), counts, K, S,
         chunk_tiles,
     )
-    slot_f = np.where(src < n_rows, slot, S).astype(dtype)
-
-    def up(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=device)
-
-    return CategoricalTable(
-        src=up(src),
-        slot=up(slot),
-        slot_f=up(slot_f),
-        ent_of_tile_row=up(ent_tile),
+    table = CategoricalTable(
+        src=src_d,
+        slot=slot_d,
+        slot_f=slot_f,
+        ent_of_tile_row=ent_tile,
         cont_in=up(cont_in),
         cont_out=up(cont_out),
         last_slot=up(last_slot),
@@ -640,7 +856,7 @@ def compile_categorical_table(
         fin_idx=up(fin_idx),
         fin_mask=up(fin_mask),
         cardinality=up(counts.astype(dtype)),
-        ent_main=up(ent.astype(np.int32)),
+        ent_main=ent_main,
         noise_feat=up(col_offset + np.arange(n_entities, dtype=np.int64)),
         col_offset=col_offset,
         n_cols=n_entities,
@@ -650,6 +866,8 @@ def compile_categorical_table(
         chunk_tiles=chunk_tiles,
         max_fin=max_fin,
     )
+    mark("finalize")
+    return table
 
 
 def extract_categorical_mappings(
@@ -774,6 +992,8 @@ def try_compile_categorical(
     allow_side: bool = False,
     fixed_ts: Optional[Tuple[int, int]] = None,
     gate_rank: Optional[int] = None,
+    derive_src_on_device: Optional[bool] = None,
+    timings: Optional[dict] = None,
 ) -> Optional[CategoricalPlan]:
     """Compile the fast-path plan onto ``device``, or None if any table
     is neither one-hot nor (with ``allow_side``) an entity+attribute
@@ -783,7 +1003,8 @@ def try_compile_categorical(
     factor rank on the Gibbs path, 3R on the VI path); ``gate_rank``
     (default ``rank``) the width the TPU package gates at (4R for its
     entity+attribute VI plans).  ``fixed_ts`` pins every table's
-    (T, S)."""
+    (T, S).  ``derive_src_on_device`` and ``timings`` are passed to
+    every ``compile_categorical_table``."""
     dtype = np.dtype(dtype)
     extracted = extract_categorical_mappings(
         X, blocks, grouping, dtype, allow_side=allow_side
@@ -807,7 +1028,8 @@ def try_compile_categorical(
         tab = compile_categorical_table(
             ent, B, off, n_rows, dtype, device, rank=rank,
             max_inflation=max_inflation, fixed_ts=fixed_ts,
-            gate_rank=gate_rank,
+            gate_rank=gate_rank, derive_src_on_device=derive_src_on_device,
+            timings=timings,
         )
         if tab is None:
             return None
@@ -820,7 +1042,8 @@ def try_compile_categorical(
         tab = compile_categorical_table(
             ent, B, int(col_ids[0]), n_rows, dtype, device, rank=rank,
             max_inflation=max_inflation, fixed_ts=fixed_ts,
-            gate_rank=gate_rank,
+            gate_rank=gate_rank, derive_src_on_device=derive_src_on_device,
+            timings=timings,
         )
         if tab is None:
             return None

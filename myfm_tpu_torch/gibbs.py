@@ -6,8 +6,10 @@ PyTorch counterpart of ``myfm_tpu/gibbs.py`` (``MyFMGibbsRegressor``,
 ``MyFMGibbsClassifier``, ``MyFMOrderedProbit``, ``_gibbs_config``,
 ``_encode_ordered_targets`` and ``_train_core``).  The engine does not
 depend on the task.  The "auto" / "categorical" / "joint" / "colored" /
-"serial" engine resolution is the TPU package's, unchanged.  There is
-no design cache: every fit compiles its plan.
+"serial" engine resolution is the TPU package's, unchanged.  Plans come
+through the content-addressed cache (design_cache.py, keys
+``"cat_gibbs"`` and ``"row_gibbs"``), so a refit of the same design on
+the same device skips the compile.
 """
 
 from __future__ import annotations
@@ -151,6 +153,13 @@ class MyFMGibbsBase(MyFMBase):
         callback,
     ):
         y = _encode_ordered_targets(config.cutpoint_groups, y)
+        from .design_cache import design_fingerprint, get_or_build
+
+        # repeated fits on one design (sweeps, protocols, reruns) reuse
+        # the compiled plan through the content-addressed cache
+        fp = design_fingerprint(X, X_rel, config.group_index)
+        grouping = np.asarray(config.group_index, dtype=np.int32)
+        device = str(self.device)
         cat_plan = None
         # "auto" at small scale with a long chain prefers the JOINT
         # engine over the categorical fast path (the TPU package's
@@ -166,17 +175,16 @@ class MyFMGibbsBase(MyFMBase):
         ) and not prefer_joint_small:
             from .design_categorical import try_compile_categorical
 
-            cat_plan = try_compile_categorical(
-                X,
-                X_rel,
-                grouping=np.asarray(config.group_index, dtype=np.int32),
-                n_groups=None,
-                dtype=self.dtype,
-                device=self.device,
-                rank=rank,
-                # side features are drawn as (R+1)-joint [w|V] rows, so
-                # the entity+attribute extension needs the linear terms
-                allow_side=bool(config.fit_linear),
+            # side features are drawn as (R+1)-joint [w|V] rows, so the
+            # entity+attribute extension needs the linear terms
+            allow_side = bool(config.fit_linear)
+            cat_plan = get_or_build(
+                "cat_gibbs", fp, (self.dtype.str, rank, allow_side, device),
+                lambda: try_compile_categorical(
+                    X, X_rel, grouping=grouping, n_groups=None,
+                    dtype=self.dtype, device=self.device, rank=rank,
+                    allow_side=allow_side,
+                ),
             )
         use_joint = self.sweep_strategy == "joint"
         if cat_plan is None:
@@ -202,19 +210,21 @@ class MyFMGibbsBase(MyFMBase):
                     config.group_index,
                 )
             )
-            plan = compile_design(
-                X,
-                X_rel,
-                grouping=np.asarray(config.group_index, dtype=np.int32),
-                dtype=self.dtype,
-                strategy=(
-                    "auto" if self.sweep_strategy in ("joint", "colored")
-                    else self.sweep_strategy
+            row_strategy = (
+                "auto" if self.sweep_strategy in ("joint", "colored")
+                else self.sweep_strategy
+            )
+            plan = get_or_build(
+                "row_gibbs", fp,
+                (self.dtype.str, row_strategy, self.max_unrolled_colors,
+                 want_joint, rank, device),
+                lambda: compile_design(
+                    X, X_rel, grouping=grouping, dtype=self.dtype,
+                    strategy=row_strategy,
+                    max_unrolled_colors=self.max_unrolled_colors,
+                    joint_dense=want_joint, joint_rank=rank,
+                    device=self.device,
                 ),
-                max_unrolled_colors=self.max_unrolled_colors,
-                joint_dense=want_joint,
-                joint_rank=rank,
-                device=self.device,
             )
             use_joint = use_joint or (
                 want_joint and joint_auto_eligible(plan, rank, self.dtype)

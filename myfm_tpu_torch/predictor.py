@@ -7,13 +7,18 @@ memory-bounded chunks and scored with ops/forward_categorical when every
 table is one-hot or entity+attribute, else with the row-space forward
 (ops/forward.py) over a compiled design; both scorers serve the
 regression mean, the probit classifier's Φ and the ordered probit's
-class probabilities.  The
-variational weight set is scored on the device with the row-space
-forward.  ``n_workers`` is accepted for API parity and ignored.
+class probabilities.  A Predictor keeps the plans of the last design it
+served (by the identity of ``(X, *X_rel)``) and the stacked sample
+chunks of its current ``samples``, each under a ``_LiveKey`` (as the TPU
+package does), so repeated serving calls skip the compile and the
+upload.  The variational weight set is scored on the device with the
+row-space forward.  ``n_workers`` is accepted for API parity and
+ignored.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
@@ -40,6 +45,46 @@ TASK_CLASSIFICATION = "classification"
 _CHUNK_ELEMENTS = 1 << 26
 
 
+class _LiveKey:
+    """Identity cache key that cannot alias recycled ids (the TPU
+    package's).
+
+    ``id()`` tuples alone are unsound keys: Python reuses addresses after
+    garbage collection, so a freed design followed by a new one at the
+    same address would be served the stale plan.  The key holds a
+    weakref per object (a collected object makes it miss) and a cheap
+    structural fingerprint (type, shape, nnz) as a second factor for
+    objects that cannot be weakly referenced."""
+
+    def __init__(self, objs):
+        self._ids = tuple(id(o) for o in objs)
+        self._prints = tuple(self._fingerprint(o) for o in objs)
+        refs = []
+        for o in objs:
+            try:
+                refs.append(weakref.ref(o))
+            except TypeError:
+                refs.append(None)
+        self._refs = tuple(refs)
+
+    @staticmethod
+    def _fingerprint(o):
+        shape = getattr(o, "shape", None)
+        nnz = getattr(o, "nnz", None)
+        return (type(o).__name__, shape, nnz)
+
+    def matches(self, objs) -> bool:
+        if len(objs) != len(self._ids):
+            return False
+        if tuple(id(o) for o in objs) != self._ids:
+            return False
+        if tuple(self._fingerprint(o) for o in objs) != self._prints:
+            return False
+        # a dead weakref means the keyed object was collected and this
+        # id now belongs to another object
+        return all(r is None or r() is not None for r in self._refs)
+
+
 class Predictor:
     """Holds kept posterior samples; averages the posterior predictive
     on ``device``."""
@@ -52,27 +97,69 @@ class Predictor:
         self.dtype = np.dtype(dtype)
         self.device = torch.device(device)
         self.samples: List[FM] = []
+        self._plan_cache = None
+        self._sample_stack_cache = None
+
+    def __getstate__(self):
+        # the caches hold device tensors and weakrefs: not pickled
+        state = self.__dict__.copy()
+        state["_plan_cache"] = state["_sample_stack_cache"] = None
+        return state
+
+    def __setstate__(self, state):
+        state.setdefault("_plan_cache", None)
+        state.setdefault("_sample_stack_cache", None)
+        self.__dict__.update(state)
+
+    def _plans(self, X, X_rel):
+        """(entity-space plan or None, row-space plan or None) of the
+        design, cached per design identity: X's arrays (the estimators
+        pass ``csr_matrix(X)``, which shares them) and the blocks; a
+        design without main columns is its blocks alone."""
+        main = ()
+        if X is not None and X.shape[1]:
+            X = sps.csr_matrix(X)
+            main = (X.indptr, X.indices, X.data)
+        objs = main + tuple(X_rel)
+        cached = self._plan_cache
+        if cached is not None and cached[0].matches(objs):
+            return cached[1]
+        fast = compile_categorical_inference(
+            X, X_rel, self.dtype, self.device
+        )
+        plan = None
+        if fast is None:
+            plan = compile_design(X, X_rel, dtype=self.dtype,
+                                  for_training=False, device=self.device)
+        self._plan_cache = (_LiveKey(objs), (fast, plan))
+        return fast, plan
 
     def _sample_chunks(self):
-        """Stacked (w0s, ws, Vs) device tensors per memory-bounded
-        sample chunk."""
+        """Stacked (part, w0s, ws, Vs) device tensors per memory-bounded
+        sample chunk, cached for the current ``samples`` (a new list or
+        other sample objects rebuild them)."""
+        cached = self._sample_stack_cache
+        if cached is not None and cached[0].matches(tuple(self.samples)):
+            return cached[1]
         per_sample = max(1, self.n_features * max(self.rank, 1))
         chunk = max(1, min(len(self.samples), _CHUNK_ELEMENTS // per_sample))
         tdtype = torch_dtype(self.dtype)
+
+        def up(a):
+            return torch.as_tensor(np.asarray(a), dtype=tdtype,
+                                   device=self.device)
+
+        staged = []
         for s0 in range(0, len(self.samples), chunk):
             part = self.samples[s0 : s0 + chunk]
-
-            def up(a):
-                return torch.as_tensor(
-                    np.asarray(a), dtype=tdtype, device=self.device
-                )
-
-            yield (
+            staged.append((
                 part,
                 up([s.w0 for s in part]),
                 up(np.stack([s.w for s in part])),
                 up(np.stack([s.V for s in part])),
-            )
+            ))
+        self._sample_stack_cache = (_LiveKey(tuple(self.samples)), staged)
+        return staged
 
     def predict(
         self,
@@ -102,13 +189,7 @@ class Predictor:
         the row-space one otherwise, divided by the sample count."""
         if not self.samples:
             raise RuntimeError("Predictor has no samples.")
-        fast = compile_categorical_inference(
-            X, X_rel, self.dtype, self.device
-        )
-        plan = None
-        if fast is None:
-            plan = compile_design(X, X_rel, dtype=self.dtype,
-                                  for_training=False, device=self.device)
+        fast, plan = self._plans(X, X_rel)
         total = None
         for part, w0s, ws, vs in self._sample_chunks():
             cps = None

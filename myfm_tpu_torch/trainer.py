@@ -1,22 +1,29 @@
 """Training loops driving the categorical, joint and colored Gibbs sweeps.
 
 PyTorch counterpart of ``myfm_tpu/trainer.py`` (``run_mcmc_loop``,
-``GibbsTrainer``, ``CategoricalGibbsTrainer``, ``LazyFMView``,
-``callback_allows_async``, and ``_resolve_joint_tail`` in place of
-``_resolve_joint_pallas_tail``):
+``GibbsTrainer``, ``CategoricalGibbsTrainer``, ``LazyFMView``, the
+pipelined harvest ``_HostCopy`` (the TPU package's ``_snap``) /
+``_AsyncDrain`` / ``LazyHyper`` / ``_LazyAccept`` / ``LazyPackedFM``,
+``callback_allows_async``, and
+``_resolve_joint_tail`` in place of ``_resolve_joint_pallas_tail``):
 runs ``n_iter`` sweeps, keeps the last ``n_kept_samples`` weight samples
 (with their cutpoints, for the ordered task) on the host, records the
-hyperparameter trace (and the MH accept counts) every iteration, and
-invokes the callback with early-stop support.
+hyperparameter trace (and the MH accept counts) every iteration,
+invokes the callback with early-stop support, and checkpoints the chain
+every N sweeps (checkpoint.py).
 
-Kept samples are copied to the host as they are kept.  When the callback
-allows it, the hyper trace stays on the device until the chain ends and
-is copied then, so the loop does not wait on the device every sweep.
+When the callback allows it, the trace and the kept samples are
+harvested without stalling the chain: each sweep's values are cloned on
+the compute stream and copied to pinned host memory on a side stream,
+and the loop waits for a copy only ``_SNAP_LAG`` sweeps later.  A user
+callback gets host values every sweep.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from collections import deque
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -106,29 +113,8 @@ class LazyFMView(FM):
         return FM(self.w0, self.w, self.V, self.cutpoints)
 
 
-def _hyper_of(state: GibbsState) -> FMHyperParameters:
-    """The state's hyperparameters, still as device tensors."""
-    return FMHyperParameters(
-        alpha=state.alpha,
-        mu_w=state.mu_w,
-        lambda_w=state.lambda_w,
-        mu_V=state.mu_V,
-        lambda_V=state.lambda_V,
-    )
-
-
-def _to_host(hyper: FMHyperParameters) -> FMHyperParameters:
-    return FMHyperParameters(
-        alpha=float(hyper.alpha),
-        mu_w=_host(hyper.mu_w),
-        lambda_w=_host(hyper.lambda_w),
-        mu_V=_host(hyper.mu_V),
-        lambda_V=_host(hyper.lambda_V),
-    )
-
-
 def callback_allows_async(callback) -> bool:
-    """True when the trace may be harvested after the chain: no
+    """True when the trace may be harvested asynchronously: no
     callback, or one tagged ``allow_async_trace`` (the progress-bar
     wrapper in base._fit).  User callbacks get host values every
     sweep."""
@@ -137,21 +123,247 @@ def callback_allows_async(callback) -> bool:
     )
 
 
+# sweeps a harvested copy may stay in flight before the loop waits on it
+_SNAP_LAG = 3
+
+_copy_streams = {}
+
+
+def _copy_stream(device: torch.device):
+    """The side stream that copies snapshots to the host, one per
+    device."""
+    stream = _copy_streams.get(device)
+    if stream is None:
+        stream = _copy_streams[device] = torch.cuda.Stream(device)
+    return stream
+
+
+def _count_sync():
+    run_mcmc_loop.host_syncs += 1
+
+
+class _HostCopy:
+    """Host copy of a tuple of device tensors, started at once.
+
+    On a CUDA device the tensors are cloned on the compute stream (a
+    snapshot no later sweep can touch) and copied into pinned host
+    buffers on a side stream that waits on the compute stream; an event
+    marks the copies' end.  Each snapshot is recorded on the side
+    stream, so the caching allocator does not reuse its memory before
+    the copy has read it.  ``wait`` copies the pinned buffers into
+    ordinary host memory and releases them, so the host allocator
+    reuses about ``_SNAP_LAG + 1`` sweeps' worth of them however many
+    samples the chain keeps.  On the CPU the copy is made at once."""
+
+    __slots__ = ("_host", "_event")
+
+    # pinned bytes of the copies not yet waited on, and their peak
+    pinned_bytes = 0
+    peak_pinned_bytes = 0
+
+    def __init__(self, tensors):
+        tensors = [t.detach() for t in tensors]
+        self._event = None
+        if not tensors or tensors[0].device.type != "cuda":
+            self._host = tuple(t.clone().numpy() for t in tensors)
+            return
+        device = tensors[0].device
+        snaps = [t.clone() for t in tensors]
+        stream = _copy_stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            host = tuple(torch.empty(t.shape, dtype=t.dtype,
+                                     pin_memory=True) for t in snaps)
+            for h, t in zip(host, snaps):
+                h.copy_(t, non_blocking=True)
+                t.record_stream(stream)
+            self._event = torch.cuda.Event()
+            self._event.record(stream)
+        self._host = host
+        _HostCopy.pinned_bytes += sum(h.nbytes for h in host)
+        _HostCopy.peak_pinned_bytes = max(_HostCopy.peak_pinned_bytes,
+                                          _HostCopy.pinned_bytes)
+
+    def wait(self):
+        """The host arrays, once their copies are done (a copy still in
+        flight counts as one of the loop's host syncs)."""
+        if self._event is not None:
+            if not self._event.query():
+                _count_sync()
+                self._event.synchronize()
+            self._event = None
+            _HostCopy.pinned_bytes -= sum(h.nbytes for h in self._host)
+            self._host = tuple(h.numpy().copy() for h in self._host)
+        return self._host
+
+
+class _AsyncDrain:
+    """Pending harvests in sweep order: ``push`` adds one and forces
+    those older than ``lag`` sweeps, ``drain`` forces the rest."""
+
+    def __init__(self, lag: int = _SNAP_LAG):
+        self.lag = lag
+        self._pending = deque()
+
+    def push(self, obj, sweep: int) -> None:
+        self._pending.append((sweep, obj))
+        while self._pending and self._pending[0][0] <= sweep - self.lag:
+            self._pending.popleft()[1].force()
+
+    def drain(self) -> None:
+        while self._pending:
+            self._pending.popleft()[1].force()
+
+
+class LazyHyper:
+    """Hyper-trace entry backed by a harvest (alpha, mu_w, lambda_w,
+    mu_V, lambda_V[, n_mh_accept]); duck-types FMHyperParameters and
+    reads its values on first access."""
+
+    __slots__ = ("_bufs", "_vals", "_nacc")
+
+    def __init__(self, bufs: _HostCopy, has_accept: bool = False):
+        self._bufs = bufs
+        self._vals = None
+        self._nacc = () if has_accept else None
+
+    def force(self) -> FMHyperParameters:
+        if self._vals is None:
+            vals = self._bufs.wait()
+            a, mu_w, lam_w, mu_V, lam_V = vals[:5]
+            self._vals = FMHyperParameters(
+                alpha=float(a), mu_w=mu_w, lambda_w=lam_w, mu_V=mu_V,
+                lambda_V=lam_V,
+            )
+            if self._nacc is not None:
+                self._nacc = vals[5].tolist()
+            self._bufs = None
+        return self._vals
+
+    materialize = force
+
+    def accept_counts(self):
+        self.force()
+        return self._nacc
+
+    @property
+    def alpha(self):
+        return self.force().alpha
+
+    @property
+    def mu_w(self):
+        return self.force().mu_w
+
+    @property
+    def lambda_w(self):
+        return self.force().lambda_w
+
+    @property
+    def mu_V(self):
+        return self.force().mu_V
+
+    @property
+    def lambda_V(self):
+        return self.force().lambda_V
+
+
+class _LazyAccept:
+    """Per-sweep n_mh_accept_trace entry: a view of its LazyHyper."""
+
+    __slots__ = ("_hyper",)
+
+    def __init__(self, hyper: LazyHyper):
+        self._hyper = hyper
+
+    def materialize(self):
+        return self._hyper.accept_counts()
+
+
+class LazyPackedFM:
+    """Kept sample backed by a harvest (w0, w, V[, cutpoints]),
+    materialized into an FM after the loop."""
+
+    __slots__ = ("_bufs", "_vals", "_cut_groups")
+
+    def __init__(self, bufs: _HostCopy, cut_groups=()):
+        self._bufs = bufs
+        self._vals = None
+        self._cut_groups = cut_groups
+
+    def force(self) -> FM:
+        if self._vals is None:
+            vals = self._bufs.wait()
+            w0, w, V = vals[:3]
+            cuts = (_split_cutpoints(vals[3], self._cut_groups)
+                    if len(vals) > 3 else [])
+            self._vals = FM(float(w0), w, V, cuts)
+            self._bufs = None
+        return self._vals
+
+    materialize = force
+
+
+def _read(t: torch.Tensor) -> np.ndarray:
+    """One of the eager harvest's host reads (a host sync each)."""
+    _count_sync()
+    return _host(t)
+
+
+def _eager_hyper(core: GibbsState) -> FMHyperParameters:
+    return FMHyperParameters(
+        alpha=float(_read(core.alpha)),
+        mu_w=_read(core.mu_w),
+        lambda_w=_read(core.lambda_w),
+        mu_V=_read(core.mu_V),
+        lambda_V=_read(core.lambda_V),
+    )
+
+
+def _eager_sample(core: GibbsState, cut_groups) -> FM:
+    cuts = core.cutpoints
+    return FM(float(_read(core.w0)), _read(core.w), _read(core.V),
+              [] if cuts is None
+              else _split_cutpoints(_read(cuts), cut_groups))
+
+
 def run_mcmc_loop(
     trainer,
     n_iter: int,
     n_kept_samples: int,
     callback=None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 0,
+    resume: bool = False,
     core_of=lambda s: s,
 ) -> Tuple[Predictor, LearningHistory]:
     """Shared MCMC driver: runs the chain, keeps the last
-    ``n_kept_samples`` weight samples, records the hyper trace and
-    invokes the callback with early stop.
+    ``n_kept_samples`` weight samples, records the hyper trace, invokes
+    the callback with early stop, and with ``checkpoint_path`` and
+    ``checkpoint_every`` writes the chain state and the generator's
+    state every N sweeps.  ``resume=True`` continues from the checkpoint
+    at ``checkpoint_path`` (when it exists) and reproduces the chain an
+    uninterrupted run would have drawn: the trainer initializes as that
+    run did, then takes the saved state and generator state.
 
-    ``trainer`` provides ``_initialize()``, ``_sweep_call(state)`` and
-    the ``rank / n_features / cfg / dtype / device / engine_name``
-    attributes; ``core_of`` maps its state to the GibbsState."""
+    ``trainer`` provides ``_initialize()``, ``_sweep_call(state)``,
+    ``generator`` and the ``rank / n_features / cfg / dtype / device /
+    engine_name`` attributes; ``core_of`` maps its state to the
+    GibbsState.
+
+    Harvest: the pipelined one (``_HostCopy``, ``_AsyncDrain``) where
+    ``callback_allows_async(callback)``, else host values every sweep.
+    Afterwards every entry is a plain FM / FMHyperParameters / list, so
+    the predictor and the history pickle.  ``run_mcmc_loop.host_syncs``
+    counts the loop's waits on the device (one per eager sweep read, one
+    per harvest still in flight when forced)."""
+    from .checkpoint import load_checkpoint, save_checkpoint
+
+    generators = (trainer.generator,)
     state = trainer._initialize()
+    start_it = 0
+    if resume and checkpoint_path and os.path.exists(checkpoint_path):
+        state, start_it = load_checkpoint(checkpoint_path, state,
+                                          generators)
     predictor = Predictor(
         trainer.rank, trainer.n_features, trainer.cfg.task,
         trainer.dtype, trainer.device,
@@ -159,35 +371,58 @@ def run_mcmc_loop(
     history = LearningHistory(
         engine=trainer.engine_name,
         gram_fast_matmul=trainer.cfg.gram_fast_matmul)
-    deferred = callback_allows_async(callback)
     ordered = trainer.cfg.task == TASK_ORDERED
     cut_groups = trainer.cfg.cutpoint_group_classes
-    for it in range(n_iter):
+    drain = _AsyncDrain() if callback_allows_async(callback) else None
+    for it in range(start_it, n_iter):
         state = trainer._sweep_call(state)
         core = core_of(state)
         view = LazyFMView(core, cut_groups)
-        if it + n_kept_samples >= n_iter:
-            predictor.samples.append(view.materialize())
-        hyper = _hyper_of(core)
-        if not deferred:
-            hyper = _to_host(hyper)
+        keep = it + n_kept_samples >= n_iter
+        if drain is not None:
+            fields = [core.alpha, core.mu_w, core.lambda_w, core.mu_V,
+                      core.lambda_V]
+            if ordered:
+                fields.append(core.n_mh_accept)
+            hyper = LazyHyper(_HostCopy(fields), has_accept=ordered)
+            drain.push(hyper, it)
+            if ordered:
+                history.n_mh_accept_trace.append(_LazyAccept(hyper))
+            if keep:
+                fields = [core.w0, core.w, core.V]
+                if core.cutpoints is not None:
+                    fields.append(core.cutpoints)
+                sample = LazyPackedFM(_HostCopy(fields), cut_groups)
+                predictor.samples.append(sample)
+                drain.push(sample, it)
+        else:
+            if keep:
+                predictor.samples.append(_eager_sample(core, cut_groups))
+            hyper = _eager_hyper(core)
+            if ordered:
+                # cumulative accept count per cutpoint group, every sweep
+                history.n_mh_accept_trace.append(
+                    _read(core.n_mh_accept).tolist())
         history.hypers.append(hyper)
-        if ordered:
-            # cumulative accept count per cutpoint group, every sweep
-            acc = core.n_mh_accept.clone()
-            history.n_mh_accept_trace.append(
-                acc if deferred else _host(acc).tolist())
         if callback is not None and callback(it, view, hyper, history):
             break
-    if deferred:
-        history.hypers = [_to_host(h) for h in history.hypers]
+        if checkpoint_path and checkpoint_every and (
+                (it + 1) % checkpoint_every == 0):
+            save_checkpoint(checkpoint_path, state, it + 1, generators)
+    if drain is not None:
+        drain.drain()
+        history.hypers = [h.materialize() for h in history.hypers]
         history.n_mh_accept_trace = [
-            _host(a).tolist() for a in history.n_mh_accept_trace]
+            a.materialize() for a in history.n_mh_accept_trace]
+        predictor.samples = [s.materialize() for s in predictor.samples]
     if ordered:
         history.n_mh_accept = [
             int(c) for c in _host(core_of(state).n_mh_accept)
         ]
     return predictor, history
+
+
+run_mcmc_loop.host_syncs = 0
 
 
 def _resolve_gram_fast_matmul(cfg, dtype, device, rank=None):
@@ -341,8 +576,18 @@ class GibbsTrainer:
         callback: Optional[
             Callable[[int, FM, FMHyperParameters, LearningHistory], bool]
         ] = None,
+        checkpoint_path: Optional[str] = None,
+        checkpoint_every: int = 0,
+        resume: bool = False,
     ) -> Tuple[Predictor, LearningHistory]:
-        return run_mcmc_loop(self, n_iter, n_kept_samples, callback)
+        """Run the chain.  With ``checkpoint_path`` and
+        ``checkpoint_every`` the chain state and the generator's state
+        are written every N sweeps; ``resume=True`` continues from that
+        checkpoint and reproduces the uninterrupted chain."""
+        return run_mcmc_loop(
+            self, n_iter, n_kept_samples, callback, checkpoint_path,
+            checkpoint_every, resume,
+        )
 
 
 class CategoricalGibbsTrainer:
@@ -413,8 +658,12 @@ class CategoricalGibbsTrainer:
         callback: Optional[
             Callable[[int, FM, FMHyperParameters, LearningHistory], bool]
         ] = None,
+        checkpoint_path: Optional[str] = None,
+        checkpoint_every: int = 0,
+        resume: bool = False,
     ) -> Tuple[Predictor, LearningHistory]:
+        """Run the chain (checkpoints as in ``GibbsTrainer.run``)."""
         return run_mcmc_loop(
-            self, n_iter, n_kept_samples, callback,
-            core_of=lambda s: s.core,
+            self, n_iter, n_kept_samples, callback, checkpoint_path,
+            checkpoint_every, resume, core_of=lambda s: s.core,
         )

@@ -9,7 +9,8 @@ colored sweep (``sweep_strategy`` "colored" or "serial" go there
 directly).  Both fast-path plans are tiled for this port's VI Gram
 (3R+2 columns) and accepted where the TPU package accepts them (it
 gates one-hot plans at width 3R and entity+attribute plans at 4R).
-There is no design cache: every fit compiles its plan.
+Plans come through the content-addressed cache (design_cache.py, keys
+``"cat_vi"``, ``"cat_vi_ea"`` and ``"row_vi"``).
 """
 
 from __future__ import annotations
@@ -31,20 +32,30 @@ from .base import (
 from .relational import RelationBlock
 
 
-def compile_vi_fast_plan(X, X_rel, grouping, dtype, device, rank: int):
+def compile_vi_fast_plan(X, X_rel, grouping, dtype, device, rank: int,
+                         fingerprint: Optional[str] = None):
     """The VI fast-path plan of (X, X_rel), or None: the all-one-hot
     plan, else the entity+attribute plan.  Both are tiled for the port's
     VI Gram z = [1 | e | φ | σ | τ] (D = 3R+2) and gated where the TPU
     package gates them: at width 3R for one-hot plans and at 4R for
-    entity+attribute plans, whose Gram there carries 4R+2 columns."""
+    entity+attribute plans, whose Gram there carries 4R+2 columns.  With
+    the design's ``fingerprint`` each plan comes through the plan cache
+    (keys "cat_vi" and "cat_vi_ea")."""
+    from .design_cache import get_or_build
     from .design_categorical import try_compile_categorical
 
-    for allow_side, gate in ((False, 3 * rank), (True, 4 * rank)):
-        plan = try_compile_categorical(
-            X, X_rel, grouping=grouping, n_groups=None, dtype=dtype,
-            device=device, rank=max(3 * rank, 1), allow_side=allow_side,
-            gate_rank=max(gate, 1),
-        )
+    for kind, allow_side, gate in (("cat_vi", False, 3 * rank),
+                                   ("cat_vi_ea", True, 4 * rank)):
+        def build(allow_side=allow_side, gate=gate):
+            return try_compile_categorical(
+                X, X_rel, grouping=grouping, n_groups=None, dtype=dtype,
+                device=device, rank=max(3 * rank, 1),
+                allow_side=allow_side, gate_rank=max(gate, 1),
+            )
+
+        plan = (build() if fingerprint is None else get_or_build(
+            kind, fingerprint, (np.dtype(dtype).str, rank, str(device)),
+            build))
         if plan is not None:
             return plan
     return None
@@ -128,11 +139,14 @@ class MyFMVariationalBase(MyFMBase):
             fit_w0=config.fit_w0,
             fit_linear=config.fit_linear,
         )
+        from .design_cache import design_fingerprint, get_or_build
+
+        fp = design_fingerprint(X, X_rel, config.group_index)
         grouping = np.asarray(config.group_index, dtype=np.int32)
         cat_plan = None
         if self.sweep_strategy in ("auto", "categorical"):
             cat_plan = compile_vi_fast_plan(X, X_rel, grouping, self.dtype,
-                                            self.device, rank)
+                                            self.device, rank, fp)
         if cat_plan is not None:
             trainer = CategoricalVITrainer(
                 cat_plan, y, cfg, rank, init_stdev, random_seed, self.dtype,
@@ -143,11 +157,17 @@ class MyFMVariationalBase(MyFMBase):
                 "sweep_strategy='categorical' requires every table "
                 "(main and blocks) to be one-hot per row."
             )
-        plan = compile_design(
-            X, X_rel, grouping=grouping, dtype=self.dtype,
-            strategy="serial" if self.sweep_strategy == "serial" else "auto",
-            max_unrolled_colors=self.max_unrolled_colors,
-            device=self.device,
+        row_strategy = "serial" if self.sweep_strategy == "serial" else "auto"
+        plan = get_or_build(
+            "row_vi", fp,
+            (self.dtype.str, row_strategy, self.max_unrolled_colors,
+             str(self.device)),
+            lambda: compile_design(
+                X, X_rel, grouping=grouping, dtype=self.dtype,
+                strategy=row_strategy,
+                max_unrolled_colors=self.max_unrolled_colors,
+                device=self.device,
+            ),
         )
         trainer = VariationalTrainer(
             plan, y, cfg, rank, init_stdev, random_seed, self.dtype

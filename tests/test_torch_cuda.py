@@ -1722,3 +1722,136 @@ def test_pass_rule_and_ring_match_the_launcher():
             if mode != "highest":
                 assert lib.myfm_gram_ring_bytes(D, m) == gram._stage_bytes(
                     "wgmma", mode, 0, 0, D, 4)
+
+
+def _fit_surface_design(seed=0, n=6000, n_u=70, n_i=50):
+    from myfm_tpu_torch import RelationBlock
+
+    rng = np.random.RandomState(seed)
+    u, i = rng.randint(0, n_u, n), rng.randint(0, n_i, n)
+    y = rng.normal(size=n_u)[u] + rng.normal(size=n_i)[i] + 3.0
+    blocks = [RelationBlock(u, sps.identity(n_u, format="csr")),
+              RelationBlock(i, sps.identity(n_i, format="csr"))]
+    X = sps.csr_matrix((np.ones(n), (np.arange(n), rng.randint(0, 9, n))),
+                       shape=(n, 9))
+    grouping = np.repeat(np.arange(3, dtype=np.int32), [9, n_u, n_i])
+    return X, blocks, y, grouping
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S,masked", [(16, 2, False), (64, 8, True),
+                                        (512, 4, True)])
+def test_plan_derivation_on_card_is_bit_equal(T, S, masked, monkeypatch):
+    """On a CUDA device compile_categorical_table derives src / slot on
+    the card by default; every layout tensor equals the host pack's."""
+    import dataclasses
+
+    from myfm_tpu_torch import design_categorical as tdc
+
+    _cuda()
+    rng = np.random.RandomState(T)
+    N, B = 50_000, 700
+    ent = rng.randint(0, B, N)
+    ent[ent == 5] = 6
+    ent[: N // 4] = 2
+    if masked:
+        ent[rng.rand(N) < 0.1] = B
+    calls = []
+    real = tdc._derive_src_slot_device
+    monkeypatch.setattr(tdc, "_derive_src_slot_device",
+                        lambda *a: calls.append(1) or real(*a))
+    dev = tdc.compile_categorical_table(ent, B, 0, N, np.float32, "cuda",
+                                        fixed_ts=(T, S))
+    assert calls == [1]  # the card derivation is the default on CUDA
+    host = tdc.compile_categorical_table(ent, B, 0, N, np.float32, "cuda",
+                                         fixed_ts=(T, S),
+                                         derive_src_on_device=False)
+    cpu = tdc.compile_categorical_table(ent, B, 0, N, np.float32, "cpu",
+                                        fixed_ts=(T, S))
+    for f in dataclasses.fields(dev):
+        a, b, c = (getattr(x, f.name) for x in (dev, host, cpu))
+        if isinstance(a, torch.Tensor):
+            assert a.device.type == "cuda" and a.dtype == b.dtype
+            assert torch.equal(a, b), f.name
+            assert torch.equal(a.cpu(), c), f.name
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls_name", ["MyFMGibbsRegressor",
+                                      "MyFMOrderedProbit"])
+def test_drain_on_card_equals_eager(cls_name):
+    """The pipelined harvest on the card (snapshots copied on a side
+    stream) gives the eager harvest's samples and trace, bit for bit,
+    under deterministic algorithms."""
+    import myfm_tpu_torch
+
+    _cuda()
+    X, blocks, y, grouping = _fit_surface_design()
+    cls = getattr(myfm_tpu_torch, cls_name)
+    target = (np.digitize(y, [2.0, 3.0, 4.0]) if cls_name.endswith("Probit")
+              else y)
+    fits = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for callback in (None, lambda *a: (False, None)):
+            fm = cls(rank=8, random_seed=3, device="cuda")
+            fm.fit(X, target, X_rel=blocks, n_iter=8, n_kept_samples=5,
+                   grouping=list(grouping), callback=callback)
+            fits.append(fm)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    lazy, eager = fits
+    assert lazy.history_.engine == "fastpath"
+    # every pinned buffer went back to the host allocator
+    assert myfm_tpu_torch.trainer._HostCopy.pinned_bytes == 0
+    for a, b in zip(lazy.predictor_.samples, eager.predictor_.samples):
+        assert a.w0 == b.w0
+        np.testing.assert_array_equal(a.w, b.w)
+        np.testing.assert_array_equal(a.V, b.V)
+        for ca, cb in zip(a.cutpoints, b.cutpoints):
+            np.testing.assert_array_equal(ca, cb)
+    for a, b in zip(lazy.history_.hypers, eager.history_.hypers):
+        assert a.alpha == b.alpha
+        np.testing.assert_array_equal(a.lambda_V, b.lambda_V)
+    assert (lazy.history_.n_mh_accept_trace
+            == eager.history_.n_mh_accept_trace)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ordered", [False, True])
+def test_resume_on_card_is_bit_equal(tmp_path, ordered):
+    """A chain checkpointed after 3 sweeps and resumed in a fresh trainer
+    draws the uninterrupted chain's last samples, bit for bit, under
+    deterministic algorithms (the CUDA generator's state is restored)."""
+    from myfm_tpu_torch.design_categorical import try_compile_categorical
+    from myfm_tpu_torch.ops.gibbs import GibbsConfig
+    from myfm_tpu_torch.trainer import CategoricalGibbsTrainer
+
+    _cuda()
+    X, blocks, y, grouping = _fit_surface_design(seed=1)
+    plan = try_compile_categorical(X, blocks, grouping, None, np.float32,
+                                   "cuda", rank=8)
+    cfg = GibbsConfig(task="ordered" if ordered else "regression",
+                      n_class=4 if ordered else 0)
+    target = np.digitize(y, [2.0, 3.0, 4.0]) if ordered else y
+    path = str(tmp_path / "chain.npz")
+
+    def trainer():
+        return CategoricalGibbsTrainer(plan, target, cfg, 8, 0.1, 11)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        full, _ = trainer().run(6, 6)
+        trainer().run(3, 1, checkpoint_path=path, checkpoint_every=3)
+        resumed, _ = trainer().run(6, 6, checkpoint_path=path, resume=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert len(resumed.samples) == 3
+    for a, b in zip(full.samples[-3:], resumed.samples):
+        assert a.w0 == b.w0
+        np.testing.assert_array_equal(a.w, b.w)
+        np.testing.assert_array_equal(a.V, b.V)
+        for ca, cb in zip(a.cutpoints, b.cutpoints):
+            np.testing.assert_array_equal(ca, cb)
