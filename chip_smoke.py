@@ -105,22 +105,32 @@ Phases, one line each:
             the cache (their time to first sweep is the refit's)
   cpredict  held-out log-loss below the base rate's; accuracy, AUC
   ckpt      CategoricalGibbsTrainer on a plan of that design (rank 32,
-            regression, deterministic torch ops): 4 sweeps in one go
-            against 2 checkpointed at 2 and resumed to 4 in a fresh
-            trainer; the last 2 samples bit-equal (a difference fails
-            unless torch names a nondeterministic op, and then over
-            1e-6 of scale); the checkpoint's bytes, write and read
-            seconds
+            regression, default torch ops): 4 sweeps in one go against 2
+            checkpointed at 2 and resumed to 4 in a fresh trainer; the
+            last 2 samples bit-equal, or the run fails; the checkpoint's
+            bytes, write and read seconds
   drain     the estimator on the cached plan, 100 sweeps keeping every
             sample with an eager user callback, then with the pipelined
             harvest: each fit's seconds and sweeps/s, the loop's host
             syncs per sweep, the synchronising calls torch's sync-debug
             mode counts per sweep, the harvest's peak pinned bytes and
-            the host allocator's pinned blocks; then MyFMOrderedProbit,
-            6 sweeps each way under deterministic torch ops: samples,
-            cutpoints, hyper and MH accept traces bit-equal (the rule
-            of ckpt).  The plan cache is emptied after it, and again
-            before the joint, VI, ML-10M VI and row-space phases
+            the host allocator's pinned blocks; the two chains, under
+            default torch ops, must be the same bits (every kept
+            sample's w0, w and V and the hyper trace); then
+            MyFMOrderedProbit, 6 sweeps each way, default ops: samples,
+            cutpoints, hyper and MH accept traces bit-equal.  The plan
+            cache is emptied after it, and again before the joint, VI,
+            ML-10M VI and row-space phases
+  shard1    world size 1 over NCCL on cuda:0
+            (``myfm_tpu_torch.tools.sharded.shard1``):
+            MyFMGibbsRegressor(rank=32, mesh=<group>) on fit's design, 6
+            sweeps, then predict through the sharded scorer; every kept
+            sample, the hyper trace and the prediction bit-equal to
+            fit's (the same plan; an all-reduce over one rank returns
+            its operand); kernel 1 must launch every sweep; launches by
+            mode, sweeps/s, time to first sweep, peak memory, the
+            collectives' calls and bytes, and their seconds in one
+            sweep timed apart
   r128data  the same design compiled at rank 128 (D = 130): (B, K, T, S)
             and chunk tiles per table, plan time; the fast-path gate
             must accept it
@@ -144,7 +154,7 @@ Phases, one line each:
             the prep kernel's lists (tail_lists) bit-equal to their
             plain version on each tail's segb
   jsweep    one gibbs_sweep with the tail kernel vs one with the plain
-            tail, same state and variates, deterministic torch ops
+            tail, same state and variates
   jfit      the estimator through "auto" (n_iter 200, stopped by its
             callback after J_FIT_SWEEPS); must resolve to "joint" and
             launch the tail kernel
@@ -222,6 +232,22 @@ Phases, one line each:
             fit_linear=False), GJV_MAX_ITER sweeps or GJV_FIT_S seconds:
             sweep_V_joint; the engine must read "joint" and the held-out
             RMSE fall below std(y_test)
+  drain     (second line) default-ops pairs on the ML-100k design: the
+            colored engine (MyFMGibbsRegressor, sweep_strategy="colored",
+            DRAIN_COLORED_ITER sweeps each way) and the joint engine
+            (sweep_strategy="joint", DRAIN_JOINT_ITER): every kept
+            sample and the hyper trace bit-equal, or the run fails
+  shard2    world size 2: two spawned processes on cuda:0 over gloo
+            (``myfm_tpu_torch.tools.sharded.shard2``), the ML-100k
+            design in float64 — the entity+attribute fast path
+            (MyFMGibbsRegressor; kernels 1 and 4), the joint engine
+            (MyFMOrderedProbit; kernel 4) and the VI fast path
+            (VariationalFMRegressor; kernel 1's VI layout and kernel 2):
+            each rank's fit within rtol 1e-8 / atol 1e-10 of the
+            one-process fit from the same seed, the replicated state the
+            same bits on both ranks, the kernels launched on each rank;
+            the collectives' calls, bytes and seconds per rank (gloo on
+            the ranks' CUDA tensors)
 
 The kernels line gives, for every kernel, its launches in its path's
 fit, its largest fp32 error against the plain version, its fp32 time,
@@ -238,6 +264,10 @@ chain of ~1k dependent colors, for its prep kernel's lists (a stable sort
 gives the grouped rows but not the live slots and their starts), nor for
 section level 0).  ``fused_tile_gram_cross[ea]`` and ``joint_tail_pass[ea]``
 are kernels 1 and 4 on the entity+attribute fast path (eakernel, eafit).
+The sharded phases' launches of a kernel stand under its entry's
+``sharded_launches`` (phase -> launches per rank; ``shard1`` also by
+Gram mode under ``sharded_launches_by_mode``); no error or time is
+given for them: the entry's numbers are its one-process path's.
 ``joint_tail_pass[lists]`` is the prep kernel, which
 every joint_tail_pass call launches before the chain, timed alone on the
 tail's real operands as the call launches it.  Times are
@@ -263,7 +293,6 @@ every phase passed; any failure exits non-zero.  Without a CUDA card,
 or without the package beside this file, it exits non-zero at once.
 """
 
-import contextlib
 import json
 import subprocess
 import sys
@@ -276,10 +305,9 @@ RANK = 32
 N_ITER = 6  # < 200, so "auto" keeps the fast path
 N_KEPT = 3
 DRAIN_ITER = 100  # the timed harvest pair: a chain keeping every sample
-DRAIN_CHECK_ITER = 6  # the deterministic pair: > _SNAP_LAG sweeps
-# two chains that should be bit-equal but ran an op torch names
-# nondeterministic: largest difference over the largest value
-CHAIN_TOL = 1e-6
+DRAIN_CHECK_ITER = 6  # the ordered pair: > _SNAP_LAG sweeps
+DRAIN_COLORED_ITER = 2  # the colored engine's pair (~10 s a sweep)
+DRAIN_JOINT_ITER = 3  # the joint engine's pair
 R128_RANK = 128  # the reference's flagship rank (bench.py _bench_rank128)
 R128_N_ITER = 4  # one warm-up sweep, three timed
 R128_IEEE_ITER = 2
@@ -318,7 +346,7 @@ OSWEEP_CUT_TOL = 1e-3
 
 J_RANK = 10
 J_N_ITER = 200  # >= 200 at <= 500k rows: "auto" prefers the joint engine
-J_FIT_SWEEPS = 30  # jfit's callback stops it there (the smoke's time)
+J_FIT_SWEEPS = 20  # jfit's callback stops it there (the smoke's time)
 J_FEATURES = "timesvdpp_flipped"
 # |kernel − plain| over max|plain| of each tail's outputs (G, Atot, Ct,
 # u_new) after ~1k chained colors; fp32 is loose because the Gram-
@@ -366,7 +394,7 @@ ELBO_DROP_TOL = 1e-5
 # row-space CAVI (vrfit): each fit stops after the sweep that would take
 # it past VR_FIT_S seconds at its own rate, after VR_MIN_ITER sweeps at
 # least and VR_MAX_ITER at most
-VR_FIT_S = 20.0
+VR_FIT_S = 12.0
 VR_MIN_ITER = 1
 VR_MAX_ITER = 20
 # the colored Gibbs engine on the ML-100k design (gcsweep): one fp32
@@ -378,10 +406,10 @@ GCSWEEP_TOL = 1e-3
 # the colored fits (gcfit, gcofit) stop as vrfit's do, after GC_MIN_ITER
 # sweeps at least; the joint-row fit without linear terms (gjvfit) after
 # GJV_MAX_ITER sweeps or GJV_FIT_S seconds, whichever comes first
-GC_FIT_S = 20.0
+GC_FIT_S = 12.0
 GC_MIN_ITER = 1
 GC_MAX_ITER = 20
-GJV_FIT_S = 20.0
+GJV_FIT_S = 12.0
 GJV_MAX_ITER = 5
 
 
@@ -894,21 +922,10 @@ def build_joint_design():
         grouping
 
 
-@contextlib.contextmanager
-def deterministic(torch):
-    """Deterministic torch ops (index_add_ without atomics), so a
-    comparison's inputs are the same bits on every run."""
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(False)
-
-
 def jkernel_phase(torch, plan, trainer, state):
-    """joint_tail_pass kernel vs plain on each block's real tail (the
-    caller runs it under ``deterministic``, so its inputs are the same
-    bits on every run)."""
+    """joint_tail_pass kernel vs plain on each block's real tail (its
+    inputs are the same bits on every run: the port's sums add in one
+    order)."""
     from myfm_tpu_torch.ops.forward import factor_q
     from myfm_tpu_torch.ops.gibbs import draw_gibbs_variates, draw_hypers
     from myfm_tpu_torch.ops.joint import (
@@ -1043,15 +1060,14 @@ def jsweep_phase(torch, plan, trainer, state):
                             torch.float32, trainer.device)
     res = {}
     outs = []
-    with deterministic(torch):
-        for tail in (True, True, False):
-            cfg = dataclasses.replace(trainer.cfg, joint_tail_kernel=tail)
-            t0 = time.perf_counter()
-            outs.append(gibbs_sweep(plan, state, trainer.y, v, cfg))
-            torch.cuda.synchronize()
-            res["plain_s" if not tail else "kernel_s"] = (
-                time.perf_counter() - t0
-            )
+    for tail in (True, True, False):
+        cfg = dataclasses.replace(trainer.cfg, joint_tail_kernel=tail)
+        t0 = time.perf_counter()
+        outs.append(gibbs_sweep(plan, state, trainer.y, v, cfg))
+        torch.cuda.synchronize()
+        res["plain_s" if not tail else "kernel_s"] = (
+            time.perf_counter() - t0
+        )
     a, a2, b = outs
     for f in ("w", "V"):
         x, x2, z = getattr(a, f), getattr(a2, f), getattr(b, f)
@@ -1068,8 +1084,8 @@ def jsweep_phase(torch, plan, trainer, state):
 def eakernel_phase(torch, plan, trainer, state):
     """Kernel 4 vs its plain version on each side table's color stack, on
     the operands ``_ea_table_pass`` hands it in a first sweep from the
-    initial state (``tools/joint_tail.ea_stacks``; the caller runs it
-    under ``deterministic``): float64 within ``JTAIL_TOL``, float32
+    initial state (``tools/joint_tail.ea_stacks``): float64 within
+    ``JTAIL_TOL``, float32
     within it or no farther from the float64 result than twice the plain
     float32 version (``tools/joint_tail.check``); float32 times of the
     kernel (events, and each of its two kernels' device time), of the
@@ -1223,25 +1239,23 @@ def vsweep_phase(torch, plan, plan64, trainer, state, phase="vsweep",
         f.name: getattr(state.core, f.name).double()
         for f in dataclasses.fields(state.core)}),
         tau=None if state.tau is None else state.tau.double())
-    with deterministic(torch):
-        exact = categorical_vi_sweep(
-            plan64, st64, y64, make_y_tiles(plan64, y64),
-            dataclasses.replace(trainer.cfg, gram_fast_matmul=False),
-            plain=True).core
+    exact = categorical_vi_sweep(
+        plan64, st64, y64, make_y_tiles(plan64, y64),
+        dataclasses.replace(trainer.cfg, gram_fast_matmul=False),
+        plain=True).core
     per_mode = {}
     for mode in modes:
         cfg = dataclasses.replace(trainer.cfg, gram_fast_matmul=mode)
         res = {}
         outs = []
-        with deterministic(torch):
-            for plain in (False, True):
-                t0 = time.perf_counter()
-                outs.append(categorical_vi_sweep(
-                    plan, state, trainer.y, trainer.y_tiles, cfg,
-                    plain=plain))
-                torch.cuda.synchronize()
-                res["plain_s" if plain else "kernel_s"] = (
-                    time.perf_counter() - t0)
+        for plain in (False, True):
+            t0 = time.perf_counter()
+            outs.append(categorical_vi_sweep(
+                plan, state, trainer.y, trainer.y_tiles, cfg,
+                plain=plain))
+            torch.cuda.synchronize()
+            res["plain_s" if plain else "kernel_s"] = (
+                time.perf_counter() - t0)
         a, b = (o.core for o in outs)
         for f in ("w", "w_var", "V", "V_var", "e", "elbo"):
             x, z, x64 = getattr(a, f), getattr(b, f), getattr(exact, f)
@@ -1366,11 +1380,10 @@ def ea_phases(torch, train, test, jgroup, timer, stamps):
     )
     if etrainer.cfg.joint_tail_kernel is not True:
         fail("eakernel: the EA trainer did not resolve to the tail kernel")
-    with deterministic(torch):
-        estate = etrainer._initialize()
-        ekrows = kernel_phase(torch, eplan, estate, etrainer.y_tiles,
-                              label="eakernel kernel 1")
-        earows = eakernel_phase(torch, eplan, etrainer, estate)
+    estate = etrainer._initialize()
+    ekrows = kernel_phase(torch, eplan, estate, etrainer.y_tiles,
+                          label="eakernel kernel 1")
+    earows = eakernel_phase(torch, eplan, etrainer, estate)
     etiling = [(t.n_cols, t.n_tiles, t.tile_rows, t.tile_entities)
                for t in eplan.tables]
     say("eakernel", json.dumps(dict(
@@ -2065,17 +2078,9 @@ def plan_phase(torch, X, blocks, grouping):
     return plans["card"], line
 
 
-def nondeterministic_ops(caught):
-    """The ops torch's deterministic mode warned about, by name."""
-    return sorted({str(w.message).split(" does not have")[0]
-                   for w in caught if "deterministic" in str(w.message)})
-
-
-def chain_check(phase, pairs, nondet):
-    """Two chains' host values, pair by pair: bit-equal, or the largest
-    difference.  A difference fails unless torch named a
-    nondeterministic op, and then above CHAIN_TOL of scale.  Returns the
-    reading."""
+def chain_check(phase, pairs):
+    """Two chains' host values, pair by pair: bit-equal, or the run
+    fails with their largest difference.  Returns the reading."""
     diff, scale, equal = 0.0, 0.0, True
     for x, y in pairs:
         x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
@@ -2086,11 +2091,10 @@ def chain_check(phase, pairs, nondet):
             diff = max(diff, float(np.abs(x - y).max()))
             scale = max(scale, float(np.abs(x).max()))
     rel = diff / max(scale, 1e-30)
-    if not equal and (not nondet or rel > CHAIN_TOL):
-        fail(f"{phase}: the chains differ by {rel:.3e} of scale; "
-             f"nondeterministic ops {nondet}")
-    return dict(bit_equal=equal, max_abs_diff=diff, max_rel_diff=rel,
-                nondeterministic_ops=nondet)
+    if not equal:
+        fail(f"{phase}: two chains from one seed differ by {diff:.3e} "
+             f"({rel:.3e} of scale)")
+    return dict(bit_equal=equal, max_abs_diff=diff)
 
 
 def sample_pairs(a_samples, b_samples):
@@ -2109,14 +2113,12 @@ def sample_pairs(a_samples, b_samples):
 
 def ckpt_phase(torch, train, grouping):
     """Resume on the card: CategoricalGibbsTrainer on the ML-10M plan
-    (compiled here), rank 32, regression, under ``deterministic``: 4
-    sweeps in one go, and 2 sweeps checkpointed at 2 then resumed to 4
-    in a fresh trainer.  The last 2 kept samples go through
-    ``chain_check``.  Also the checkpoint's bytes and its write and read
-    seconds."""
+    (compiled here), rank 32, regression, default ops: 4 sweeps in one
+    go, and 2 sweeps checkpointed at 2 then resumed to 4 in a fresh
+    trainer.  The last 2 kept samples go through ``chain_check``.  Also
+    the checkpoint's bytes and its write and read seconds."""
     import os
     import tempfile
-    import warnings
 
     from myfm_tpu_torch import checkpoint
     from myfm_tpu_torch.design_categorical import try_compile_categorical
@@ -2150,10 +2152,7 @@ def ckpt_phase(torch, train, grouping):
     checkpoint.save_checkpoint = timed("write", real[0])
     checkpoint.load_checkpoint = timed("read", real[1])
     try:
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as d, \
-                warnings.catch_warnings(record=True) as caught, \
-                deterministic(torch):
-            warnings.simplefilter("always")
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as d:
             path = os.path.join(d, "chain.npz")
             t0 = time.perf_counter()
             full, _ = trainer().run(4, 4)
@@ -2168,8 +2167,7 @@ def ckpt_phase(torch, train, grouping):
     if len(resumed.samples) != 2:
         fail(f"ckpt: the resumed run kept {len(resumed.samples)} samples")
     line = chain_check("ckpt", sample_pairs(full.samples[-2:],
-                                            resumed.samples),
-                       nondeterministic_ops(caught))
+                                            resumed.samples))
     line.update(checkpoint_bytes=size, write_s=io_s["write"],
                 read_s=io_s["read"],
                 sweeps=dict(full=4, first=2, resumed=2), phase_s=t_all)
@@ -2188,11 +2186,12 @@ def drain_phase(torch, train, grouping):
     sync-debug mode reports per sweep, the peak pinned bytes the
     harvest held (``_HostCopy.peak_pinned_bytes``), the pinned blocks
     the host allocator made (``num_host_alloc``) and the bytes it holds
-    after the fit; and the largest difference of the two chains' V,
-    which default ops (atomic scatters) may give.
+    after the fit.  The two chains, default ops, through
+    ``chain_check``: every kept sample's w0, w and V and the hyper trace
+    (their largest V difference is reported too).
 
-    Checked: MyFMOrderedProbit for DRAIN_CHECK_ITER sweeps, eager then
-    pipelined, under ``deterministic``: every kept sample's w0, w, V and
+    Checked as well: MyFMOrderedProbit for DRAIN_CHECK_ITER sweeps, eager
+    then pipelined, default ops: every kept sample's w0, w, V and
     cutpoints, the hyper trace and the MH accept trace through
     ``chain_check``."""
     import warnings
@@ -2257,28 +2256,71 @@ def drain_phase(torch, train, grouping):
                     float(np.abs(a.V - b.V).max()) for a, b in zip(
                         fits["eager"].predictor_.samples,
                         fits["pipelined"].predictor_.samples)))
+    line["regression"] = chain_check(
+        "drain", fit_pairs(fits["eager"], fits["pipelined"], DRAIN_ITER))
     del fits
 
     yo = (y_tr - 1).astype(np.int64)
-    with warnings.catch_warnings(record=True) as caught, \
-            deterministic(torch):
-        warnings.simplefilter("always")
-        eager, lazy = (fit(MyFMOrderedProbit, yo, DRAIN_CHECK_ITER, cb)
-                       for _, cb in harvests)
-    pairs = list(sample_pairs(eager.predictor_.samples,
-                              lazy.predictor_.samples))
-    for a, b in zip(eager.history_.hypers, lazy.history_.hypers):
-        pairs += [(getattr(a, k), getattr(b, k)) for k in
-                  ("alpha", "mu_w", "lambda_w", "mu_V", "lambda_V")]
+    eager, lazy = (fit(MyFMOrderedProbit, yo, DRAIN_CHECK_ITER, cb)
+                   for _, cb in harvests)
+    pairs = fit_pairs(eager, lazy, DRAIN_CHECK_ITER)
     pairs += list(zip(eager.history_.n_mh_accept_trace,
                       lazy.history_.n_mh_accept_trace))
-    if (len(eager.history_.hypers) != DRAIN_CHECK_ITER
-            or len(lazy.history_.hypers) != DRAIN_CHECK_ITER):
-        fail("drain: a checked fit's hyper trace is short")
     line["check"] = dict(task="ordered", sweeps=DRAIN_CHECK_ITER,
-                         **chain_check("drain", pairs,
-                                       nondeterministic_ops(caught)))
+                         **chain_check("drain", pairs))
     return line
+
+
+def fit_pairs(a, b, sweeps):
+    """(a, b) host arrays of two fits: every kept sample (w0, w, V,
+    cutpoints) and every sweep's hyperparameters."""
+    if len(a.history_.hypers) != sweeps or len(b.history_.hypers) != sweeps:
+        fail("drain: a checked fit's hyper trace is short")
+    pairs = list(sample_pairs(a.predictor_.samples, b.predictor_.samples))
+    for x, y in zip(a.history_.hypers, b.history_.hypers):
+        pairs += [(getattr(x, k), getattr(y, k)) for k in
+                  ("alpha", "mu_w", "lambda_w", "mu_V", "lambda_V")]
+    return pairs
+
+
+def rowspace_pairs(torch, train, grouping):
+    """Default-ops same-seed pairs on the row-space engines (ML-100k,
+    rank 10): the colored engine and the joint engine (kernel 4), each
+    fit twice from one seed; every kept sample and the hyper trace
+    through ``chain_check``, with each fit's seconds."""
+    from myfm_tpu_torch import MyFMGibbsRegressor
+
+    X, b, y = train
+    line = {}
+    for engine, n_iter in (("colored", DRAIN_COLORED_ITER),
+                           ("joint", DRAIN_JOINT_ITER)):
+        fits, secs = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fits.append(MyFMGibbsRegressor(
+                rank=J_RANK, random_seed=SEED, device="cuda",
+                sweep_strategy=engine).fit(
+                X, y, X_rel=b, n_iter=n_iter, n_kept_samples=n_iter,
+                grouping=grouping))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if fits[-1].history_.engine != engine:
+                fail(f"drain: the {engine} pair resolved to "
+                     f"{fits[-1].history_.engine!r}")
+        line[engine] = dict(sweeps=n_iter, fit_s=secs, **chain_check(
+            f"drain {engine}", fit_pairs(*fits, n_iter)))
+    return line
+
+
+def run_phase(phase, fn):
+    """fn() of a phase of ``myfm_tpu_torch.tools.sharded``; its failure
+    fails the run."""
+    from myfm_tpu_torch.tools.sharded import PhaseError
+
+    try:
+        return fn()
+    except PhaseError as exc:
+        fail(f"{phase}: {exc}")
 
 
 def s_per_sweep(ttfs, rate):
@@ -2418,8 +2460,19 @@ def main():
                    f"std(y_test) {std:.4f}; so far "
                    f"{time.perf_counter() - t_start:.1f} s")
 
-    # ---- the probit tasks on the fast path: ML-10M shape, rank 32 ----
+    # ---- world size 1 over NCCL: the same fit through mesh= ----
+    from myfm_tpu_torch.tools import sharded
+
+    fit_ref = (sharded._samples(fm), pred)
     del fm
+    torch.cuda.empty_cache()
+    s1 = run_phase("shard1", lambda: sharded.shard1(
+        (X_tr, blocks_tr, y_tr), (X_te, blocks_te, y_te), grouping,
+        fit_ref))
+    say("shard1", json.dumps(s1))
+    del fit_ref
+
+    # ---- the probit tasks on the fast path: ML-10M shape, rank 32 ----
     torch.cuda.empty_cache()
     from myfm_tpu_torch import MyFMGibbsClassifier, MyFMOrderedProbit
     from myfm_tpu_torch.ops.oprobit import _newton_minimize
@@ -2527,9 +2580,8 @@ def main():
     )
     if jtrainer.cfg.joint_tail_kernel is not True:
         fail("the joint trainer did not resolve to the tail kernel")
-    with deterministic(torch):
-        jstate = jtrainer._initialize()
-        jrows, jlrows = jkernel_phase(torch, jplan, jtrainer, jstate)
+    jstate = jtrainer._initialize()
+    jrows, jlrows = jkernel_phase(torch, jplan, jtrainer, jstate)
     for r in jrows:
         say("jkernel", json.dumps(r))
     for r in jlrows:
@@ -2646,9 +2698,8 @@ def main():
 
     vtrainer = CategoricalVITrainer(vplan, jy_tr, VariationalConfig(),
                                     V_RANK, 0.1, SEED)
-    with deterministic(torch):
-        vstate = vtrainer._initialize()
-        vrows = vkernel_phase(torch, vplan, vtrainer, vstate)
+    vstate = vtrainer._initialize()
+    vrows = vkernel_phase(torch, vplan, vtrainer, vstate)
     for r in vrows:
         say("vkernel", json.dumps(r))
     vplan64 = compile_vi_fast_plan(jX_tr, jb_tr, vgroup, np.float64, "cuda",
@@ -2660,8 +2711,7 @@ def main():
     vctrainer = CategoricalVITrainer(
         vplan, np.where(jy_tr >= 4, 1.0, -1.0),
         VariationalConfig(task="classification"), V_RANK, 0.1, SEED)
-    with deterministic(torch):
-        vcstate = vctrainer._sweep(vctrainer._initialize())
+    vcstate = vctrainer._sweep(vctrainer._initialize())
     say("vcsweep", json.dumps(vsweep_phase(
         torch, vplan, vplan64, vctrainer, vcstate, phase="vcsweep",
         modes=("split",))))
@@ -2810,8 +2860,22 @@ def main():
         say(phase, json.dumps(line))
     say("gjvfit", f"whole run so far {time.perf_counter() - t_start:.1f} s")
 
+    # ---- same-seed pairs on the row-space engines, default ops ----
+    say("drain", json.dumps(dict(rowspace=rowspace_pairs(
+        torch, (jX_tr, jb_tr, jy_tr), vgroup))))
+    clear_plan_cache()
+    torch.cuda.empty_cache()
+
+    # ---- world size 2: two processes on the card over gloo ----
+    s2 = run_phase("shard2", lambda: sharded.shard2("cuda:0"))
+    say("shard2", json.dumps(s2))
+    say("shard2", f"whole run so far {time.perf_counter() - t_start:.1f} s")
+    def s2_launches(fit, kernel):
+        return {f"shard2 {fit}": [r["launches"][kernel]
+                                  for r in s2["fits"][fit]["ranks"]]}
+
     def entry(name, source, replaces, launches, rows, mode="highest",
-              modes=None):
+              modes=None, sharded=None):
         """One kernel of the kernels line; ``rows`` are its phase rows,
         read in Gram mode ``mode`` (a row of another mode holds that
         mode's numbers under "modes"); ``modes`` its path's launches by
@@ -2836,17 +2900,23 @@ def main():
             out["pass"] = "+".join(passes)
         if modes is not None:
             out["launches_by_mode"] = modes
+        if sharded is not None:
+            out["sharded_launches"] = sharded
         return out
 
     vi_rows = [r for r in vrows if r["kernel"] != "fused_tile_gram"]
     meta_rows = [r for r in vrows if r["kernel"] == "fused_tile_gram"]
     print(json.dumps({"kernels": [
-        entry("fused_tile_gram_cross", GRAM_SOURCE, GRAM_REPLACES, launches,
-              krows, "split", fit_modes),
+        dict(entry("fused_tile_gram_cross", GRAM_SOURCE, GRAM_REPLACES,
+                   launches, krows, "split", fit_modes,
+                   {"shard1": [s1["kernel_launches"]["gram_gibbs"]]}),
+             sharded_launches_by_mode={
+                 "shard1": [s1["gram_launches_by_mode"]]}),
         entry("fused_tile_gram_cross[vi]", GRAM_SOURCE, GRAM_REPLACES, v_vi,
-              vi_rows, "split", v_modes["vi"]),
+              vi_rows, "split", v_modes["vi"], s2_launches("vi", "gram_vi")),
         entry("fused_tile_gram", GRAM_SOURCE, META_REPLACES, v_meta,
-              meta_rows, "split", v_modes["meta"]),
+              meta_rows, "split", v_modes["meta"],
+              s2_launches("vi", "gram_meta")),
         entry("fused_tile_gram_cross[vi10m]", GRAM_SOURCE, GRAM_REPLACES,
               v10_launches, k10, "split", v10_modes),
         entry("fused_tile_gram_cross[vic10m]", GRAM_SOURCE, GRAM_REPLACES,
@@ -2858,13 +2928,13 @@ def main():
               GRAM_REPLACES, r128_ieee_launches, r128rows, "highest",
               {"highest": r128_ieee_launches}),
         entry("joint_tail_pass", TAIL_SOURCE, TAIL_REPLACES, jlaunches,
-              jrows),
+              jrows, sharded=s2_launches("joint", "joint_tail")),
         entry("joint_tail_pass[lists]", TAIL_SOURCE, TAIL_REPLACES,
               jl_launches, jlrows),
         entry("fused_tile_gram_cross[ea]", GRAM_SOURCE, GRAM_REPLACES,
-              ea[2], ea[0], "split", ea[4]),
+              ea[2], ea[0], "split", ea[4], s2_launches("ea", "gram_gibbs")),
         entry("joint_tail_pass[ea]", TAIL_SOURCE, TAIL_REPLACES, ea[3],
-              ea[1]),
+              ea[1], sharded=s2_launches("ea", "joint_tail")),
         entry("tile_gram", GRAM_SOURCE, ROWS_REPLACES, e_launches, erows),
     ] + [
         entry(f"gram_section[{r['level']}]" if r["mode"] == "highest"

@@ -3,8 +3,9 @@
 PyTorch counterpart of ``myfm_tpu/base.py``: the same constructor
 surface, ``_fit`` validation/grouping/callback plumbing and the
 Regressor and Classifier mixins.  Two differences: the estimator runs on an
-explicit ``torch.device``, and multi-device training (``mesh`` /
-``n_devices > 1``) is not ported yet and raises.
+explicit ``torch.device``, and multi-device training runs one process per
+device over ``torch.distributed`` (``mesh`` is a process group, the
+port's counterpart of a ``jax.sharding.Mesh``; parallel/).
 """
 
 from __future__ import annotations
@@ -164,6 +165,17 @@ class MyFMBase(ABC):
             CUDA device the Gram statistics go through the hand-written
             kernel (ops/gram.py); on the CPU through its plain PyTorch
             version.
+        n_devices / mesh:
+            Multi-device training: each rank of a ``torch.distributed``
+            group runs the same fit on the whole design and keeps its
+            own contiguous rows; statistics are summed with collectives
+            where the TPU package ``psum``s, so the sharded chain is the
+            one-process chain up to the order of those sums (parallel/).
+            ``mesh`` is the process group (or a
+            ``parallel.collectives.Axis``); ``n_devices=N`` uses the
+            default group, which must be initialised with N ranks.  On a
+            sharded fit a ``device`` of plain "cuda" means
+            ``cuda:$LOCAL_RANK``.
         """
         if sweep_strategy not in ("auto", "serial", "colored",
                                   "categorical", "joint"):
@@ -172,8 +184,6 @@ class MyFMBase(ABC):
                 "'colored', 'categorical', 'joint'; got "
                 f"{sweep_strategy!r}."
             )
-        if mesh is not None or (n_devices or 1) > 1:
-            raise NotImplementedError("multi-device: later slice")
         self.rank = rank
         self.init_stdev = init_stdev
         self.random_seed = random_seed
@@ -245,6 +255,43 @@ class MyFMBase(ABC):
 
     def _process_y(self, y: np.ndarray) -> np.ndarray:
         return np.asarray(y).astype(np.float64)
+
+    @property
+    def _sharded(self) -> bool:
+        return self.mesh is not None or (self.n_devices or 1) > 1
+
+    def _build_mesh(self):
+        """The data axis of a sharded fit (parallel/collectives.Axis):
+        over ``mesh`` when given, else over the default process group,
+        which must be initialised with ``n_devices`` ranks (the TPU
+        package raises the same ValueError when fewer devices are
+        visible)."""
+        import torch.distributed as dist
+
+        from .parallel.collectives import Axis
+
+        if self.mesh is not None:
+            return self.mesh if isinstance(self.mesh, Axis) else Axis(
+                self.mesh)
+        world = (dist.get_world_size()
+                 if dist.is_available() and dist.is_initialized() else 0)
+        if world != self.n_devices:
+            raise ValueError(
+                f"n_devices={self.n_devices} requested but the default "
+                f"torch.distributed group has {world} ranks (initialise "
+                "it with one process per device, e.g. under torchrun).")
+        return Axis(None)
+
+    def _fit_device(self) -> torch.device:
+        """The device of this rank's chain: plain "cuda" on a sharded fit
+        is ``cuda:$LOCAL_RANK``."""
+        import os
+
+        if (self._sharded and self.device.type == "cuda"
+                and self.device.index is None):
+            return torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                           0)))
+        return self.device
 
     # -- the fit template ----------------------------------------------
 

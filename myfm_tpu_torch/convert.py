@@ -151,7 +151,10 @@ _PLAN_FIELDS = {
 def _plan_node(cls, obj, device):
     kw = {}
     for f in dataclasses.fields(cls):
-        v = getattr(obj, f.name)
+        # the port's own fields (row_lo, n_total, the summation orders)
+        # keep their defaults: the TPU package's plans have no such
+        # attributes
+        v = getattr(obj, f.name, f.default)
         sub = _PLAN_FIELDS.get(f.name)
         if v is None or isinstance(v, int):
             kw[f.name] = v

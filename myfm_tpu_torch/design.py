@@ -22,6 +22,7 @@ import numpy as np
 import torch
 from scipy import sparse as sps
 
+from .ops.segsum import index_order
 from .relational import RelationBlock
 
 
@@ -84,6 +85,9 @@ class TablePlan:
     color_stack: Optional[ColorStack]
     col_offset: int
     n_cols: int
+    # on CUDA, the stable order of coo_row and its segment offsets
+    # (ops/segsum.index_order), made with the plan; None on the CPU
+    coo_order: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,12 +132,35 @@ class BlockPlan:
     block_size: int
     dense_colors: Tuple[DenseColor, ...] = ()
     dense_stack: Optional[DenseStack] = None
+    # on CUDA, the orders of coo_row and of the mapper, as
+    # TablePlan.coo_order; None on the CPU
+    coo_order: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    mapper_order: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+
+def with_segment_orders(plan: "DesignPlan") -> "DesignPlan":
+    """``plan`` with the summation orders of its unsorted static indices
+    (the tables' COO rows, the blocks' mappers) made from its indices as
+    they are, where the plan lies on CUDA; on the CPU the segment sums
+    are ``index_add_`` and need none."""
+    if plan.group_index.device.type != "cuda":
+        return plan
+    main = dataclasses.replace(
+        plan.main, coo_order=index_order(plan.main.coo_row, plan.n_rows))
+    blocks = tuple(
+        dataclasses.replace(
+            b, coo_order=index_order(b.coo_row, b.block_size),
+            mapper_order=index_order(b.mapper, b.block_size))
+        for b in plan.blocks)
+    return dataclasses.replace(plan, main=main, blocks=blocks)
 
 
 @dataclasses.dataclass(frozen=True)
 class DesignPlan:
     """The full compiled design.  ``row_mask`` is always None here (the
-    TPU package sets it only on multi-device plans)."""
+    TPU package sets it only on multi-device plans, whose pad rows the
+    port's shards do not have).  A sharded plan (parallel/sharding.py)
+    holds rows [row_lo, row_lo + n_rows) of an ``n_total``-row design."""
 
     main: TablePlan
     blocks: Tuple[BlockPlan, ...]
@@ -143,6 +170,13 @@ class DesignPlan:
     n_rows: int
     n_features: int
     n_groups: int
+    row_lo: int = 0
+    n_total: Optional[int] = None
+
+    @property
+    def n_real(self) -> int:
+        """Rows of the whole design (the α/w0 conditionals' n)."""
+        return self.n_rows if self.n_total is None else self.n_total
 
     @property
     def device(self) -> torch.device:
@@ -530,7 +564,7 @@ def compile_design(
         ))
         offset += b.feature_size
 
-    return DesignPlan(
+    return with_segment_orders(DesignPlan(
         main=main,
         blocks=tuple(compiled_blocks),
         group_index=up(grouping),
@@ -539,4 +573,4 @@ def compile_design(
         n_rows=n_rows,
         n_features=n_features,
         n_groups=int(n_groups),
-    )
+    ))

@@ -433,6 +433,10 @@ class CategoricalPlan:
     # table (its entities are block rows with per-entity side features),
     # else None; all None for an all-one-hot design
     side: Tuple[Optional[SideInfo], ...] = ()
+    # a sharded plan (parallel/sharding_categorical.py) tiles rows
+    # [row_lo, row_lo + n_rows) of an ``n_total``-row design
+    row_lo: int = 0
+    n_total: Optional[int] = None
 
     def __post_init__(self):
         if len(self.side) != len(self.tables):
@@ -448,8 +452,8 @@ class CategoricalPlan:
 
     @property
     def n_real(self) -> int:
-        """Rows in the α/w0 conditionals (one device: every row)."""
-        return self.n_rows
+        """Rows in the α/w0 conditionals: the whole design's."""
+        return self.n_rows if self.n_total is None else self.n_total
 
 
 def _pack_tiles(
@@ -761,6 +765,7 @@ def compile_categorical_table(
     gate_rank: Optional[int] = None,
     derive_src_on_device: Optional[bool] = None,
     timings: Optional[dict] = None,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> Optional[CategoricalTable]:
     """Pack one table and put its layout on ``device``.
 
@@ -779,7 +784,12 @@ def compile_categorical_table(
     native planner and uploads them.  ``timings`` (a dict) collects the
     seconds of the windows "counts" (cardinalities and tiling), "pack"
     (``_plan_tiles`` or the host pack), "upload", "derive" and
-    "finalize"."""
+    "finalize".
+
+    ``rows = (lo, hi)`` packs rows [lo, hi) alone, a shard of a sharded
+    plan: the tiling is chosen and gated from the whole table's counts,
+    so every shard takes the (T, S) one process takes and accepts the
+    table exactly where one process does."""
     mark = _window_clock(timings, device)
     device = torch.device(device)
     ent = np.asarray(ent, dtype=np.int64)
@@ -796,6 +806,11 @@ def compile_categorical_table(
                 return None
             if inflation > max_inflation:
                 T, S, _ = least_inflating_tiling(counts, rank, itemsize)
+    if rows is not None:
+        lo, hi = rows
+        ent, n_rows = ent[lo:hi], hi - lo
+        real = ent < n_entities
+        counts = np.bincount(ent[real], minlength=n_entities)
     mark("counts")
     if derive_src_on_device is None:
         derive_src_on_device = device.type == "cuda"
@@ -994,6 +1009,7 @@ def try_compile_categorical(
     gate_rank: Optional[int] = None,
     derive_src_on_device: Optional[bool] = None,
     timings: Optional[dict] = None,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> Optional[CategoricalPlan]:
     """Compile the fast-path plan onto ``device``, or None if any table
     is neither one-hot nor (with ``allow_side``) an entity+attribute
@@ -1003,8 +1019,10 @@ def try_compile_categorical(
     factor rank on the Gibbs path, 3R on the VI path); ``gate_rank``
     (default ``rank``) the width the TPU package gates at (4R for its
     entity+attribute VI plans).  ``fixed_ts`` pins every table's
-    (T, S).  ``derive_src_on_device`` and ``timings`` are passed to
-    every ``compile_categorical_table``."""
+    (T, S).  ``derive_src_on_device``, ``timings`` and ``rows`` (the
+    shard [lo, hi) of a sharded plan, which then records ``row_lo`` and
+    the whole design's ``n_total``) are passed to every
+    ``compile_categorical_table``."""
     dtype = np.dtype(dtype)
     extracted = extract_categorical_mappings(
         X, blocks, grouping, dtype, allow_side=allow_side
@@ -1021,15 +1039,19 @@ def try_compile_categorical(
         if n_groups is None:
             n_groups = int(grouping.max()) + 1 if grouping.size else 1
     group_counts = np.bincount(grouping, minlength=n_groups).astype(dtype)
+    n_total = None
+    if rows is not None:
+        n_total = n_rows
+        n_rows = rows[1] - rows[0]
 
     tables = []
     side: List[Optional[SideInfo]] = []
     for ent, B, off in mappings:
         tab = compile_categorical_table(
-            ent, B, off, n_rows, dtype, device, rank=rank,
+            ent, B, off, n_total or n_rows, dtype, device, rank=rank,
             max_inflation=max_inflation, fixed_ts=fixed_ts,
             gate_rank=gate_rank, derive_src_on_device=derive_src_on_device,
-            timings=timings,
+            timings=timings, rows=rows,
         )
         if tab is None:
             return None
@@ -1040,10 +1062,11 @@ def try_compile_categorical(
         if info is None:
             return None
         tab = compile_categorical_table(
-            ent, B, int(col_ids[0]), n_rows, dtype, device, rank=rank,
+            ent, B, int(col_ids[0]), n_total or n_rows, dtype, device,
+            rank=rank,
             max_inflation=max_inflation, fixed_ts=fixed_ts,
             gate_rank=gate_rank, derive_src_on_device=derive_src_on_device,
-            timings=timings,
+            timings=timings, rows=rows,
         )
         if tab is None:
             return None
@@ -1078,4 +1101,6 @@ def try_compile_categorical(
         n_features=n_features,
         n_groups=int(n_groups),
         side=tuple(side),
+        row_lo=0 if rows is None else rows[0],
+        n_total=n_total,
     )

@@ -158,6 +158,11 @@ class MyFMGibbsBase(MyFMBase):
         # repeated fits on one design (sweeps, protocols, reruns) reuse
         # the compiled plan through the content-addressed cache
         fp = design_fingerprint(X, X_rel, config.group_index)
+        if self._sharded:
+            return self._train_core_sharded(
+                rank, init_stdev, X, X_rel, y, random_seed, config,
+                callback, fp,
+            )
         grouping = np.asarray(config.group_index, dtype=np.int32)
         device = str(self.device)
         cat_plan = None
@@ -242,6 +247,68 @@ class MyFMGibbsBase(MyFMBase):
         else:
             trainer = GibbsTrainer(
                 plan, y, cfg, rank, init_stdev, random_seed, self.dtype
+            )
+        return trainer.run(config.n_iter, config.n_kept_samples, callback)
+
+    def _train_core_sharded(self, rank, init_stdev, X, X_rel, y,
+                            random_seed, config, callback, fp):
+        """Multi-device training (``n_devices=N`` / ``mesh=``): this
+        rank's part of the fit, on the engine one process resolves (the
+        same "auto" rules: the small-scale joint preference, the fast
+        path, the joint upgrade), through the sharded trainers of
+        parallel/."""
+        from .design import joint_auto_candidate
+        from .parallel.sharding import ShardedGibbsTrainer
+        from .parallel.sharding_categorical import (
+            ShardedCategoricalGibbsTrainer,
+        )
+
+        axis = self._build_mesh()
+        device = self._fit_device()
+        cfg = _gibbs_config(config, self.sweep_strategy)
+        grouping = np.asarray(config.group_index, dtype=np.int32)
+        trainer = None
+        prefer_joint_small = (
+            self.sweep_strategy == "auto"
+            and config.n_iter >= 200
+            and X.shape[0] <= 500_000
+            and _joint_candidate(self, rank, config)
+        )
+        if self.sweep_strategy in (
+            "auto", "categorical"
+        ) and not prefer_joint_small:
+            try:
+                trainer = ShardedCategoricalGibbsTrainer(
+                    X, X_rel, y, cfg, rank, init_stdev, random_seed,
+                    mesh=axis, grouping=grouping, dtype=self.dtype,
+                    device=device, fingerprint=fp,
+                )
+            except ValueError:
+                if self.sweep_strategy == "categorical":
+                    raise ValueError(
+                        "sweep_strategy='categorical' requires every "
+                        "table (main and blocks) to be one-hot per row, "
+                        "or a block of [one-hot | per-entity "
+                        "side-feature] column groups within the "
+                        "entity+attribute gates.") from None
+        if trainer is None:
+            trainer = ShardedGibbsTrainer(
+                X, X_rel, y, cfg, rank, init_stdev, random_seed,
+                mesh=axis, grouping=grouping, dtype=self.dtype,
+                strategy=(
+                    "auto" if self.sweep_strategy in (
+                        "joint", "categorical", "colored"
+                    ) else self.sweep_strategy
+                ),
+                max_unrolled_colors=self.max_unrolled_colors,
+                joint_auto=(
+                    self.sweep_strategy == "auto"
+                    and joint_auto_candidate(
+                        rank, bool(config.fit_linear), self.dtype,
+                        config.group_index,
+                    )
+                ),
+                device=device, fingerprint=fp,
             )
         return trainer.run(config.n_iter, config.n_kept_samples, callback)
 

@@ -44,6 +44,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..design_categorical import CategoricalPlan, CategoricalTable
+from ..parallel.collectives import psum, psum_many
 from .gibbs import (
     GibbsConfig,
     GibbsState,
@@ -128,7 +129,7 @@ def draw_sweep_variates(plan: CategoricalPlan, cfg: GibbsConfig,
         noise_V=normal((F, rank)),
     )
     v.u_latent, v.oprobit = draw_latent_variates(
-        cfg, plan.n_rows, generator, dtype, device)
+        cfg, plan, generator, dtype, device)
     return v
 
 
@@ -372,10 +373,33 @@ def _table_pass(
     )
     G = _build_table_gram(plan, ti, w, V, eff, own_rows, tau_tile, plain,
                           cfg.gram_fast_matmul or False)
-    w_new, V_new, parts = _entity_draws(
-        G, w0, w_t, V_t, g_t, alpha, lambda_w, mu_w, lambda_V, mu_V,
-        noise_w[t.noise_feat], noise_V[t.noise_feat], cfg, want_moments,
-    )
+    nw_t, nV_t = noise_w[t.noise_feat], noise_V[t.noise_feat]
+    axis = cfg.axis
+    if (axis is not None and cfg.gram_reduce_scatter and axis.size > 1
+            and B % axis.size == 0):
+        # each rank receives the summed Gram of its own entity window
+        # only, draws that window's weights (the noise is per feature, so
+        # the draws do not depend on which rank makes them) and the
+        # [Bw, 1+R] draws are all-gathered: ~D²/(1+R) fewer bytes than
+        # an all-reduce of the [B, D, D] Gram
+        Bw = B // axis.size
+        win = slice(axis.index * Bw, (axis.index + 1) * Bw)
+        w_win, V_win, parts = _entity_draws(
+            axis.psum_scatter(G), w0, w_t[win], V_t[win], g_t[win], alpha,
+            lambda_w, mu_w, lambda_V, mu_V, nw_t[win], nV_t[win], cfg,
+            want_moments,
+        )
+        wv = axis.all_gather(torch.cat([w_win[:, None], V_win], dim=1))
+        w_new, V_new = wv[:, 0], wv[:, 1:]
+        if want_moments:
+            parts = axis.psum_many(*parts)
+    else:
+        # the rank's partial Grams sum to the whole design's; the draws
+        # below are then the same on every rank
+        w_new, V_new, parts = _entity_draws(
+            psum(G, axis), w0, w_t, V_t, g_t, alpha, lambda_w, mu_w,
+            lambda_V, mu_V, nw_t, nV_t, cfg, want_moments,
+        )
     w = w.clone()
     V = V.clone()
     w[off : off + B] = w_new
@@ -577,7 +601,9 @@ def _ea_table_pass(
     own = eff[ti]  # [B, 2+R] = [w̃ | Ṽ | qs̃]
     G = _build_table_gram(plan, ti, w, V, eff, own, tau_tile, plain,
                           cfg.gram_fast_matmul or False)
-    Gf = ea_flat_gram(G, w0, own)
+    # side features couple the table's entities, so a sharded chain
+    # sums the whole Gram (no window) and every rank runs the same scan
+    Gf = ea_flat_gram(psum(G, cfg.axis), w0, own)
     ops = ea_scan_operands(si, w, V, lambda_w, mu_w, lambda_V, mu_V,
                            group_index, noise_w, noise_V)
     alpha_t = torch.as_tensor(alpha, dtype=V.dtype, device=V.device)
@@ -690,8 +716,9 @@ def categorical_sweep(
         new_core, e=e, cutpoints=cutpoints, oprobit_alpha=oprobit_alpha,
         n_mh_accept=n_mh_accept,
     )
+    sum_e, sum_e2 = psum_many(cfg.axis, e.sum(), (e * e).sum())
     return CategoricalState(
-        core=new_core, tau=score - e, sum_e=e.sum(), sum_e2=(e * e).sum()
+        core=new_core, tau=score - e, sum_e=sum_e, sum_e2=sum_e2
     )
 
 
@@ -714,8 +741,9 @@ def init_categorical_state(
         core = dataclasses.replace(core, e=e)
         if cfg.task == TASK_CLASSIFICATION:
             tau = y.clone()
+    sum_e, sum_e2 = psum_many(cfg.axis, e.sum(), (e * e).sum())
     return CategoricalState(
-        core=core, tau=tau, sum_e=e.sum(), sum_e2=(e * e).sum()
+        core=core, tau=tau, sum_e=sum_e, sum_e2=sum_e2
     )
 
 

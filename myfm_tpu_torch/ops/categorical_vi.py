@@ -55,6 +55,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..design_categorical import CategoricalPlan, CategoricalTable
+from ..parallel.collectives import psum, psum_many
 from .categorical import _pad_zero_row, _table_slice, make_y_tiles
 from .gibbs import TASK_REGRESSION
 from .gram import (
@@ -309,11 +310,28 @@ def _vi_table_pass(plan: CategoricalPlan, ti: int, w, w_var, V, V_var,
     G = vi_table_gram(plan, ti, w, w_var, V, V_var, tau_tile, eff, plain,
                       cfg.gram_fast_matmul or False)
     g_t = group_index[t.col_offset : t.col_offset + t.n_cols]
-    w_new, wv_new, V_new, s_new = _vi_entity_updates(
-        G, w0, _table_slice(w, t), _table_slice(w_var, t),
-        _table_slice(V, t), _table_slice(V_var, t), g_t, alpha,
-        lambda_w, mu_w, lambda_V, mu_V, cfg,
-    )
+    old = (_table_slice(w, t), _table_slice(w_var, t), _table_slice(V, t),
+           _table_slice(V_var, t))
+    axis, B = cfg.axis, t.n_cols
+    if (axis is not None and cfg.gram_reduce_scatter and axis.size > 1
+            and B % axis.size == 0):
+        # as the Gibbs pass: each rank updates its entity window from the
+        # reduce-scattered Gram and the updates are all-gathered
+        Bw = B // axis.size
+        win = slice(axis.index * Bw, (axis.index + 1) * Bw)
+        new = _vi_entity_updates(
+            axis.psum_scatter(G), w0, *(a[win] for a in old), g_t[win],
+            alpha, lambda_w, mu_w, lambda_V, mu_V, cfg)
+        rank = V.shape[1]
+        cat = axis.all_gather(torch.cat(
+            [new[0][:, None], new[1][:, None], new[2], new[3]], dim=1))
+        w_new, wv_new = cat[:, 0], cat[:, 1]
+        V_new, s_new = cat[:, 2 : 2 + rank], cat[:, 2 + rank :]
+    else:
+        w_new, wv_new, V_new, s_new = _vi_entity_updates(
+            psum(G, axis), w0, *old, g_t, alpha, lambda_w, mu_w, lambda_V,
+            mu_V, cfg,
+        )
     return (_write_table(w, w_new, t), _write_table(w_var, wv_new, t),
             _write_table(V, V_new, t), _write_table(V_var, s_new, t))
 
@@ -565,8 +583,9 @@ def _vi_ea_table_pass(plan: CategoricalPlan, ti: int, w, w_var, V, V_var,
     rows_r = 2 + rank
     B = plan.tables[ti].n_cols
     own = eff[ti]
-    G = vi_ea_table_gram(plan, ti, w, w_var, V, V_var, w0, tau_tile, eff,
-                         plain, cfg.gram_fast_matmul or False)
+    G = psum(vi_ea_table_gram(plan, ti, w, w_var, V, V_var, w0, tau_tile,
+                              eff, plain, cfg.gram_fast_matmul or False),
+             cfg.axis)
 
     # own-contribution conversion: z_total = z + U·z₀ with per-entity
     # U = [0, 0, Ṽ, σ̃, τ̃]  ⇒  G ← G + U g₀ᵀ + g₀ Uᵀ + G₀₀ UUᵀ
@@ -617,7 +636,8 @@ def _vi_ea_table_pass(plan: CategoricalPlan, ti: int, w, w_var, V, V_var,
 def vi_refresh_rows(plan: CategoricalPlan, w0, w0_var, w, w_var, V, V_var,
                     row_chunk: int = 1 << 20, eff=None):
     """(score [N], Σ_rows Var(score)) in one chunked streaming pass
-    (reference update_e_and_var, variational.hpp:715-833).  Per factor
+    (reference update_e_and_var, variational.hpp:715-833); on a sharded
+    plan the rank's rows' scores and the sum over this rank's rows.  Per factor
     the pairwise term f = ½(q² − Σx²V²) has
     Var(f) = q̄²·A2 − 2q̄·A5 + ½A2² − ½A4 + A7 with A2 = Σx²s,
     A5 = Σx³sv̄, A4 = Σx⁴s², A7 = Σx⁴sv̄²; entity+attribute tables supply
@@ -698,9 +718,9 @@ def categorical_vi_sweep(
     dtype = core.V.dtype
     n = plan.n_real
 
-    sum_e = core.e.sum()
+    sum_e, sum_e2 = psum_many(cfg.axis, core.e.sum(),
+                              (core.e * core.e).sum())
     if cfg.task == TASK_REGRESSION:
-        sum_e2 = (core.e * core.e).sum()
         alpha_rate = (cfg.beta_0 + (sum_e2 + core.e_var_sum)) / 2.0
         alpha = torch.tensor((cfg.alpha_0 + n) / 2.0, dtype=dtype,
                              device=core.V.device) / alpha_rate
@@ -747,6 +767,8 @@ def categorical_vi_sweep(
     score, e_var_sum = vi_refresh_rows(plan, w0, w0_var, w, w_var, V,
                                        V_var, eff=eff)
     e, tau, row_elbo = finish_task(score, y, cfg)
+    e_var_sum, row_elbo, e2 = psum_many(cfg.axis, e_var_sum, row_elbo,
+                                        (e * e).sum())
     new_core = VIState(
         w0=w0, w0_var=w0_var, w=w, w_var=w_var, V=V, V_var=V_var,
         e=e, e_var_sum=e_var_sum, alpha=alpha, alpha_rate=alpha_rate,
@@ -756,7 +778,7 @@ def categorical_vi_sweep(
         lambda_V=lambda_V, lambda_V_rate=lambda_V_rate,
         elbo=core.elbo.new_zeros(()),
     )
-    elbo = row_elbo - alpha * (cfg.beta_0 + (e * e).sum() + e_var_sum) / 2.0
+    elbo = row_elbo - alpha * (cfg.beta_0 + e2 + e_var_sum) / 2.0
     elbo = _group_elbo_terms(plan, new_core, cfg, elbo)
     return CategoricalVIState(
         core=dataclasses.replace(new_core, elbo=elbo), tau=tau
@@ -777,6 +799,7 @@ def init_categorical_vi_state(plan: CategoricalPlan, core: VIState,
         plan, core.w0, core.w0_var, core.w, core.w_var, core.V,
         core.V_var, eff=eff,
     )
-    core = dataclasses.replace(core, e=score - y, e_var_sum=e_var_sum)
+    core = dataclasses.replace(core, e=score - y,
+                               e_var_sum=psum(e_var_sum, cfg.axis))
     tau = None if cfg.task == TASK_REGRESSION else y.to(score.dtype)
     return CategoricalVIState(core=core, tau=tau)

@@ -6,7 +6,8 @@ PyTorch counterpart of ``myfm_tpu/ops/forward.py``:
 
 over the plan's COO tables.  Block tables are scored on their unique
 block rows and gathered to the original rows through the mapper.
-Segment sums are ``index_add_``.  Gathers clamp the pad feature id
+Segment sums go through ops/segsum.py (one order of addition on
+every run).  Gathers clamp the pad feature id
 (``n_features``) into range as JAX's gathers do; pad entries carry
 value 0, so they add nothing.
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..design import DesignPlan
+from .segsum import segment_sum
 
 # Upper bound on elements of the per-chunk q matrix (as in the TPU
 # package): bounds the pairwise term's peak memory on large designs.
@@ -41,35 +43,27 @@ def matmul_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b
 
 
-def _table_matvec(coo_row, coo_col, coo_val, n_rows_local, vcols):
-    contrib = coo_val[:, None] * take(vcols, coo_col)
-    out = vcols.new_zeros((n_rows_local, vcols.shape[1]))
-    return out.index_add_(0, coo_row, contrib)
-
-
-def _table_matvec1(coo_row, coo_col, coo_val, n_rows_local, v):
-    contrib = coo_val * take(v, coo_col)
-    return v.new_zeros((n_rows_local,)).index_add_(0, coo_row, contrib)
+def _table_matvec(t, n_rows_local, vcols):
+    """Σ over a table's entries (``TablePlan`` or ``BlockPlan``) of
+    x·vcols[col] per table row."""
+    scale = t.coo_val if vcols.dim() == 1 else t.coo_val[:, None]
+    return segment_sum(scale * take(vcols, t.coo_col), t.coo_row,
+                       n_rows_local, order=t.coo_order)
 
 
 def linear_term(plan: DesignPlan, w: torch.Tensor) -> torch.Tensor:
     """Σᵢ wᵢxᵢ per original row."""
-    m = plan.main
-    out = _table_matvec1(m.coo_row, m.coo_col, m.coo_val, plan.n_rows, w)
+    out = _table_matvec(plan.main, plan.n_rows, w)
     for b in plan.blocks:
-        lb = _table_matvec1(b.coo_row, b.coo_col, b.coo_val, b.block_size, w)
-        out = out + take(lb, b.mapper)
+        out = out + take(_table_matvec(b, b.block_size, w), b.mapper)
     return out
 
 
 def factor_q(plan: DesignPlan, vcols: torch.Tensor) -> torch.Tensor:
     """q[n, r] = Σᵢ x_{ni} V_{ir} for a chunk of factor columns [F, C]."""
-    m = plan.main
-    q = _table_matvec(m.coo_row, m.coo_col, m.coo_val, plan.n_rows, vcols)
+    q = _table_matvec(plan.main, plan.n_rows, vcols)
     for b in plan.blocks:
-        qb = _table_matvec(b.coo_row, b.coo_col, b.coo_val, b.block_size,
-                           vcols)
-        q = q + take(qb, b.mapper)
+        q = q + take(_table_matvec(b, b.block_size, vcols), b.mapper)
     return q
 
 
@@ -82,16 +76,15 @@ def factor_q_single(plan: DesignPlan, v: torch.Tensor) -> torch.Tensor:
 def _factor_q_sq(plan: DesignPlan, vcols: torch.Tensor) -> torch.Tensor:
     """q_S[n, r] = Σᵢ x²_{ni} V²_{ir}."""
 
-    def sq_matvec(coo_row, coo_col, coo_val, n_rows_local):
-        contrib = (coo_val * coo_val)[:, None] * take(vcols, coo_col) ** 2
-        out = vcols.new_zeros((n_rows_local, vcols.shape[1]))
-        return out.index_add_(0, coo_row, contrib)
+    def sq_matvec(t, n_rows_local):
+        x2 = (t.coo_val * t.coo_val)[:, None]
+        contrib = x2 * take(vcols, t.coo_col) ** 2
+        return segment_sum(contrib, t.coo_row, n_rows_local,
+                           order=t.coo_order)
 
-    m = plan.main
-    qs = sq_matvec(m.coo_row, m.coo_col, m.coo_val, plan.n_rows)
+    qs = sq_matvec(plan.main, plan.n_rows)
     for b in plan.blocks:
-        qsb = sq_matvec(b.coo_row, b.coo_col, b.coo_val, b.block_size)
-        qs = qs + take(qsb, b.mapper)
+        qs = qs + take(sq_matvec(b, b.block_size), b.mapper)
     return qs
 
 

@@ -258,3 +258,29 @@ def scores_samples_reduce(
             sc = oprobit_class_probs(sc, cutpoints)
         out.append(sc.sum(dim=1))
     return torch.cat(out)
+
+
+def scores_samples_reduce_sharded(
+    plan: InferencePlan,
+    w0s: torch.Tensor,
+    ws: torch.Tensor,
+    Vs: torch.Tensor,
+    axis,
+    mode: str = "sum",
+    cutpoints: Optional[torch.Tensor] = None,
+    row_chunk: int = _ROW_CHUNK,
+):
+    """``scores_samples_reduce`` with the rows split over the data axis
+    ``axis`` (parallel/collectives.Axis): each rank scores its own
+    contiguous rows against the replicated samples, and one all-gather
+    returns the whole [N] / [N, K] sums on every rank.  Scoring is
+    row-independent, so every row's value is the one a single process
+    computes for it."""
+    lo, hi = axis.rows(plan.n_rows)
+    local = dataclasses.replace(
+        plan, n_rows=hi - lo,
+        tables=tuple(dataclasses.replace(t, ent=t.ent[lo:hi])
+                     for t in plan.tables))
+    out = scores_samples_reduce(local, w0s, ws, Vs, mode=mode,
+                                cutpoints=cutpoints, row_chunk=row_chunk)
+    return axis.gather_rows(out, plan.n_rows)

@@ -17,8 +17,8 @@ evolve those aggregates in closed form, so only the end of a stack
 touches the [n_rows] residual.  The TPU package scans a ``ColorStack``
 with ``lax.scan``; here a Python loop walks its colors.  No TPU kernel
 lies on these sweeps, and none is written for them: they are gathers,
-elementwise arithmetic, ``index_add_`` and (joint rows) small batched
-solves.
+elementwise arithmetic, segment sums (ops/segsum.py) and (joint rows)
+small batched solves.
 
 Every draw is a deterministic transform of standard variates that the
 caller passes in (a standard-gamma variate, a standard normal, the
@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..design import BlockPlan, ColorPlan, ColorStack, DesignPlan
+from ..parallel.collectives import local_rows, psum, psum_many
 from .forward import factor_q, factor_q_single, predict_score, take
 from .joint import _scatter_rows, _segsum, solve_spd_sample
 from .oprobit import OprobitVariates, oprobit_groups_update
@@ -48,6 +49,7 @@ from .rowspace import (
     stack_colors,
     term_index,
 )
+from .segsum import add_at, segment_sum
 from .special import truncated_std_normal_onesided, uniform_open
 
 TASK_REGRESSION = "regression"
@@ -58,10 +60,11 @@ TASK_ORDERED = "ordered"
 @dataclasses.dataclass(frozen=True)
 class GibbsConfig:
     """Static learning configuration (fields as in
-    ``myfm_tpu.ops.gibbs.GibbsConfig``; the multi-device knobs are not
-    part of this port yet).  ``joint_unroll``, the TPU package's
-    ``lax.scan`` unroll factor, has no counterpart: the tail runs as one
-    kernel or as a plain Python loop."""
+    ``myfm_tpu.ops.gibbs.GibbsConfig``, with the data axis
+    ``parallel/collectives.Axis`` in place of its ``axis_name``).
+    ``joint_unroll``, the TPU package's ``lax.scan`` unroll factor, has
+    no counterpart: the tail runs as one kernel or as a plain Python
+    loop."""
 
     task: str = TASK_REGRESSION
     alpha_0: float = 1.0
@@ -92,6 +95,14 @@ class GibbsConfig:
     # or "split" the split mode, "bf16" the single pass (float32 only on
     # the card: a mode with float64 there raises).
     gram_fast_matmul: Optional[object] = None
+    # multi-device execution: the data axis the statistics are summed
+    # over (None = one process; the sweep is then exactly the
+    # single-process one), and whether the fast path sums each table's
+    # [B, D, D] Gram with a reduce-scatter by entity window and
+    # all-gathers the drawn weights (when the axis size divides B; else
+    # one all-reduce of the whole Gram)
+    axis: Optional[object] = None
+    gram_reduce_scatter: bool = True
 
     @property
     def cutpoint_group_classes(self) -> Tuple[int, ...]:
@@ -136,15 +147,10 @@ def _draw_normal(quad, lin, noise):
     return lin / quad + noise * torch.rsqrt(quad)
 
 
-def _segment_sum(x: torch.Tensor, index: torch.Tensor, n: int):
-    out = torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device)
-    return out.index_add_(0, index, x)
-
-
 def draw_alpha(e, cfg: GibbsConfig, g: torch.Tensor):
     """α | e ~ Gamma((α₀+n)/2, rate=(β₀+Σe²)/2) given the standard-gamma
     variate ``g`` of shape (α₀+n)/2."""
-    rate = (cfg.beta_0 + (e * e).sum()) / 2.0
+    rate = (cfg.beta_0 + psum((e * e).sum(), cfg.axis)) / 2.0
     return g / rate
 
 
@@ -153,7 +159,7 @@ def draw_w0(e, w0, alpha, cfg: GibbsConfig, n_rows: int,
     """w0 | e ~ N(·) with prior precision reg₀, given a standard normal;
     returns (w0_new, e shifted by w0_new − w0)."""
     quad = alpha * n_rows + cfg.reg_0
-    lin = alpha * (n_rows * w0 - e.sum())
+    lin = alpha * (n_rows * w0 - psum(e.sum(), cfg.axis))
     w0_new = _draw_normal(quad, lin, noise)
     return w0_new, e + (w0_new - w0)
 
@@ -179,7 +185,7 @@ def draw_lambda(weight, mu, group_index, group_counts,
     a factor matrix ([F, R], μ [G, R]) alike."""
     n_groups = mu.shape[0]
     dev2 = (weight - mu[group_index]) ** 2
-    ssq = _segment_sum(dev2, group_index, n_groups)
+    ssq = segment_sum(dev2, group_index, n_groups)
     rate = (cfg.beta_0 + ssq) / 2.0
     return g / rate
 
@@ -189,7 +195,7 @@ def draw_mu(weight, lam, group_index, group_counts, cfg: GibbsConfig,
     """Groupwise μ | w,λ ~ N(lin/quad, 1/quad) given standard normals
     ``noise`` of λ's shape."""
     n_groups = lam.shape[0]
-    s = _segment_sum(weight, group_index, n_groups)
+    s = segment_sum(weight, group_index, n_groups)
     counts = group_counts
     if weight.ndim == 2:
         counts = counts[:, None]
@@ -243,17 +249,20 @@ def check_task(cfg: GibbsConfig):
                          "n_classes)")
 
 
-def draw_latent_variates(cfg: GibbsConfig, n_rows: int,
+def draw_latent_variates(cfg: GibbsConfig, plan,
                          generator: torch.Generator, dtype: torch.dtype,
                          device):
     """The probit tasks' per-sweep variates after the weights' own: the
     [N] latent uniforms in [tiny, 1), and for the ordered task each
     cutpoint group's MH variates.  Returns (u_latent, oprobit) — both
-    None for regression."""
+    None for regression.  The uniforms are drawn at the whole design's
+    length, as one process draws them, and a sharded plan keeps its own
+    rows (the TPU package slices one global draw the same way)."""
     check_task(cfg)
     if cfg.task == TASK_REGRESSION:
         return None, None
-    u = uniform_open((n_rows,), generator, dtype, device)
+    u = local_rows(uniform_open((plan.n_real,), generator, dtype, device),
+                   plan.row_lo, plan.n_rows)
     if cfg.task == TASK_CLASSIFICATION:
         return u, None
     groups = cfg.cutpoint_group_classes
@@ -304,7 +313,7 @@ def draw_gibbs_variates(plan, cfg: GibbsConfig, rank: int,
     gamma_alpha = None
     if cfg.task == TASK_REGRESSION:
         shape_alpha = torch.full(
-            (), (cfg.alpha_0 + plan.n_rows) / 2.0, dtype=dtype,
+            (), (cfg.alpha_0 + plan.n_real) / 2.0, dtype=dtype,
             device=device
         )
         gamma_alpha = std_gamma(shape_alpha, generator)
@@ -320,7 +329,7 @@ def draw_gibbs_variates(plan, cfg: GibbsConfig, rank: int,
         noise=normal((plan.n_features, rank + 1)),
     )
     v.u_latent, v.oprobit = draw_latent_variates(
-        cfg, plan.n_rows, generator, dtype, device)
+        cfg, plan, generator, dtype, device)
     return v
 
 
@@ -344,28 +353,29 @@ def _stack_indices(stack: ColorStack):
 
 
 def _w_color_main(c: ColorPlan, e, w, alpha, lam_col, mu_col, noise,
-                  group_index):
+                  group_index, axis=None):
     """The exact conditional of a row-disjoint main-table feature set's
     linear weights: quad = α Σx² + λ, lin = α(Σx² w_old − Σ x e) + λμ."""
     lam, mu = _per_feature_prior(c, group_index, lam_col, mu_col)
     w_old = take(w, c.feat)
-    xe = seg_sum(c.vals * e[c.rows], c.seg, c.feat.shape[0])
+    xe = psum(seg_sum(c.vals * e[c.rows], c.seg, c.feat.shape[0]), axis)
     quad = alpha * c.sx2 + lam
     lin = alpha * (c.sx2 * w_old - xe) + lam * mu
     w_new = _draw_normal(quad, lin, take(noise, c.feat))
-    e = e.index_add(0, c.rows, take(w_new - w_old, c.seg) * c.vals)
+    e = add_at(e, c.rows, take(w_new - w_old, c.seg) * c.vals,
+               distinct=True)
     return e, set_feat(w, c.feat, w_new)
 
 
 def _w_color_block(b: BlockPlan, c: ColorPlan, e, w, alpha, lam_col,
-                   mu_col, noise, group_index):
+                   mu_col, noise, group_index, axis=None):
     """One block color's step: the stack fold over that color alone."""
     return _w_block_stack(b, one_color(c), e, w, alpha, lam_col, mu_col,
-                          noise, group_index)
+                          noise, group_index, axis)
 
 
 def _w_block_stack(b: BlockPlan, stack: ColorStack, e, w, alpha, lam_col,
-                   mu_col, noise, group_index):
+                   mu_col, noise, group_index, axis=None):
     """The block colors of ``stack`` in order, in O(block_size) per
     color: the conditional reads the residual only through its
     per-block-row sum e1, which evolves as e1 += cardinality · dxb under
@@ -383,36 +393,39 @@ def _w_block_stack(b: BlockPlan, stack: ColorStack, e, w, alpha, lam_col,
     quad = alpha * sx2 + lam_col[gf]
     nz = take(noise, feat) * torch.rsqrt(quad)
     card = b.cardinality
-    e1 = block_sum(e, b)
+    e1 = block_sum(e, b, axis)
     acc = e.new_zeros(B)
     w_ext = torch.cat([w, w.new_zeros(1)])  # pad feature ids: scratch
     for ci in range(rows.shape[0]):
         m, ft, xc = rows[ci], feat[ci], x[ci]
         w_old = w_ext[ft]
-        xe = xc.new_zeros(Pf + 1).index_add_(0, seg[ci], xc * e1[m])[:Pf]
+        xe = segment_sum(xc * e1[m], seg[ci], Pf + 1, ascending=True)[:Pf]
         lin = torch.addcmul(lam_mu[ci], alpha, sx2[ci] * w_old - xe)
         w_new = lin / quad[ci] + nz[ci]
         w_ext[ft] = w_new
-        dxb = xc.new_zeros(B).index_add_(
-            0, m, (w_new - w_old)[seg_c[ci]] * xc)
+        dxb = segment_sum((w_new - w_old)[seg_c[ci]] * xc, m, B,
+                          distinct=True)
         e1.addcmul_(card, dxb)
         acc.add_(dxb)
     return e + acc[b.mapper], w_ext[:F]
 
 
-def sweep_w(plan: DesignPlan, e, w, alpha, lambda_w, mu_w, noise):
+def sweep_w(plan: DesignPlan, e, w, alpha, lambda_w, mu_w, noise,
+            axis=None):
     """Every linear weight's draw, color by color, given one standard
-    normal per feature (``noise`` [F]).  Returns (w, e)."""
+    normal per feature (``noise`` [F]); on a sharded plan the per-feature
+    and block-row sums are summed over the data ``axis``.  Returns
+    (w, e)."""
     g = plan.group_index
     for c in plan.main.colors + stack_colors(plan.main.color_stack):
-        e, w = _w_color_main(c, e, w, alpha, lambda_w, mu_w, noise, g)
+        e, w = _w_color_main(c, e, w, alpha, lambda_w, mu_w, noise, g, axis)
     for b in plan.blocks:
         for c in b.colors:
             e, w = _w_color_block(b, c, e, w, alpha, lambda_w, mu_w, noise,
-                                  g)
+                                  g, axis)
         if b.color_stack is not None:
             e, w = _w_block_stack(b, b.color_stack, e, w, alpha, lambda_w,
-                                  mu_w, noise, g)
+                                  mu_w, noise, g, axis)
     return w, e
 
 
@@ -422,7 +435,7 @@ def sweep_w(plan: DesignPlan, e, w, alpha, lambda_w, mu_w, noise):
 
 
 def _V_color_main(c: ColorPlan, e, q, v, alpha, lam_col, mu_col, noise,
-                  group_index):
+                  group_index, axis=None):
     """The exact conditional of a row-disjoint main-table feature set's
     factor coordinates: with h = x(q − x v_old),
     quad = α Σh² + λ, lin = α(Σh² v_old − Σ e h) + λμ."""
@@ -431,23 +444,24 @@ def _V_color_main(c: ColorPlan, e, q, v, alpha, lam_col, mu_col, noise,
     v_old = take(v, c.feat)
     x = c.vals
     h = x * (q[c.rows] - x * take(v_old, c.seg))
-    sq = seg_sum(h * h, c.seg, n_seg)
-    lin = seg_sum(-e[c.rows] * h, c.seg, n_seg) + sq * v_old
+    sq, lin = psum_many(axis, seg_sum(h * h, c.seg, n_seg),
+                        seg_sum(-e[c.rows] * h, c.seg, n_seg))
+    lin = lin + sq * v_old
     quad = alpha * sq + lam
     lin = alpha * lin + lam * mu
     v_new = _draw_normal(quad, lin, take(noise, c.feat))
     dseg = take(v_new - v_old, c.seg)
-    e = e.index_add(0, c.rows, dseg * h)
-    q = q.index_add(0, c.rows, dseg * x)
+    e = add_at(e, c.rows, dseg * h, distinct=True)
+    q = add_at(q, c.rows, dseg * x, distinct=True)
     return e, q, set_feat(v, c.feat, v_new)
 
 
 def _V_color_block(b: BlockPlan, c: ColorPlan, e, q, v, alpha, lam_col,
-                   mu_col, noise, group_index):
+                   mu_col, noise, group_index, axis=None):
     """One block color's step: the stack fold over that color alone (its
     caches updated through the mapper once)."""
     return _V_block_stack(b, one_color(c), e, q, v, alpha, lam_col, mu_col,
-                          noise, group_index)
+                          noise, group_index, axis)
 
 
 # The block aggregates' evolution under a color's per-block-row
@@ -464,7 +478,7 @@ _V_AGG_TERMS = (
 
 
 def _V_block_stack(b: BlockPlan, stack: ColorStack, e, q, v, alpha,
-                   lam_col, mu_col, noise, group_index):
+                   lam_col, mu_col, noise, group_index, axis=None):
     """The block colors of ``stack`` in order, in O(block_size) per
     color.  For block feature i with value x at block row m, the
     conditional reads (e, q) only through four per-block-row aggregates
@@ -500,8 +514,8 @@ def _V_block_stack(b: BlockPlan, stack: ColorStack, e, q, v, alpha,
     agg_coef = torch.tensor(coef, dtype=e.dtype, device=dev)[:, None]
     sq_i = torch.tensor([0, 0], device=dev)
     sq_j = torch.tensor([0, 1], device=dev)
-    agg = torch.stack([block_sum(e, b), block_sum(q, b),
-                       block_sum(q * q, b), block_sum(e * q, b),
+    agg = torch.stack([block_sum(e, b, axis), block_sum(q, b, axis),
+                       block_sum(q * q, b, axis), block_sum(e * q, b, axis),
                        b.cardinality])  # [5, B]
     acc = e.new_zeros(3, B)  # A, ΣB2, S
     v_ext = torch.cat([v, v.new_zeros(1)])  # pad feature ids: scratch
@@ -513,16 +527,16 @@ def _V_block_stack(b: BlockPlan, stack: ColorStack, e, q, v, alpha,
         sq_e = x2[ci] * torch.addcmul(
             Q2m, xv, torch.addcmul(-2.0 * Q1m, xv, cm))
         lin_e = neg_x[ci] * torch.addcmul(EQm, xv, E1m, value=-1.0)
-        sq, lin = xc.new_zeros(2, Pf + 1).index_add_(
-            1, seg[ci], torch.stack([sq_e, lin_e]))[:, :Pf]
+        sq, lin = segment_sum(torch.stack([sq_e, lin_e], dim=1), seg[ci],
+                              Pf + 1, ascending=True)[:Pf].T
         quad = torch.addcmul(lam[ci], alpha, sq)
         lin = torch.addcmul(lam_mu[ci], alpha,
                             torch.addcmul(lin, sq, v_old))
         v_new = lin / quad + nz[ci] * torch.rsqrt(quad)
         v_ext[ft] = v_new
         dseg = (v_new - v_old)[seg_c[ci]]
-        u = xc.new_zeros(2, B).index_add_(
-            1, m, torch.stack([dseg * xc, dseg * xc * xv]))  # a, b2
+        u = segment_sum(torch.stack([dseg * xc, dseg * xc * xv], dim=1),
+                        m, B, distinct=True).T  # a, b2
         lhs = torch.cat([u, u[sq_i] * u[sq_j]])  # + a², a·b2
         agg[:4].add_((agg_coef * lhs[l_i] * agg[r_i]).view(4, 5, B).sum(1))
         acc[2].addcmul_(u[0], acc[0])
@@ -532,31 +546,34 @@ def _V_block_stack(b: BlockPlan, stack: ColorStack, e, q, v, alpha,
     return e, q + am, v_ext[:F]
 
 
-def sweep_V_factor(plan: DesignPlan, e, v, alpha, lam_col, mu_col, noise):
+def sweep_V_factor(plan: DesignPlan, e, v, alpha, lam_col, mu_col, noise,
+                   axis=None):
     """One factor column's draws over every color of every table, its
     factor sums q rebuilt from ``v`` first; returns (e, v)."""
     g = plan.group_index
     q = factor_q_single(plan, v)
     for c in plan.main.colors + stack_colors(plan.main.color_stack):
         e, q, v = _V_color_main(c, e, q, v, alpha, lam_col, mu_col, noise,
-                                g)
+                                g, axis)
     for b in plan.blocks:
         for c in b.colors:
             e, q, v = _V_color_block(b, c, e, q, v, alpha, lam_col, mu_col,
-                                     noise, g)
+                                     noise, g, axis)
         if b.color_stack is not None:
             e, q, v = _V_block_stack(b, b.color_stack, e, q, v, alpha,
-                                     lam_col, mu_col, noise, g)
+                                     lam_col, mu_col, noise, g, axis)
     return e, v
 
 
-def sweep_V(plan: DesignPlan, e, V, alpha, lambda_V, mu_V, noise):
+def sweep_V(plan: DesignPlan, e, V, alpha, lambda_V, mu_V, noise,
+            axis=None):
     """Every factor's draws, factor after factor, given standard normals
-    ``noise`` [F, R] (column r for factor r).  Returns (V, e)."""
+    ``noise`` [F, R] (column r for factor r); ``axis`` as in
+    ``sweep_w``.  Returns (V, e)."""
     cols = []
     for r in range(V.shape[1]):
         e, v = sweep_V_factor(plan, e, V[:, r], alpha, lambda_V[:, r],
-                              mu_V[:, r], noise[:, r])
+                              mu_V[:, r], noise[:, r], axis)
         cols.append(v)
     return (torch.stack(cols, dim=1) if cols else V), e
 
@@ -580,7 +597,7 @@ def _chol_mean_sample(S, rhs, lam, xi, alpha):
 
 
 def _V_joint_color_main(c: ColorPlan, e, q, V, alpha, lam_g, mu_g, noise,
-                        group_index):
+                        group_index, axis=None):
     """Joint-row draw of a main-table color; q is the full [N, R]
     factor-sum cache, V the [F, R] table."""
     n_seg = c.feat.shape[0]
@@ -597,19 +614,21 @@ def _V_joint_color_main(c: ColorPlan, e, q, V, alpha, lam_g, mu_g, noise,
     # keeps its null components at relative precision in float32
     resid = (xphi * vo).sum(dim=1) - e[c.rows]
     r = _segsum(xphi * resid[:, None], c.seg, n_seg)
+    S, r = psum_many(axis, S, r)
     v_new = _chol_mean_sample(S, alpha * r + lam * mu, lam,
                               take(noise, c.feat), alpha)
     dseg = take(v_new - v_old, c.seg)
-    e = e.index_add(0, c.rows, (dseg * xphi).sum(dim=1))
-    q = q.index_add(0, c.rows, dseg * x)
+    e = add_at(e, c.rows, (dseg * xphi).sum(dim=1), distinct=True)
+    q = add_at(q, c.rows, dseg * x, distinct=True)
     return e, q, _scatter_rows(V, c.feat, v_new)
 
 
-def _block_joint_stats(b: BlockPlan, e, q):
+def _block_joint_stats(b: BlockPlan, e, q, axis=None):
     """Per-block-row aggregates of the joint draw: E1 = Σe, Q1 = Σq,
     EQ = Σeq, QQ = Σqqᵀ over the mapper."""
-    return (block_sum(e, b), block_sum(q, b), block_sum(e[:, None] * q, b),
-            block_sum(q[:, :, None] * q[:, None, :], b))
+    return (block_sum(e, b, axis), block_sum(q, b, axis),
+            block_sum(e[:, None] * q, b, axis),
+            block_sum(q[:, :, None] * q[:, None, :], b, axis))
 
 
 def _V_joint_block_color(b: BlockPlan, c: ColorPlan, stats, V, alpha,
@@ -645,10 +664,9 @@ def _V_joint_block_color(b: BlockPlan, c: ColorPlan, stats, V, alpha,
     rhs = alpha * (torch.einsum("pfg,pg->pf", S, v_old) - t) + lam * mu
     v_new = _chol_mean_sample(S, rhs, lam, take(noise, c.feat), alpha)
     dseg = take(v_new - v_old, c.seg)
-    A = V.new_zeros(b.block_size, V.shape[1]).index_add_(
-        0, m, x[:, None] * dseg)
-    b2 = V.new_zeros(b.block_size).index_add_(
-        0, m, x * x * (vo * dseg).sum(dim=1))
+    A = segment_sum(x[:, None] * dseg, m, b.block_size, distinct=True)
+    b2 = segment_sum(x * x * (vo * dseg).sum(dim=1), m, b.block_size,
+                     distinct=True)
     return _scatter_rows(V, c.feat, v_new), A, b2
 
 
@@ -676,14 +694,14 @@ def _update_joint_stats(stats, A, b2, card):
 
 
 def _V_joint_block_stack(b: BlockPlan, stack: ColorStack, e, q, V, alpha,
-                         lam_g, mu_g, noise, group_index):
+                         lam_g, mu_g, noise, group_index, axis=None):
     """The joint block draw folded over a ColorStack with O(B·R²)
     aggregates per color (the vector analogue of ``_V_block_stack``);
     the [n_rows] caches are rebuilt once after the loop,
     e += q·Atot + (S − ΣB2)[mapper], where S accumulates the prefix
     cross-terms Σₖ Aₖ·A_{<k}."""
     card = b.cardinality
-    stats = _block_joint_stats(b, e, q)
+    stats = _block_joint_stats(b, e, q, axis)
     At = e.new_zeros(b.block_size, V.shape[1])
     St = e.new_zeros(b.block_size)
     B2t = e.new_zeros(b.block_size)
@@ -699,19 +717,21 @@ def _V_joint_block_stack(b: BlockPlan, stack: ColorStack, e, q, V, alpha,
     return e, q + am, V
 
 
-def sweep_V_joint(plan: DesignPlan, e, V, alpha, lambda_V, mu_V, noise):
+def sweep_V_joint(plan: DesignPlan, e, V, alpha, lambda_V, mu_V, noise,
+                  axis=None):
     """One pass over the colors drawing whole factor rows, given standard
-    normals ``noise`` [F, R].  Returns (V, e)."""
+    normals ``noise`` [F, R]; ``axis`` as in ``sweep_w``.  Returns
+    (V, e)."""
     if V.shape[1] == 0:
         return V, e
     g = plan.group_index
     q = factor_q(plan, V)  # [N, R]
     for c in plan.main.colors + stack_colors(plan.main.color_stack):
         e, q, V = _V_joint_color_main(c, e, q, V, alpha, lambda_V, mu_V,
-                                      noise, g)
+                                      noise, g, axis)
     for b in plan.blocks:
         if b.colors:
-            stats = _block_joint_stats(b, e, q)
+            stats = _block_joint_stats(b, e, q, axis)
             for c in b.colors:
                 V, A, b2 = _V_joint_block_color(b, c, stats, V, alpha,
                                                 lambda_V, mu_V, noise, g)
@@ -721,7 +741,7 @@ def sweep_V_joint(plan: DesignPlan, e, V, alpha, lambda_V, mu_V, noise):
                 stats = _update_joint_stats(stats, A, b2, b.cardinality)
         if b.color_stack is not None:
             e, q, V = _V_joint_block_stack(b, b.color_stack, e, q, V, alpha,
-                                           lambda_V, mu_V, noise, g)
+                                           lambda_V, mu_V, noise, g, axis)
     return V, e
 
 
@@ -746,7 +766,7 @@ def refresh_latent(score, y, state: GibbsState, cfg: GibbsConfig,
         alpha, gamma, acc, e = oprobit_groups_update(
             score, y, state.oprobit_alpha, state.n_mh_accept,
             cfg.cutpoint_group_classes, cfg.reg_0, float(cfg.nu_oprobit),
-            oprobit, u_latent, weight=weight,
+            oprobit, u_latent, weight=weight, axis=cfg.axis,
         )
         return e, gamma, alpha, acc
     raise ValueError(f"unknown task {cfg.task!r}")
@@ -765,7 +785,7 @@ def draw_hypers(plan, state: GibbsState, variates: GibbsVariates,
     """The sweep's first half, α → w0 → (λ_w, μ_w) → (λ_V, μ_V): the
     state with its hyperparameters (and w0, e) drawn, weights as given."""
     v = variates
-    n = plan.n_rows
+    n = plan.n_real
     gi, gc = plan.group_index, plan.group_counts
     if cfg.task == TASK_REGRESSION:
         alpha = draw_alpha(state.e, cfg, v.gamma_alpha)
@@ -814,19 +834,20 @@ def gibbs_sweep(plan, state: GibbsState, y: torch.Tensor,
     w, e = h.w, h.e
     merged = cfg.joint_rows and cfg.fit_linear
     if cfg.fit_linear and not merged:
-        w, e = sweep_w(plan, e, w, h.alpha, h.lambda_w, h.mu_w, noise[:, 0])
+        w, e = sweep_w(plan, e, w, h.alpha, h.lambda_w, h.mu_w, noise[:, 0],
+                       cfg.axis)
     if merged:
         w, V, _, _ = sweep_joint_u(
             plan, e, w, h.V, h.alpha, h.lambda_w, h.mu_w, h.lambda_V,
             h.mu_V, noise, q=None,
-            tail_kernel=bool(cfg.joint_tail_kernel),
+            tail_kernel=bool(cfg.joint_tail_kernel), axis=cfg.axis,
         )
     elif cfg.joint_rows:
         V, e = sweep_V_joint(plan, e, h.V, h.alpha, h.lambda_V, h.mu_V,
-                             noise[:, 1:])
+                             noise[:, 1:], cfg.axis)
     else:
         V, e = sweep_V(plan, e, h.V, h.alpha, h.lambda_V, h.mu_V,
-                       noise[:, 1:])
+                       noise[:, 1:], cfg.axis)
     e, cutpoints, oprobit_alpha, n_mh_accept = refresh_e(
         plan, state, h.w0, w, V, y, cfg, variates.u_latent,
         variates.oprobit,

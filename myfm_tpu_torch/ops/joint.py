@@ -37,14 +37,15 @@ import torch
 import torch.nn.functional as nnf
 
 from ..design import BlockPlan, ColorPlan, DenseColor, DesignPlan
+from ..parallel.collectives import psum, psum_many
 from .forward import factor_q, take
+from .segsum import add_at, segment_sum, segment_sum_chunked
 
 
 def _segsum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    """segment_sum with JAX's semantics: segment ids ≥ n are dropped."""
-    out = x.new_zeros((n + 1,) + tuple(x.shape[1:]))
-    out.index_add_(0, seg.clamp(max=n), x)
-    return out[:n]
+    """segment_sum over a color's ascending ``seg`` with JAX's
+    semantics: segment ids ≥ n are dropped."""
+    return segment_sum(x, seg.clamp(max=n), n + 1, ascending=True)[:n]
 
 
 def _scatter_rows(U: torch.Tensor, feat: torch.Tensor,
@@ -140,7 +141,7 @@ def _draw_u(S, t, u_old, lam, mu, alpha, xi):
 
 
 def _joint_u_color_main(c: ColorPlan, e, q, U, alpha, lam_gu, mu_gu,
-                        noise, group_index):
+                        noise, group_index, axis=None):
     """(R+1)-joint draw for a row-disjoint main-table feature set.
     Returns (e, q, U)."""
     n_seg = c.feat.shape[0]
@@ -156,13 +157,14 @@ def _joint_u_color_main(c: ColorPlan, e, q, U, alpha, lam_gu, mu_gu,
     # rhs row-wise: α·Σψ(ψᵀu_old − e) + λμ (module doc, float32 note)
     resid = (psi * take(u_old, c.seg)).sum(dim=1) - take(e, c.rows)
     r = _segsum(psi * resid[:, None], c.seg, n_seg)
+    S, r = psum_many(axis, S, r)
     A = alpha * S + torch.diag_embed(lam)
     rhs = alpha * r + lam * mu
     u_new = solve_spd_sample(A, rhs, take(noise, c.feat), lam)
     dseg = take(u_new - u_old, c.seg)
     rows = c.rows.long()
-    e = e.index_add(0, rows, (dseg * psi).sum(dim=1))
-    q = q.index_add(0, rows, dseg[:, 1:] * x)
+    e = add_at(e, rows, (dseg * psi).sum(dim=1), distinct=True)
+    q = add_at(q, rows, dseg[:, 1:] * x, distinct=True)
     return e, q, _scatter_rows(U, c.feat, u_new)
 
 
@@ -188,27 +190,31 @@ def _index_maps(D: int, device) -> Tuple[torch.Tensor, ...]:
     return maps
 
 
-def build_block_gram(b: BlockPlan, e, q, row_chunk=1 << 20, flat=False):
+def build_block_gram(b: BlockPlan, e, q, axis=None, row_chunk=1 << 20,
+                     flat=False):
     """Ĝ [B, D, D] (or flat [B, D²]) = per-block-row sums of z zᵀ,
-    z = [1, e, q], chunked over rows so the temporary stays bounded.
-    On CUDA ``index_add_`` adds with atomics, so float32 results vary in
-    their last bits from run to run, and Ĝ[i, j] and Ĝ[j, i] are summed
-    in different orders; the result is symmetrized so that every reader
-    (the tail kernel reads the upper triangle, the plain steps read
-    both) sees one matrix.  On the CPU the sums are sequential and the
-    symmetrization leaves every bit as it is."""
+    z = [1, e, q], chunked over rows (on CUDA over the mapper's stable
+    order, ``BlockPlan.mapper_order``) so the temporary stays bounded.
+    The sums go through ops/segsum.py, in one order on every run; the
+    result is symmetrized all the same, as the TPU package's is, so that
+    every reader (the tail kernel reads the upper triangle, the plain
+    steps read both) sees one matrix whatever order the two triangles
+    were summed in.  On the CPU the sums are sequential and the
+    symmetrization leaves every bit as it is.  On a sharded plan the
+    rank's sums are summed over the data ``axis``."""
     B = b.block_size
     D = q.shape[1] + 2
-    N = e.shape[0]
     II, JJ = _index_maps(D, e.device)[:2]
-    G = e.new_zeros((B, D * D))
-    for start in range(0, N, row_chunk):
-        sl = slice(start, start + row_chunk)
-        sl_e = e[sl]
-        z = torch.cat([torch.ones_like(sl_e)[:, None], sl_e[:, None], q[sl]],
-                      dim=1)
-        G.index_add_(0, b.mapper[sl], z[:, II] * z[:, JJ])
-    G = G.reshape(B, D, D)
+
+    def summands(rows):
+        sl_e = e[rows]
+        z = torch.cat([torch.ones_like(sl_e)[:, None], sl_e[:, None],
+                       q[rows]], dim=1)
+        return z[:, II] * z[:, JJ]
+
+    G = segment_sum_chunked(summands, b.mapper, B, e.new_zeros((B, D * D)),
+                            row_chunk, order=b.mapper_order)
+    G = psum(G, axis).reshape(B, D, D)
     G = 0.5 * (G + G.transpose(1, 2))
     return G.reshape(B, D * D) if flat else G
 
@@ -265,12 +271,12 @@ def _joint_u_block_color(b: BlockPlan, c: ColorPlan, G, U, alpha,
     u_new = _draw_u(S, t, u_old, lam, mu, alpha, take(noise, c.feat))
     dseg = take(u_new - u_old, c.seg)
     # e_n += x·Δw − x²(v_old·Δv) + q_n·(x·Δv)   (per block row)
-    a0 = G.new_zeros((B,)).index_add_(
-        0, m,
+    a0 = segment_sum(
         x * dseg[:, 0]
         - x * x * (take(v_old, c.seg) * dseg[:, 1:]).sum(dim=1),
+        m, B, distinct=True,
     )
-    A = G.new_zeros((B, R)).index_add_(0, m, x[:, None] * dseg[:, 1:])
+    A = segment_sum(x[:, None] * dseg[:, 1:], m, B, distinct=True)
     return _scatter_rows(U, c.feat, u_new), a0, A
 
 
@@ -295,14 +301,14 @@ def _update_gram(G, a0, A):
 
 
 def _joint_u_block_pass(b: BlockPlan, e, q, U, alpha, lam_gu, mu_gu,
-                        noise, group_index):
+                        noise, group_index, axis=None):
     """All colors of one block in ragged form: Ĝ built once, evolved per
     color; the [N]-sized state is touched once at the end,
         e += (Ct + q⁰·Atot)[mapper],   q += Atot[mapper],
     where Ct accumulates a0 plus the prefix cross-terms A_k·Σ_{j<k}A_j."""
     B = b.block_size
     R = q.shape[1]
-    G = build_block_gram(b, e, q)
+    G = build_block_gram(b, e, q, axis)
     Atot = e.new_zeros((B, R))
     Ct = e.new_zeros((B,))
     colors = list(b.colors)
@@ -541,7 +547,7 @@ def dense_tail_operands(b: BlockPlan, U, lam_gu, mu_gu, noise, group_index):
 
 def _joint_u_block_pass_dense(b: BlockPlan, e, q, U, alpha, lam_gu,
                               mu_gu, noise, group_index,
-                              tail_kernel=False):
+                              tail_kernel=False, axis=None):
     """All colors of one block via the dense lanes-major machinery: the
     unrolled head colors one by one, then the stacked tail in one call
     of ``joint_tail_pass`` (the CUDA kernel, ``tail_kernel=True``) or of
@@ -551,7 +557,8 @@ def _joint_u_block_pass_dense(b: BlockPlan, e, q, U, alpha, lam_gu,
     B = b.block_size
     R = q.shape[1]
     D = R + 2
-    G = build_block_gram(b, e, q, flat=True).T.contiguous()  # [D², B]
+    # [D², B]
+    G = build_block_gram(b, e, q, axis, flat=True).T.contiguous()
     Atot = e.new_zeros((R, B))
     Ct = e.new_zeros((B,))
 
@@ -585,11 +592,13 @@ def _joint_u_block_pass_dense(b: BlockPlan, e, q, U, alpha, lam_gu,
 
 
 def sweep_joint_u(plan: DesignPlan, e, w, V, alpha, lambda_w, mu_w,
-                  lambda_V, mu_V, noise, q=None, tail_kernel=False):
+                  lambda_V, mu_V, noise, q=None, tail_kernel=False,
+                  axis=None):
     """One merged (w, V) joint pass over all colors of all tables, given
     the standard normals ``noise`` [F, R+1] (JAX draws them from the
     sweep's key).  Returns (w, V, e, q); ``q=None`` rebuilds the
-    factor-sum cache from V."""
+    factor-sum cache from V.  On a sharded plan the per-feature sums and
+    the Ĝ statistics are summed over the data ``axis``."""
     g = plan.group_index
     U = torch.cat([w[:, None], V], dim=1)  # [F, R+1]
     lam_gu = torch.cat([lambda_w[:, None], lambda_V], dim=1)
@@ -607,16 +616,16 @@ def sweep_joint_u(plan: DesignPlan, e, w, V, alpha, lambda_w, mu_w,
         ]
     for c in colors:
         e, q, U = _joint_u_color_main(c, e, q, U, alpha, lam_gu, mu_gu,
-                                      noise, g)
+                                      noise, g, axis)
 
     for b in plan.blocks:
         if b.dense_colors or b.dense_stack is not None:
             e, q, U = _joint_u_block_pass_dense(
                 b, e, q, U, alpha, lam_gu, mu_gu, noise, g,
-                tail_kernel=tail_kernel,
+                tail_kernel=tail_kernel, axis=axis,
             )
         else:
             e, q, U = _joint_u_block_pass(
-                b, e, q, U, alpha, lam_gu, mu_gu, noise, g
+                b, e, q, U, alpha, lam_gu, mu_gu, noise, g, axis
             )
     return U[:, 0], U[:, 1:], e, q

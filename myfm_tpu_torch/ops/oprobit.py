@@ -34,6 +34,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from ..parallel.collectives import psum, psum_many
 from .special import (
     log_ndtr,
     log_norm_pdf,
@@ -75,13 +76,18 @@ def _interval_logprob(lower, upper, lower_inf, upper_inf):
 class _Objective:
     """f(α) = −Σᵢ wᵢ log P(γ_{yᵢ−1} − sᵢ < Z < γ_{yᵢ} − sᵢ) + ½ reg ‖α‖²
     and its derivatives.  Class 0 has no lower bound, class K−1 no upper
-    one.  ``weight`` (a row mask) takes rows out of the likelihood."""
+    one.  ``weight`` (a row mask) takes rows out of the likelihood.  On a
+    sharded chain the row sums are summed over ``axis``, so every rank
+    evaluates the whole design's objective and takes the same Newton and
+    MH decisions."""
 
-    def __init__(self, score, y, n_class: int, reg: float, weight=None):
+    def __init__(self, score, y, n_class: int, reg: float, weight=None,
+                 axis=None):
         y = y.long()
         self.score = score
         self.reg = reg
         self.weight = weight
+        self.axis = axis
         self.lower_inf = y == 0
         self.upper_inf = y == (n_class - 1)
         self.yl = torch.clamp(y - 1, 0, n_class - 2)
@@ -101,7 +107,8 @@ class _Objective:
     def _total(self, ll, alpha):
         if self.weight is not None:
             ll = ll * self.weight
-        return -torch.sum(ll) + 0.5 * self.reg * torch.sum(alpha * alpha)
+        return (-psum(torch.sum(ll), self.axis)
+                + 0.5 * self.reg * torch.sum(alpha * alpha))
 
     def f(self, alpha):
         a, b = self._bounds(alpha)
@@ -112,7 +119,6 @@ class _Objective:
         """(f, ∇f, ∇²f) at ``alpha`` in one pass over the rows."""
         a, b = self._bounds(alpha)
         ll = _interval_logprob(a, b, self.lower_inf, self.upper_inf)
-        fval = self._total(ll, alpha)
         # φ(bound) / P per row, zero where the bound is infinite
         zero = torch.zeros_like(ll)
         ga = torch.where(self.lower_inf, zero,
@@ -131,6 +137,11 @@ class _Objective:
         cross = Oa.T @ (hab[:, None] * Ob)
         H_gamma = (Oa.T @ (haa[:, None] * Oa) + Ob.T @ (hbb[:, None] * Ob)
                    + cross + cross.T)
+        llw = ll if w is None else ll * w
+        # the row sums over every rank, in one all-reduce
+        nll, g_gamma, H_gamma = psum_many(self.axis, -torch.sum(llw),
+                                          g_gamma, H_gamma)
+        fval = nll + 0.5 * self.reg * torch.sum(alpha * alpha)
         # chain rule through γ(α): J[m, j] = ∂γ_m/∂α_j
         m = alpha.shape[0]
         e = torch.cat([torch.ones_like(alpha[:1]), torch.exp(alpha[1:])])
@@ -145,10 +156,11 @@ class _Objective:
         return fval, -grad_ll + self.reg * alpha, -H_ll + self.reg * eye
 
 
-def make_objective_fns(score, y, n_class: int, reg: float, weight=None):
+def make_objective_fns(score, y, n_class: int, reg: float, weight=None,
+                       axis=None):
     """(f, derivs): the penalised negative log-likelihood and the
     function returning (f, ∇f, ∇²f) at once."""
-    obj = _Objective(score, y, n_class, reg, weight)
+    obj = _Objective(score, y, n_class, reg, weight, axis)
     return obj.f, obj.derivs
 
 
@@ -241,11 +253,11 @@ def _log_p_mvt(H, mu, nu: float, x):
 
 def oprobit_mh_step(score, y, alpha_now, accept_count, n_class: int,
                     reg: float, nu: float, variates: OprobitVariates,
-                    weight=None):
+                    weight=None, axis=None):
     """One Metropolis-Hastings cutpoint update: Newton mode, a t proposal
     around it, accept on log u < log ratio (never on a NaN ratio).
     Returns (α, accept_count + accepted)."""
-    f, derivs = make_objective_fns(score, y, n_class, reg, weight)
+    f, derivs = make_objective_fns(score, y, n_class, reg, weight, axis)
     alpha_hat, H = _newton_minimize((f, derivs), alpha_now)
     cand = alpha_hat + _sample_mvt(H, nu, variates.normal, variates.chi)
     log_ratio = (-f(cand) - _log_p_mvt(H, alpha_hat, nu, cand)
@@ -287,7 +299,7 @@ def _group_rows(y_enc, K, yoff, dtype, weight):
 def oprobit_groups_update(score, y_enc, alpha_cat, accept_counts,
                           n_classes: Sequence[int], reg: float, nu: float,
                           variates: Sequence[OprobitVariates], u,
-                          weight=None):
+                          weight=None, axis=None):
     """Per-group MH cutpoint step, then the latent residual redraw.
     Rows outside a group enter its objective with weight 0; every row
     draws its latent value once, from its own group's cutpoints, with
@@ -303,7 +315,7 @@ def oprobit_groups_update(score, y_enc, alpha_cat, accept_counts,
         in_g, m_g, y_gc = _group_rows(y_enc, K, yoff, score.dtype, weight)
         a_new, acc_new = oprobit_mh_step(
             score, y_gc, alpha_cat[aoff : aoff + K - 1], accept_counts[g],
-            K, reg, nu, variates[g], weight=m_g,
+            K, reg, nu, variates[g], weight=m_g, axis=axis,
         )
         gamma_g = alpha_to_gamma(a_new)
         e = torch.where(in_g, sample_z_residual(u, score, y_gc, gamma_g), e)
@@ -316,7 +328,8 @@ def oprobit_groups_update(score, y_enc, alpha_cat, accept_counts,
 
 
 def init_oprobit_groups(score, y_enc, n_classes: Sequence[int], reg: float,
-                        u, weight=None) -> Tuple[torch.Tensor, ...]:
+                        u, weight=None,
+                        axis=None) -> Tuple[torch.Tensor, ...]:
     """Newton MAP cutpoints per group from α = 0, then the latent
     residual draw.  Returns (alpha_cat, gamma_cat, e)."""
     y_enc = y_enc.long()
@@ -326,7 +339,7 @@ def init_oprobit_groups(score, y_enc, n_classes: Sequence[int], reg: float,
     for K in n_classes:
         in_g, m_g, y_gc = _group_rows(y_enc, K, yoff, score.dtype, weight)
         alpha_hat, _ = _newton_minimize(
-            make_objective_fns(score, y_gc, K, reg, m_g),
+            make_objective_fns(score, y_gc, K, reg, m_g, axis),
             score.new_zeros(K - 1),
         )
         gamma = alpha_to_gamma(alpha_hat)
@@ -345,7 +358,7 @@ def initialize_oprobit_core(score, core, y_int, cfg, u, weight=None):
     (core, e)."""
     groups = cfg.cutpoint_group_classes
     alpha_hat, gamma, e = init_oprobit_groups(
-        score, y_int, groups, cfg.reg_0, u, weight=weight,
+        score, y_int, groups, cfg.reg_0, u, weight=weight, axis=cfg.axis,
     )
     core = dataclasses.replace(
         core, e=e, cutpoints=gamma, oprobit_alpha=alpha_hat,

@@ -15,12 +15,15 @@ from typing import Optional
 import torch
 
 from ..design import BlockPlan, ColorPlan, ColorStack
+from ..parallel.collectives import psum
+from .segsum import segment_sum
 
 
 def seg_sum(vals: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    """Segment sum into ``n`` slots; a pad slot id equal to ``n`` is
-    dropped, as JAX's ``segment_sum`` drops it."""
-    return vals.new_zeros(n + 1).index_add_(0, seg, vals)[:n]
+    """Segment sum into ``n`` slots of a color's ``seg`` (ascending: the
+    plan lays a color out slot by slot, its pads last); a pad slot id
+    equal to ``n`` is dropped, as JAX's ``segment_sum`` drops it."""
+    return segment_sum(vals, seg, n + 1, ascending=True)[:n]
 
 
 def set_feat(a: torch.Tensor, feat: torch.Tensor,
@@ -49,10 +52,11 @@ def one_color(c: ColorPlan) -> ColorStack:
                       c.feat[None], c.sx2[None])
 
 
-def block_sum(x: torch.Tensor, b: BlockPlan) -> torch.Tensor:
-    """Σ of a per-row tensor over each block row's members."""
-    out = x.new_zeros((b.block_size,) + tuple(x.shape[1:]))
-    return out.index_add_(0, b.mapper, x)
+def block_sum(x: torch.Tensor, b: BlockPlan, axis=None) -> torch.Tensor:
+    """Σ of a per-row tensor over each block row's members (over every
+    rank's rows of the data ``axis`` on a sharded plan)."""
+    return psum(segment_sum(x, b.mapper, b.block_size,
+                            order=b.mapper_order), axis)
 
 
 def term_index(terms, width, device):

@@ -21,8 +21,8 @@ colors evolve those aggregates in closed form (``_vi_V_block_stack``).
 Update order: α → w0 → λ_w → μ_w → w → λ_V → μ_V → V (factor by
 factor, color by color) → (e, Var, ELBO).  The TPU package scans a
 ``ColorStack`` with ``lax.scan``; here a Python loop walks its colors.
-The sweep is elementwise arithmetic, gathers and ``index_add_`` only (no
-matmul, so no TF32 setting reaches it).  Gathers through a pad feature
+The sweep is elementwise arithmetic, gathers and segment sums
+(ops/segsum.py) only (no matmul, so no TF32 setting reaches it).  Gathers through a pad feature
 or slot id clamp into range as JAX's do (``forward.take``); pad entries
 carry x = 0, so they add nothing.
 """
@@ -39,7 +39,6 @@ from .forward import linear_term, take
 from .gibbs import (
     TASK_CLASSIFICATION,
     TASK_REGRESSION,
-    _segment_sum,
     std_normal,
 )
 from .rowspace import (
@@ -50,6 +49,7 @@ from .rowspace import (
     stack_colors,
     term_index,
 )
+from .segsum import add_at, segment_sum
 from .special import (
     mean_var_truncated_normal_left,
     mean_var_truncated_normal_right,
@@ -59,8 +59,9 @@ from .special import (
 @dataclasses.dataclass(frozen=True)
 class VariationalConfig:
     """Static CAVI configuration (fields as in
-    ``myfm_tpu.ops.variational.VariationalConfig``; the multi-device knobs
-    are not part of this port yet)."""
+    ``myfm_tpu.ops.variational.VariationalConfig``, with the data axis
+    ``parallel/collectives.Axis`` in place of its ``axis_name``; only the
+    fast path runs sharded, as in the TPU package)."""
 
     task: str = TASK_REGRESSION
     alpha_0: float = 1.0
@@ -77,6 +78,9 @@ class VariationalConfig:
     # keep IEEE.  False forces IEEE, True or "split" the split mode,
     # "bf16" the single pass (float32 only on the card).
     gram_fast_matmul: Optional[object] = None
+    # multi-device execution, as in GibbsConfig
+    axis: Optional[object] = None
+    gram_reduce_scatter: bool = True
 
 
 @dataclasses.dataclass
@@ -107,7 +111,7 @@ def vi_update_lambda(weight, weight_var, mu, mu_var, group_index,
     """λ̂ = (α₀+n_g) / (β₀ + Σ_g[dev² + Var w] + n_g Var μ); rate = β/2."""
     n_groups = mu.shape[0]
     dev2 = (weight - mu[group_index]) ** 2 + weight_var
-    ssq = _segment_sum(dev2, group_index, n_groups)
+    ssq = segment_sum(dev2, group_index, n_groups)
     counts = group_counts
     if weight.ndim == 2:
         counts = counts[:, None]
@@ -120,7 +124,7 @@ def vi_update_lambda(weight, weight_var, mu, mu_var, group_index,
 def vi_update_mu(weight, lam, group_index, group_counts, cfg):
     """μ̂ = λ(γ₀μ₀ + Σ_g w) / λ(γ₀ + n_g); variance 1 / λ(γ₀ + n_g)."""
     n_groups = lam.shape[0]
-    s = _segment_sum(weight, group_index, n_groups)
+    s = segment_sum(weight, group_index, n_groups)
     counts = group_counts
     if weight.ndim == 2:
         counts = counts[:, None]
@@ -233,7 +237,7 @@ def _group_elbo_terms(plan, state: VIState, cfg: VariationalConfig, elbo):
     dev2_w = (state.w - state.mu_w[g]) ** 2
     rate_w = (
         cfg.beta_0
-        + _segment_sum(dev2_w + state.w_var, g, G)
+        + segment_sum(dev2_w + state.w_var, g, G)
         + state.mu_w_var * counts
     )
     elbo = elbo + (0.5 * _safe_log(state.mu_w_var)).sum()
@@ -251,7 +255,7 @@ def _group_elbo_terms(plan, state: VIState, cfg: VariationalConfig, elbo):
         dev2_V = (state.V - state.mu_V[g, :]) ** 2
         rate_V = (
             cfg.beta_0
-            + _segment_sum(dev2_V + state.V_var, g, G)
+            + segment_sum(dev2_V + state.V_var, g, G)
             + state.mu_V_var * counts[:, None]
         )
         elbo = elbo + (0.5 * _safe_log(state.mu_V_var)).sum()
@@ -274,15 +278,13 @@ def _group_elbo_terms(plan, state: VIState, cfg: VariationalConfig, elbo):
 def _row_cache(plan: DesignPlan, fn):
     """Σ over entries of fn(x, col) per original row, blocks gathered."""
 
-    def table(coo_row, coo_col, coo_val, n_local):
-        return coo_val.new_zeros(n_local).index_add_(
-            0, coo_row, fn(coo_val, coo_col))
+    def table(t, n_local):
+        return segment_sum(fn(t.coo_val, t.coo_col), t.coo_row, n_local,
+                           order=t.coo_order)
 
-    m = plan.main
-    out = table(m.coo_row, m.coo_col, m.coo_val, plan.n_rows)
+    out = table(plan.main, plan.n_rows)
     for b in plan.blocks:
-        out = out + table(b.coo_row, b.coo_col, b.coo_val,
-                          b.block_size)[b.mapper]
+        out = out + table(b, b.block_size)[b.mapper]
     return out
 
 
@@ -291,8 +293,8 @@ def _entry_weight_total(plan: DesignPlan, fn):
     m = plan.main
     total = fn(m.coo_val, m.coo_col).sum()
     for b in plan.blocks:
-        per_block_row = b.coo_val.new_zeros(b.block_size).index_add_(
-            0, b.coo_row, fn(b.coo_val, b.coo_col))
+        per_block_row = segment_sum(fn(b.coo_val, b.coo_col), b.coo_row,
+                                    b.block_size, order=b.coo_order)
         total = total + (per_block_row * b.cardinality).sum()
     return total
 
@@ -343,7 +345,7 @@ def _w_step(c: ColorPlan, xe, w, w_var, alpha, lam_col, mu_col, g):
 def _vi_w_color_main(c: ColorPlan, e, w, w_var, alpha, lam_col, mu_col, g):
     xe = seg_sum(c.vals * e[c.rows], c.seg, c.feat.shape[0])
     w, w_var, delta = _w_step(c, xe, w, w_var, alpha, lam_col, mu_col, g)
-    e = e.index_add(0, c.rows, take(delta, c.seg) * c.vals)
+    e = add_at(e, c.rows, take(delta, c.seg) * c.vals, distinct=True)
     return e, w, w_var
 
 
@@ -367,8 +369,8 @@ def _vi_w_block_stack(b: BlockPlan, stack: ColorStack, e, w, w_var, alpha,
         xe = seg_sum(c.vals * e1[c.rows], c.seg, c.feat.shape[0])
         w, w_var, delta = _w_step(c, xe, w, w_var, alpha, lam_col, mu_col,
                                   g)
-        dxb = e.new_zeros(b.block_size).index_add_(
-            0, c.rows, take(delta, c.seg) * c.vals)
+        dxb = segment_sum(take(delta, c.seg) * c.vals, c.rows, b.block_size,
+                          distinct=True)
         e1 = e1 + card * dxb
         acc = acc + dxb
     return e + acc[b.mapper], w, w_var
@@ -434,11 +436,11 @@ def _vi_V_color_main(c: ColorPlan, carry, alpha, lam_col, mu_col, g):
     )
     dseg = take(vn_f - vo_f, c.seg)
     sn = take(sn_f, c.seg)
-    e = e.index_add(0, c.rows, dseg * h)
-    q = q.index_add(0, c.rows, dseg * x)
-    x2s = x2s.index_add(0, c.rows, x2 * (sn - so))
-    x3sv = x3sv.index_add(0, c.rows,
-                          x2 * x * (sn * take(vn_f, c.seg) - so * vo))
+    e = add_at(e, c.rows, dseg * h, distinct=True)
+    q = add_at(q, c.rows, dseg * x, distinct=True)
+    x2s = add_at(x2s, c.rows, x2 * (sn - so), distinct=True)
+    x3sv = add_at(x3sv, c.rows, x2 * x * (sn * take(vn_f, c.seg) - so * vo),
+                  distinct=True)
     return e, q, x2s, x3sv, v, s
 
 
@@ -548,8 +550,8 @@ def _vi_V_block_stack(b: BlockPlan, stack: ColorStack, carry, alpha,
         dyn = torch.stack([ones, vo, so, vo2, so * vo, vo2 * vo])
         terms = (xterm[ci] * dyn[dyn_i] * agg[agg_i[:, None], m]).view(
             2, 10, -1).sum(dim=1)
-        quad_s, lin_s = x.new_zeros(2, Pf + 1).index_add_(
-            1, sg, terms)[:, :Pf]
+        quad_s, lin_s = segment_sum(terms.T, sg, Pf + 1,
+                                    ascending=True)[:Pf].T
         quad = torch.addcmul(lam[ci], alpha, quad_s)
         lin = torch.addcmul(lam_mu[ci], alpha, lin_s)
         vn_f = lin / quad
@@ -557,10 +559,10 @@ def _vi_V_block_stack(b: BlockPlan, stack: ColorStack, carry, alpha,
         vs[:, ft] = torch.stack([vn_f, sn_f])
         dseg, sn, vn = torch.stack([vn_f - old_f[0], sn_f, vn_f])[:, sgc]
         xc, x2c, x3c = xpow[ci, 0], xpow[ci, 1], xpow[ci, 2]
-        u = x.new_zeros(4, B).index_add_(1, m, torch.stack([
+        u = segment_sum(torch.stack([
             dseg * xc, dseg * x2c * vo, x2c * (sn - so),
             x3c * (sn * vn - dyn[4]),
-        ]))  # per block row: a, b2, c2, c3
+        ], dim=1), m, B, distinct=True).T  # per block row: a, b2, c2, c3
         lhs = torch.cat([u, u[sq_i] * u[sq_j]])  # + a², a·b2, a·c2
         agg[:7].add_((A_coef * lhs[l_i] * agg[r_i]).view(7, 5, B).sum(1))
         acc[4].add_(u[0] * acc[0])

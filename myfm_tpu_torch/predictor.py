@@ -13,7 +13,11 @@ chunks of its current ``samples``, each under a ``_LiveKey`` (as the TPU
 package does), so repeated serving calls skip the compile and the
 upload.  The variational weight set is scored on the device with the
 row-space forward.  ``n_workers`` is accepted for API parity and
-ignored.
+ignored.  ``mesh`` (a ``torch.distributed`` process group, or a
+``parallel.collectives.Axis``) splits the rows over the group's ranks:
+each scores its own rows and one all-gather returns the whole
+prediction on every rank (``scores_samples_reduce_sharded``); as in the
+TPU package it needs the entity-space scorer.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from .ops.forward_categorical import (
     compile_categorical_inference,
     oprobit_class_probs,
     scores_samples_reduce,
+    scores_samples_reduce_sharded,
     serving_row_chunk,
 )
 from .relational import RelationBlock
@@ -166,11 +171,13 @@ class Predictor:
         X: Optional[ArrayLike],
         X_rel: Sequence[RelationBlock] = (),
         n_workers: Optional[int] = None,
+        mesh=None,
     ) -> np.ndarray:
         """Posterior-predictive mean (probit-squashed per sample for
-        classification, then averaged)."""
+        classification, then averaged); ``mesh`` splits the rows over a
+        process group's ranks."""
         mode = "probit_sum" if self.task == TASK_CLASSIFICATION else "sum"
-        return self._reduce(X, X_rel, mode, None)
+        return self._reduce(X, X_rel, mode, None, mesh)
 
     def predict_parallel_oprobit(
         self,
@@ -178,18 +185,31 @@ class Predictor:
         X_rel: Sequence[RelationBlock] = (),
         n_workers: Optional[int] = None,
         cutpoint_index: int = 0,
+        mesh=None,
     ) -> np.ndarray:
         """Per-class probabilities [N, K] averaged over the kept samples,
-        each sample's on its cutpoint group ``cutpoint_index``."""
-        return self._reduce(X, X_rel, "oprobit_sum", cutpoint_index)
+        each sample's on its cutpoint group ``cutpoint_index``;
+        ``mesh`` as in ``predict``."""
+        return self._reduce(X, X_rel, "oprobit_sum", cutpoint_index, mesh)
 
-    def _reduce(self, X, X_rel, mode: str, cutpoint_index) -> np.ndarray:
+    def _reduce(self, X, X_rel, mode: str, cutpoint_index,
+                mesh=None) -> np.ndarray:
         """The posterior sum of ``mode`` over every kept sample, on the
         entity-space scorer when the design compiles to its plan and on
         the row-space one otherwise, divided by the sample count."""
         if not self.samples:
             raise RuntimeError("Predictor has no samples.")
         fast, plan = self._plans(X, X_rel)
+        axis = None
+        if mesh is not None:
+            from .parallel.collectives import Axis
+
+            if fast is None:
+                raise ValueError(
+                    "mesh-sharded prediction requires the entity-space "
+                    "fast path; this design fell back to the row-space "
+                    "scorer (one process only).")
+            axis = mesh if isinstance(mesh, Axis) else Axis(mesh)
         total = None
         for part, w0s, ws, vs in self._sample_chunks():
             cps = None
@@ -198,7 +218,12 @@ class Predictor:
                     np.stack([s.cutpoints[cutpoint_index] for s in part]),
                     dtype=ws.dtype, device=self.device,
                 )
-            if fast is not None:
+            if axis is not None:
+                out = scores_samples_reduce_sharded(
+                    fast, w0s, ws, vs, axis, mode=mode, cutpoints=cps,
+                    row_chunk=serving_row_chunk(len(part), self.rank),
+                )
+            elif fast is not None:
                 out = scores_samples_reduce(
                     fast, w0s, ws, vs, mode=mode, cutpoints=cps,
                     row_chunk=serving_row_chunk(len(part), self.rank),

@@ -50,6 +50,7 @@ from .ops.gibbs import (
 )
 from .ops.oprobit import initialize_oprobit_core
 from .ops.special import uniform_open
+from .parallel.collectives import local_rows
 from .predictor import Predictor
 
 
@@ -361,9 +362,13 @@ def run_mcmc_loop(
     generators = (trainer.generator,)
     state = trainer._initialize()
     start_it = 0
+    # a sharded chain's checkpoint holds every rank's rows (checkpoint.py)
+    axis, plan = trainer.cfg.axis, trainer.plan
+    rows = (plan.row_lo, plan.row_lo + plan.n_rows)
     if resume and checkpoint_path and os.path.exists(checkpoint_path):
-        state, start_it = load_checkpoint(checkpoint_path, state,
-                                          generators)
+        state, start_it = load_checkpoint(
+            checkpoint_path, state, generators,
+            rows=None if axis is None else rows)
     predictor = Predictor(
         trainer.rank, trainer.n_features, trainer.cfg.task,
         trainer.dtype, trainer.device,
@@ -408,7 +413,8 @@ def run_mcmc_loop(
             break
         if checkpoint_path and checkpoint_every and (
                 (it + 1) % checkpoint_every == 0):
-            save_checkpoint(checkpoint_path, state, it + 1, generators)
+            save_checkpoint(checkpoint_path, state, it + 1, generators,
+                            axis=axis, n_total=plan.n_real)
     if drain is not None:
         drain.drain()
         history.hypers = [h.materialize() for h in history.hypers]
@@ -491,21 +497,28 @@ def _resolve_joint_tail(cfg: GibbsConfig, plan, rank: int) -> GibbsConfig:
     return cfg
 
 
-def _target(y, cfg: GibbsConfig, dtype, device) -> torch.Tensor:
-    """The chain's target on the device: the encoded integer classes for
-    the ordered task, else y in the chain's dtype (±1 for
-    classification).  Validates the task."""
+def _target(y, cfg: GibbsConfig, dtype, plan) -> torch.Tensor:
+    """The chain's target on the plan's device: the encoded integer
+    classes for the ordered task, else y in the chain's dtype (±1 for
+    classification); a sharded plan's own rows of it.  Validates the
+    task."""
     check_task(cfg)
+    y = np.asarray(y)
+    if plan.n_total is not None:
+        y = y[plan.row_lo : plan.row_lo + plan.n_rows]
     if cfg.task == TASK_ORDERED:
-        return torch.as_tensor(np.asarray(y, dtype=np.int64), device=device)
-    return torch.as_tensor(np.asarray(y).astype(dtype), device=device)
+        return torch.as_tensor(y.astype(np.int64), device=plan.device)
+    return torch.as_tensor(y.astype(dtype), device=plan.device)
 
 
 def _init_uniforms(trainer) -> torch.Tensor:
     """The ordered task's initial latent uniforms, from the chain's
-    generator after the weights' own draws."""
-    return uniform_open((trainer.y.shape[0],), trainer.generator,
-                        trainer._tdtype, trainer.device)
+    generator after the weights' own draws: drawn for the whole design,
+    a sharded plan keeping its own rows."""
+    plan = trainer.plan
+    return local_rows(
+        uniform_open((plan.n_real,), trainer.generator, trainer._tdtype,
+                     trainer.device), plan.row_lo, plan.n_rows)
 
 
 class GibbsTrainer:
@@ -536,7 +549,7 @@ class GibbsTrainer:
         self.dtype = np.dtype(dtype)
         self.device = plan.device
         self._tdtype = torch_dtype(self.dtype)
-        self.y = _target(y, cfg, self.dtype, self.device)
+        self.y = _target(y, cfg, self.dtype, plan)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(random_seed)
 
@@ -618,7 +631,7 @@ class CategoricalGibbsTrainer:
         self.dtype = np.dtype(dtype)
         self.device = plan.device
         self._tdtype = torch_dtype(self.dtype)
-        self.y = _target(y, cfg, self.dtype, self.device)
+        self.y = _target(y, cfg, self.dtype, plan)
         # per-table tile-order copies of y (the regression target; the
         # probit tasks gather their latent τ every sweep instead)
         self.y_tiles = make_y_tiles(plan, self.y.to(self._tdtype))

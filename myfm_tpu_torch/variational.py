@@ -143,6 +143,25 @@ class MyFMVariationalBase(MyFMBase):
 
         fp = design_fingerprint(X, X_rel, config.group_index)
         grouping = np.asarray(config.group_index, dtype=np.int32)
+        if self._sharded:
+            # multi-device CAVI (n_devices=N / mesh=): the fast path
+            # only, as in the TPU package
+            from .parallel.sharding_categorical import (
+                ShardedCategoricalVITrainer,
+            )
+
+            if self.sweep_strategy not in ("auto", "categorical"):
+                raise NotImplementedError(
+                    "Multi-device variational training runs on the "
+                    "categorical fast path; use sweep_strategy='auto' "
+                    "or 'categorical'."
+                )
+            trainer = ShardedCategoricalVITrainer(
+                X, X_rel, y, cfg, rank, init_stdev, random_seed,
+                mesh=self._build_mesh(), grouping=grouping,
+                dtype=self.dtype, device=self._fit_device(), fingerprint=fp,
+            )
+            return trainer.run(config.n_iter, callback)
         cat_plan = None
         if self.sweep_strategy in ("auto", "categorical"):
             cat_plan = compile_vi_fast_plan(X, X_rel, grouping, self.dtype,

@@ -125,9 +125,10 @@ class CategoricalVITrainer:
         self.dtype = np.dtype(dtype)
         self.device = plan.group_index.device
         self._tdtype = torch_dtype(self.dtype)
-        self.y = torch.as_tensor(
-            np.asarray(y).astype(self.dtype), device=self.device
-        )
+        y = np.asarray(y)
+        if plan.n_total is not None:  # a shard: its own rows
+            y = y[plan.row_lo : plan.row_lo + plan.n_rows]
+        self.y = torch.as_tensor(y.astype(self.dtype), device=self.device)
         self.y_tiles = make_y_tiles(plan, self.y)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(random_seed)

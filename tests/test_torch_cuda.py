@@ -1855,3 +1855,115 @@ def test_resume_on_card_is_bit_equal(tmp_path, ordered):
         np.testing.assert_array_equal(a.V, b.V)
         for ca, cb in zip(a.cutpoints, b.cutpoints):
             np.testing.assert_array_equal(ca, cb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n", [((81_000,), 3), ((81_000, 32), 3),
+                                     ((200_000,), 700), ((200_000, 12), 700),
+                                     ((81_000, 8), 40_000)])
+def test_segment_sum_repeats_on_card(shape, n):
+    """ops/segsum on CUDA tensors under heavy contention (81k rows into 3
+    groups, 200k into 700): the same bits on every call, and index_add_'s
+    sums in float64 within float32 rounding."""
+    from myfm_tpu_torch.ops import segsum
+
+    device = _cuda()
+    rng = np.random.RandomState(n)
+    x = torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                        device=device)
+    index = torch.as_tensor(rng.randint(0, n, shape[0]), device=device)
+    first = segsum.segment_sum(x, index, n)
+    for _ in range(5):
+        assert torch.equal(segsum.segment_sum(x, index, n), first)
+    out = torch.ones((n,) + shape[1:], device=device)
+    again = segsum.add_at(out, index, x)
+    for _ in range(3):
+        assert torch.equal(segsum.add_at(out, index, x), again)
+    want = torch.zeros((n,) + shape[1:], dtype=torch.float64).index_add_(
+        0, index.cpu(), x.cpu().double())
+    np.testing.assert_allclose(first.cpu().double().numpy(), want.numpy(),
+                               rtol=1e-4, atol=1e-3)
+
+
+def _default_ops_pair(fit):
+    """Two fits from one seed under default ops; every kept sample and
+    the hyper trace must be the same bits."""
+    assert not torch.are_deterministic_algorithms_enabled()
+    a, b = fit(), fit()
+    assert a.history_.engine == b.history_.engine
+    for x, y in zip(a.predictor_.samples, b.predictor_.samples):
+        assert x.w0 == y.w0
+        np.testing.assert_array_equal(x.w, y.w)
+        np.testing.assert_array_equal(x.V, y.V)
+        for cx, cy in zip(x.cutpoints, y.cutpoints):
+            np.testing.assert_array_equal(cx, cy)
+    for x, y in zip(a.history_.hypers, b.history_.hypers):
+        assert x.alpha == y.alpha
+        np.testing.assert_array_equal(x.mu_w, y.mu_w)
+        np.testing.assert_array_equal(x.lambda_w, y.lambda_w)
+        np.testing.assert_array_equal(x.mu_V, y.mu_V)
+        np.testing.assert_array_equal(x.lambda_V, y.lambda_V)
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine,cls_name", [
+    ("fastpath", "MyFMGibbsRegressor"), ("fastpath", "MyFMOrderedProbit"),
+    ("colored", "MyFMGibbsRegressor"), ("joint", "MyFMGibbsRegressor"),
+    ("joint", "MyFMOrderedProbit")])
+def test_same_seed_fits_repeat_under_default_ops(engine, cls_name):
+    """A chain on the card is a function of its seed and plan: two fits
+    from one seed, default torch ops, give the same bits."""
+    import myfm_tpu_torch
+
+    _cuda()
+    X, blocks, y, grouping = _fit_surface_design(seed=4)
+    if engine != "fastpath":
+        from . import torch_shard_cases as cases
+
+        X, blocks, y, grouping = cases.row_design(n=3000)
+    cls = getattr(myfm_tpu_torch, cls_name)
+    target = (np.digitize(y, np.quantile(y, [0.25, 0.5, 0.75]))
+              if cls_name.endswith("Probit") else y)
+    kw = {} if engine == "fastpath" else dict(sweep_strategy=engine)
+
+    def fit():
+        return cls(rank=8, random_seed=5, device="cuda", **kw).fit(
+            X, target, X_rel=blocks, n_iter=4, n_kept_samples=4,
+            grouping=list(grouping))
+
+    assert _default_ops_pair(fit).history_.engine == engine
+
+
+@pytest.mark.cuda
+def test_world_size_one_nccl_fit_is_the_one_process_fit(tmp_path):
+    """mesh= a one-rank NCCL group on the card: the fast path's chain and
+    the sharded scorer's prediction are the one-process bits."""
+    import torch.distributed as dist
+
+    from myfm_tpu_torch.parallel.collectives import Axis
+
+    _cuda()
+    X, blocks, y, grouping = _fit_surface_design(seed=6)
+
+    def fit(mesh):
+        return MyFMGibbsRegressor(rank=8, random_seed=2, device="cuda:0",
+                                  mesh=mesh).fit(
+            X, y, X_rel=blocks, n_iter=4, n_kept_samples=2,
+            grouping=list(grouping))
+
+    one = fit(None)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda:0"))
+    try:
+        axis = Axis(dist.group.WORLD)
+        sharded = fit(axis)
+        pred = sharded.predictor_.predict(X, blocks, mesh=axis)
+    finally:
+        dist.destroy_process_group()
+    assert sharded.history_.engine == "fastpath"
+    for a, b in zip(one.predictor_.samples, sharded.predictor_.samples):
+        assert a.w0 == b.w0
+        np.testing.assert_array_equal(a.V, b.V)
+    np.testing.assert_array_equal(pred, one.predict(X, blocks))

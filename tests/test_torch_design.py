@@ -36,8 +36,12 @@ def assert_plan_equal(ours, ref, name="plan"):
     elif isinstance(ours, int):
         assert ours == ref, name
     else:
+        # a field of the port's alone (the sharding fields row_lo and
+        # n_total, the CUDA summation orders) must hold its default on a
+        # one-process CPU plan
         for f in dataclasses.fields(ours):
-            assert_plan_equal(getattr(ours, f.name), getattr(ref, f.name),
+            assert_plan_equal(getattr(ours, f.name),
+                              getattr(ref, f.name, f.default),
                               f"{name}.{f.name}")
 
 

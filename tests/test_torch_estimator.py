@@ -143,10 +143,18 @@ def test_categorical_strategy_on_non_onehot_design_raises():
         fm.fit(X.tocsr(), y, n_iter=2, group_shapes=shapes)
 
 
-@pytest.mark.parametrize("kw", [dict(n_devices=2), dict(mesh=object())])
-def test_multi_device_raises(kw):
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        MyFMGibbsRegressor(rank=2, device="cpu", **kw)
+@pytest.mark.parametrize("kw,match", [
+    (dict(n_devices=2), "n_devices=2"),
+    (dict(mesh=object()), "process group")])
+def test_multi_device_raises(kw, match):
+    """Multi-device fits need an initialised torch.distributed group
+    (tests/test_torch_sharded.py runs them); without one the fit raises
+    ValueError, as the TPU package does when too few devices are
+    visible."""
+    X, y, shapes = _onehot_problem(n_rows=100)
+    fm = MyFMGibbsRegressor(rank=2, device="cpu", **kw)
+    with pytest.raises(ValueError, match=match):
+        fm.fit(X, y, n_iter=2, group_shapes=shapes)
 
 
 @pytest.mark.parametrize("preset,kw", [

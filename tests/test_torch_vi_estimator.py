@@ -103,16 +103,27 @@ def test_default_device_is_cuda():
     assert VariationalFMRegressor(rank=2).device == torch.device("cuda")
 
 
-@pytest.mark.parametrize("make", [
-    # the classifier itself fits now (test_torch_vi_classifier.py); like
-    # the regressor it still raises for multiple devices
-    lambda: VariationalFMClassifier(rank=2, n_devices=2, device="cpu"),
-    lambda: VariationalFMRegressor(rank=2, n_devices=2, device="cpu"),
-    lambda: VariationalFMRegressor(rank=2, mesh=object(), device="cpu"),
+@pytest.mark.parametrize("make,match", [
+    # both estimators fit on several devices now
+    # (tests/test_torch_sharded_vi.py); without an initialised
+    # torch.distributed group a multi-device fit raises ValueError
+    (lambda: VariationalFMClassifier(rank=2, n_devices=2, device="cpu"),
+     "n_devices=2"),
+    (lambda: VariationalFMRegressor(rank=2, n_devices=2, device="cpu"),
+     "n_devices=2"),
+    (lambda: VariationalFMRegressor(rank=2, mesh=object(), device="cpu"),
+     "process group"),
 ])
-def test_classifier_and_multi_device_raise(make):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        make()
+def test_classifier_and_multi_device_raise(make, match):
+    rng = np.random.RandomState(0)
+    u, i = rng.randint(0, 8, 60), rng.randint(0, 5, 60)
+    X = sps.hstack([sps.csr_matrix((np.ones(60), (np.arange(60), u)),
+                                   shape=(60, 8)),
+                    sps.csr_matrix((np.ones(60), (np.arange(60), i)),
+                                   shape=(60, 5))], format="csr")
+    with pytest.raises(ValueError, match=match):
+        make().fit(X, (rng.random_sample(60) > 0.5).astype(np.int64),
+                   n_iter=2)
 
 
 @pytest.mark.parametrize("strategy,error", [
