@@ -14,7 +14,7 @@ holds every CUDA kernel of each against its plain PyTorch version:
   blocks of one-hot ids plus N-hot implicit columns), rank 10, 200
   sweeps, which "auto" resolves to the joint engine;
 * variational inference (``VariationalFMRegressor``) on the same ML-100k
-  design at rank 10, 5 sweeps, which "auto" resolves to the fast path
+  design at rank 10, 3 sweeps, which "auto" resolves to the fast path
   with entity+attribute tables (kernel 2 and kernel 1's VI layout), and
   on the ML-10M-shaped design at rank 32, 3 sweeps (kernel 1's VI
   layout); ``VariationalFMClassifier`` (rating >= 4) on the ML-10M-shaped
@@ -104,6 +104,24 @@ Phases, one line each:
             ofit and cfit refit fit's design and must take its plan from
             the cache (their time to first sweep is the refit's)
   cpredict  held-out log-loss below the base rate's; accuracy, AUC
+  lfit      the libFM protocol (examples/ml-10m-regression.py):
+            MyFMGibbsRegressor(rank=32), n_kept_samples=1, with a
+            utils.callbacks.RegressionCallback (clip 1..5, CSV trace)
+            that scores the held-out rows on the card every sweep, 8
+            sweeps on fit's cached plan.  Kernel 1 must launch every
+            sweep, in "split"; the callback's test plan must live on
+            the card; at sweeps 0 and 7 its score must match the host
+            forward FM.predict_score of the same weights (LIBFM_TOL);
+            every trace value finite (rmse_all_but_5 from sweep 5 on);
+            the final rmse below std(y_test); the last rmse_this the
+            RMSE of fm.predict within 1e-4; the CSV a header and 8
+            rows.  Sweeps/s beside fit's, the callback's ms per sweep,
+            the loop's host syncs per sweep
+  lofit     MyFMOrderedProbit(rank=32) with an OrderedProbitCallback, 6
+            sweeps on ofit's plan: every row of the running class
+            probabilities sums to 1 within 1e-6, log-loss finite
+  lcfit     MyFMGibbsClassifier(rank=32) with a ClassificationCallback,
+            6 sweeps on cfit's plan: accuracy and log-loss finite
   ckpt      CategoricalGibbsTrainer on a plan of that design (rank 32,
             regression, default torch ops): 4 sweeps in one go against 2
             checkpointed at 2 and resumed to 4 in a fresh trainer; the
@@ -267,7 +285,9 @@ are kernels 1 and 4 on the entity+attribute fast path (eakernel, eafit).
 The sharded phases' launches of a kernel stand under its entry's
 ``sharded_launches`` (phase -> launches per rank; ``shard1`` also by
 Gram mode under ``sharded_launches_by_mode``); no error or time is
-given for them: the entry's numbers are its one-process path's.
+given for them: the entry's numbers are its one-process path's.  The
+libFM phases' kernel 1 launches (lfit, lofit, lcfit) stand under
+``fused_tile_gram_cross``'s ``callback_launches``, by phase.
 ``joint_tail_pass[lists]`` is the prep kernel, which
 every joint_tail_pass call launches before the chain, timed alone on the
 tail's real operands as the call launches it.  Times are
@@ -306,7 +326,8 @@ N_ITER = 6  # < 200, so "auto" keeps the fast path
 N_KEPT = 3
 DRAIN_ITER = 100  # the timed harvest pair: a chain keeping every sample
 DRAIN_CHECK_ITER = 6  # the ordered pair: > _SNAP_LAG sweeps
-DRAIN_COLORED_ITER = 2  # the colored engine's pair (~10 s a sweep)
+DRAIN_COLORED_ITER = 1  # the colored engine's pair (~10-30 s a sweep;
+# 2 before the libFM phases were added, cut for the run's time)
 DRAIN_JOINT_ITER = 3  # the joint engine's pair
 R128_RANK = 128  # the reference's flagship rank (bench.py _bench_rank128)
 R128_N_ITER = 4  # one warm-up sweep, three timed
@@ -340,6 +361,13 @@ PROBE_REPLACES = "scripts/probe_transpose.py:42"
 EGRAM_TOL = 1e-5
 P_N_ITER = 6  # probit fits on the fast path (< 200: "auto" keeps it)
 JO_N_ITER = 20
+# the libFM callbacks' fits (lfit, lofit / lcfit)
+L_ITER = 8
+LP_ITER = 6
+# the callback's fp32 test score on the card vs the fp64 host forward of
+# the same fp32 weights, |Δ| <= LIBFM_TOL * (1 + |host|): scores ~1-5
+# summed from 3 linear terms and 3 rank-32 pair products
+LIBFM_TOL = 1e-4
 # one ordered-probit sweep, kernel vs plain: as SWEEP_*; the cutpoints'
 # Newton mode moves with the scores (fp32)
 OSWEEP_CUT_TOL = 1e-3
@@ -373,7 +401,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 
 V_RANK = 10
-V_N_ITER = 5  # cut from the cell's 20 for the smoke's time
+V_N_ITER = 3  # cut from the cell's 20 for the smoke's time (5 before
+# the libFM phases were added)
 V10M_RANK = 32
 V10M_N_ITER = 3
 # |kernel − plain| over max|plain| of each VI Gram chunk (the same sums
@@ -2312,6 +2341,192 @@ def rowspace_pairs(torch, train, grouping):
     return line
 
 
+def libfm_phase(torch, phase, est, cb, train, grouping, n_iter,
+                n_kept):
+    """One fit through a libFM callback of ``utils.callbacks`` on the
+    cached ML-10M plan.
+
+    The callback is the one a user passes; the smoke only wraps its
+    ``_measure_score`` (a wait for the compute stream, then the host
+    clock around the callback's own work: the device score, its copy to
+    the host and the metrics) and its ``_score_on_device`` (the host
+    clock around it, the score and its copy apart from the metrics; a
+    device clone of the sweep's weights, and the score, at the first and
+    the last sweep), and reads kernel 1's launch counter at every
+    sweep.
+    The wait is the one the callback's score fetch makes anyway; it
+    leaves the harvest's side stream alone, so the loop's host syncs
+    count as they would without the wrapper.  Returns (fm, info,
+    snapshots): snapshots maps a sweep to (w0, w, V on the card, the
+    callback's score)."""
+    from myfm_tpu_torch.design_cache import get_or_build
+    from myfm_tpu_torch.ops import gram
+    from myfm_tpu_torch.trainer import run_mcmc_loop
+
+    X_tr, b_tr, y_tr = train
+    stamps, cb_s, score_s, per_sweep, snaps = [], [], [], [], {}
+    measure, score_on_device = cb._measure_score, cb._score_on_device
+
+    def timed_measure(i, fm, hyper):
+        per_sweep.append(gram.fused_tile_gram_cross.launches)
+        torch.cuda.current_stream().synchronize()
+        t0 = time.perf_counter()
+        out = measure(i, fm, hyper)
+        t1 = time.perf_counter()
+        cb_s.append(t1 - t0)
+        stamps.append(t1)
+        return out
+
+    def spied_score(fm):
+        t0 = time.perf_counter()
+        score = score_on_device(fm)
+        score_s.append(time.perf_counter() - t0)
+        if len(cb_s) in (0, n_iter - 1):
+            st = fm._state
+            snaps[len(cb_s)] = (st.w0.clone(), st.w.clone(), st.V.clone(),
+                                score)
+        return score
+
+    cb._measure_score, cb._score_on_device = timed_measure, spied_score
+    reset_gram_counts(gram)
+    hits, syncs = get_or_build.hits, run_mcmc_loop.host_syncs
+    torch.cuda.reset_peak_memory_stats()
+    t_fit = time.perf_counter()
+    fm = est(rank=RANK, random_seed=SEED, device="cuda").fit(
+        X_tr, y_tr, X_rel=b_tr, n_iter=n_iter, n_kept_samples=n_kept,
+        grouping=grouping, callback=cb)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t_fit
+    del cb._measure_score, cb._score_on_device
+    launches = gram.fused_tile_gram_cross.launches
+    if get_or_build.hits - hits != 1:
+        fail(f"{phase}: the fit did not take its plan from the cache")
+    if fm.history_.engine != "fastpath":
+        fail(f"{phase}: resolved to {fm.history_.engine!r}")
+    modes = mode_check(phase, fm.history_,
+                       gram.fused_tile_gram_cross.mode_launches["gibbs"],
+                       "split")
+    steps = np.diff([0] + per_sweep)
+    if len(cb.result_trace) != n_iter or (steps <= 0).any():
+        fail(f"{phase}: {len(cb.result_trace)} callback calls of {n_iter}; "
+             f"kernel 1 launches per sweep {steps.tolist()}")
+    plan_device = cb._device_plan.group_index.device
+    if plan_device.type != "cuda":
+        fail(f"{phase}: the callback's test plan lives on {plan_device}")
+    ttfs, rate = fit_rates(stamps, t_fit)
+    info = dict(engine=fm.history_.engine, launches_by_mode=modes,
+                kernel_launches=launches,
+                launches_per_sweep=steps.tolist(), sweeps=n_iter,
+                plan_from_cache=True, test_plan_device=str(plan_device),
+                test_rows=cb.n_test_data, time_to_first_sweep_s=ttfs,
+                sweeps_per_s=rate, fit_s=fit_s,
+                callback_ms=[1e3 * t for t in cb_s],
+                callback_ms_after_first=float(np.median(cb_s[1:])) * 1e3,
+                score_ms=[1e3 * t for t in score_s],
+                host_syncs_per_sweep=(run_mcmc_loop.host_syncs - syncs)
+                / n_iter,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                plan_cache_gib=cache_gib())
+    return fm, info, snaps
+
+
+def libfm_phases(torch, train, test, grouping, fit_rate):
+    """lfit, lofit and lcfit (see the module docstring).  Returns their
+    kernel 1 launches by phase."""
+    import os
+    import tempfile
+
+    from myfm_tpu_torch import (
+        FM,
+        MyFMGibbsClassifier,
+        MyFMGibbsRegressor,
+        MyFMOrderedProbit,
+    )
+    from myfm_tpu_torch.utils.callbacks import (
+        ClassificationCallback,
+        OrderedProbitCallback,
+        RegressionCallback,
+    )
+
+    X_te, b_te, y_te = test
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = os.path.join(tmp, "trace.csv")
+        cb = RegressionCallback(L_ITER, X_te, y_te, X_rel_test=b_te,
+                                clip_min=1, clip_max=5,
+                                trace_path=trace_path)
+        fm, info, snaps = libfm_phase(torch, "lfit", MyFMGibbsRegressor, cb,
+                                      train, grouping, L_ITER, 1)
+        with open(trace_path) as f:
+            lines = f.read().splitlines()
+    errs = {}
+    for it, (w0, w, V, score) in sorted(snaps.items()):
+        host = FM(float(w0), w.cpu().numpy(), V.cpu().numpy()).predict_score(
+            X_te, b_te)
+        err = np.abs(score - host) / (1.0 + np.abs(host))
+        errs[it] = float(err.max())
+        if not err.max() <= LIBFM_TOL:
+            fail(f"lfit: sweep {it}: the callback's device score is "
+                 f"{err.max():.3g} (relative) from the host forward")
+    trace = cb.result_trace
+    bad = [(i, k, v) for i, row in enumerate(trace) for k, v in row.items()
+           if not (np.isnan(v) if k == "rmse_all_but_5" and i < 5
+                   else np.isfinite(v))]
+    pred = fm.predict(X_te, b_te)
+    rmse_pred = float(np.sqrt(np.mean((pred - y_te) ** 2)))
+    std = float(y_te.std())
+    header = ",".join(trace[0])
+    if bad or not trace[-1]["rmse"] < std or not abs(
+            trace[-1]["rmse_this"] - rmse_pred) <= 1e-4 or lines[0] != header \
+            or len(lines) != L_ITER + 1:
+        fail(f"lfit: trace entries out of place {bad}; final rmse "
+             f"{trace[-1]['rmse']} vs std(y_test) {std}; rmse_this "
+             f"{trace[-1]['rmse_this']} vs predict's {rmse_pred}; CSV "
+             f"{len(lines)} lines, header {lines[:1]}")
+    info.update(fit_sweeps_per_s=fit_rate, score_rel_err=errs,
+                rmse=trace[-1]["rmse"], rmse_this=trace[-1]["rmse_this"],
+                rmse_all_but_5=trace[-1]["rmse_all_but_5"],
+                predict_rmse=rmse_pred, std_y_test=std,
+                csv_lines=len(lines))
+    say("lfit", json.dumps(info))
+    launches["lfit"] = info["kernel_launches"]
+    del fm, cb, snaps
+    torch.cuda.empty_cache()
+
+    y_tr = train[2]
+    yo_tr, yo_te = (y_tr - 1).astype(np.int64), (y_te - 1).astype(np.int64)
+    for phase, est, ytr_, cb in (
+        ("lofit", MyFMOrderedProbit, yo_tr, OrderedProbitCallback(
+            LP_ITER, X_te, yo_te, 5, X_rel_test=b_te)),
+        ("lcfit", MyFMGibbsClassifier, (y_tr >= 4).astype(np.int64),
+         ClassificationCallback(LP_ITER, X_te, (y_te >= 4).astype(np.int64),
+                                X_rel_test=b_te)),
+    ):
+        fm, info, _ = libfm_phase(torch, phase, est, cb,
+                                  (train[0], train[1], ytr_), grouping,
+                                  LP_ITER, 1)
+        last = cb.result_trace[-1]
+        checks = dict(log_loss=last["log_loss"], accuracy=last["accuracy"],
+                      log_loss_all_but_5=last["log_loss_all_but_5"],
+                      accuracy_all_but_5=last["accuracy_all_but_5"])
+        if phase == "lofit":
+            mean = cb.predictions / cb.n_samples
+            checks["max_row_sum_err"] = float(
+                np.abs(mean.sum(axis=1) - 1.0).max())
+            if not checks["max_row_sum_err"] <= 1e-6:
+                fail(f"lofit: class probabilities sum to 1 only within "
+                     f"{checks['max_row_sum_err']}")
+            checks["rmse"] = last["rmse"]
+        if not all(np.isfinite(v) for v in checks.values()):
+            fail(f"{phase}: {checks}")
+        info.update(checks)
+        say(phase, json.dumps(info))
+        launches[phase] = info["kernel_launches"]
+        del fm, cb
+        torch.cuda.empty_cache()
+    return launches
+
+
 def run_phase(phase, fn):
     """fn() of a phase of ``myfm_tpu_torch.tools.sharded``; its failure
     fails the run."""
@@ -2526,6 +2741,12 @@ def main():
             ytr_, n_class)))
         del pfm
         torch.cuda.empty_cache()
+
+    # ---- the libFM protocol: a callback scores the held-out rows ----
+    libfm_launches = libfm_phases(torch, (X_tr, blocks_tr, y_tr),
+                                  (X_te, blocks_te, y_te), grouping,
+                                  sweeps_per_s)
+    say("lcfit", f"so far {time.perf_counter() - t_start:.1f} s")
 
     # ---- the fit's surface: resume, and the harvest on the cached plan
     say("ckpt", json.dumps(ckpt_phase(torch, (X_tr, blocks_tr, y_tr),
@@ -2911,7 +3132,8 @@ def main():
                    launches, krows, "split", fit_modes,
                    {"shard1": [s1["kernel_launches"]["gram_gibbs"]]}),
              sharded_launches_by_mode={
-                 "shard1": [s1["gram_launches_by_mode"]]}),
+                 "shard1": [s1["gram_launches_by_mode"]]},
+             callback_launches=libfm_launches),
         entry("fused_tile_gram_cross[vi]", GRAM_SOURCE, GRAM_REPLACES, v_vi,
               vi_rows, "split", v_modes["vi"], s2_launches("vi", "gram_vi")),
         entry("fused_tile_gram", GRAM_SOURCE, META_REPLACES, v_meta,

@@ -26,7 +26,11 @@ _PRESETS = {
 
 
 class SyntheticMovieLensManager:
-    """Synthetic ratings at the MovieLens scales, as numpy arrays."""
+    """Synthetic ratings at the MovieLens scales, as numpy arrays.
+
+    Unlike the TPU package's manager, which returns pandas DataFrames
+    like the MovieLens managers, this one returns dicts of numpy
+    columns: the card's machine has no pandas."""
 
     def __init__(
         self,

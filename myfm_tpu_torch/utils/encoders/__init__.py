@@ -1,8 +1,15 @@
-"""Sparse feature encoders (numpy only): the subset of
-``myfm_tpu/utils/encoders`` that
-``utils/ml_features.py`` needs."""
+"""Sparse feature encoders, numpy only (counterpart of
+``myfm_tpu/utils/encoders``)."""
 
-from .base import SparseEncoderBase
+from .base import DataFrameEncoder, SparseEncoderBase
+from .binning import BinningEncoder
 from .categorical import CategoryValueToSparseEncoder
+from .multi_value import MultipleValuesToSparseEncoder
 
-__all__ = ["SparseEncoderBase", "CategoryValueToSparseEncoder"]
+__all__ = [
+    "SparseEncoderBase",
+    "DataFrameEncoder",
+    "CategoryValueToSparseEncoder",
+    "MultipleValuesToSparseEncoder",
+    "BinningEncoder",
+]

@@ -3,30 +3,46 @@
 Counterpart of ``myfm_tpu/utils/encoders/categorical.py``
 ``CategoryValueToSparseEncoder``: the vocabulary is the sorted set of
 values seen at least ``min_freq`` times, and with
-``handle_unknown="create"`` column 0 is ``__UNK__``.  The mapping is a
-binary search over the sorted vocabulary instead of a pandas map, so
-the values must be mutually orderable (numbers, or strings).
+``handle_unknown="create"`` column 0 is ``__UNK__``.  ``to_sparse`` maps
+a whole column by binary search over the sorted vocabulary instead of a
+pandas map, so the values must be mutually orderable (numbers, strings
+or dates); ``_get_index`` maps one value through a dict, the contract
+``multi_value.py`` builds on.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List
+from typing import Dict, Generic, Iterable, List, Optional, TypeVar, Union
 
 import numpy as np
 import scipy.sparse as sps
 
 from .base import SparseEncoderBase
 
+T = TypeVar("T")
 
-class CategoryValueToSparseEncoder(SparseEncoderBase):
+
+class CategoryValueToSparseEncoder(Generic[T], SparseEncoderBase):
     """One-hot encode a list of items into a CSR matrix.
 
-    ``handle_unknown``: "create" maps unseen values to the ``__UNK__``
-    column 0; "ignore" leaves their row empty; "raise" raises KeyError.
+    Parameters
+    ----------
+    items:
+        Training items from which the vocabulary is built.
+    min_freq:
+        Minimum frequency for an item to enter the vocabulary (default 1).
+    handle_unknown:
+        "create" → unseen values map to a dedicated ``__UNK__`` column at
+        index 0; "ignore" → unseen values produce an all-zero row part;
+        "raise" → a KeyError.
     """
 
-    def __init__(self, items: Iterable, min_freq: int = 1,
-                 handle_unknown: str = "create"):
+    def __init__(
+        self,
+        items: Iterable[T],
+        min_freq: int = 1,
+        handle_unknown: str = "create",
+    ):
         if handle_unknown not in ("create", "ignore", "raise"):
             raise ValueError(
                 "handle_unknown must be one of create/ignore/raise."
@@ -35,33 +51,46 @@ class CategoryValueToSparseEncoder(SparseEncoderBase):
                                  return_counts=True)
         self.vocab = vals[counts >= min_freq]
         self.handle_unknown = handle_unknown
-        self._offset = 1 if handle_unknown == "create" else 0
-        self.values: List = (["__UNK__"] if self._offset else []) + list(
-            self.vocab.tolist()
+        self._item_index_offset = 1 if handle_unknown == "create" else 0
+        vocab: List[T] = self.vocab.tolist()
+        self._dict: Dict[T, int] = {
+            item: i + self._item_index_offset for i, item in enumerate(vocab)
+        }
+        self.values: List[Union[str, T]] = (
+            ["__UNK__"] if handle_unknown == "create" else []
         )
+        self.values.extend(vocab)
 
-    def _lookup(self, items) -> np.ndarray:
-        """Column of each item, −1 for values outside the vocabulary."""
-        x = np.asarray(items)
-        if self.vocab.size == 0 or x.size == 0:
-            return np.full(x.shape, -1, dtype=np.int64)
-        pos = np.searchsorted(self.vocab, x)
-        pos_c = np.minimum(pos, self.vocab.size - 1)
-        found = self.vocab[pos_c] == x
-        return np.where(found, pos_c + self._offset, -1).astype(np.int64)
-
-    def __getitem__(self, x) -> int:
-        idx = int(self._lookup([x])[0])
-        if idx < 0:
+    def _get_index(self, x: T) -> Optional[int]:
+        idx = self._dict.get(x)
+        if idx is None:
             if self.handle_unknown == "create":
                 return 0
+            if self.handle_unknown == "ignore":
+                return None
             raise KeyError(f"{x} not found.")
         return idx
+
+    def __getitem__(self, x: T) -> int:
+        result = self._get_index(x)
+        if result is None:
+            raise KeyError(f"{x} not found.")
+        return result
+
+    def _lookup(self, items: np.ndarray) -> np.ndarray:
+        """Column of each item, −1 for values outside the vocabulary."""
+        if self.vocab.size == 0 or items.size == 0:
+            return np.full(items.shape, -1, dtype=np.int64)
+        pos = np.searchsorted(self.vocab, items)
+        pos_c = np.minimum(pos, self.vocab.size - 1)
+        found = self.vocab[pos_c] == items
+        return np.where(
+            found, pos_c + self._item_index_offset, -1).astype(np.int64)
 
     def names(self) -> List[str]:
         return [str(v) for v in self.values]
 
-    def to_sparse(self, items: Iterable) -> sps.csr_matrix:
+    def to_sparse(self, items: Iterable[T]) -> sps.csr_matrix:
         items = np.asarray(list(items))
         cols = self._lookup(items)
         missing = cols < 0
@@ -77,4 +106,4 @@ class CategoryValueToSparseEncoder(SparseEncoderBase):
         )
 
     def __len__(self) -> int:
-        return int(self.vocab.size) + self._offset
+        return len(self._dict) + self._item_index_offset

@@ -46,6 +46,23 @@ def test_import_leaves_jax_and_pandas_out():
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO)
 
 
+def test_utils_import_leaves_jax_and_pandas_out():
+    """The utilities import pandas only when a loader or
+    ``gen_dummy_rating_df`` runs: the card's machine has none."""
+    code = (
+        "import sys, myfm_tpu_torch.utils, myfm_tpu_torch.utils.callbacks, "
+        "myfm_tpu_torch.utils.encoders, "
+        "myfm_tpu_torch.utils.benchmark_data, "
+        "myfm_tpu_torch.utils.dummy_data\n"
+        "from myfm_tpu_torch.utils.dummy_data import gen_dummy_X\n"
+        "gen_dummy_X(0)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
+        "('jax.', 'myfm_tpu.', 'pandas')) or m == 'myfm_tpu']\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO)
+
+
 def _onehot_problem(n_rows=600, n_u=40, n_i=25, seed=0):
     rng = np.random.RandomState(seed)
     u = rng.randint(0, n_u, n_rows)
