@@ -2058,11 +2058,12 @@ def plan_phase(torch, X, blocks, grouping):
     card from the entity ids and the counts-only metadata (the default
     on CUDA).  Every tensor of every table must be bit-equal.  Returns
     the card plan and the phase line: each build's seconds and windows
-    (``compile_categorical_table``'s timings, summed over the tables;
-    "other" is the rest of the build: mappings, cross-table maps), and
-    the fingerprint's seconds."""
+    (``compile_categorical_table``'s ``myfm.plan.*`` spans, summed over
+    the tables; "other" is the rest of the build: mappings, cross-table
+    maps), and the fingerprint's seconds."""
     import dataclasses
 
+    from myfm_tpu_torch import tracing
     from myfm_tpu_torch._native import build as build_planner
     from myfm_tpu_torch.design_cache import design_fingerprint
     from myfm_tpu_torch.design_categorical import try_compile_categorical
@@ -2076,17 +2077,19 @@ def plan_phase(torch, X, blocks, grouping):
     line = dict(native_build_s=t_native, fingerprint_s=t_fp)
     plans = {}
     for name, on_card in (("host", False), ("card", True)):
-        windows = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        plan = try_compile_categorical(
-            X, blocks, np.asarray(grouping, np.int32), None, np.float32,
-            "cuda", rank=RANK, derive_src_on_device=on_card,
-            timings=windows)
+        with tracing.recording() as rec:
+            plan = try_compile_categorical(
+                X, blocks, np.asarray(grouping, np.int32), None,
+                np.float32, "cuda", rank=RANK,
+                derive_src_on_device=on_card)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
         if plan is None:
             fail("plan: the design did not compile to the fast path")
+        windows = {name.rsplit(".", 1)[1]: row["total_ms"] / 1e3
+                   for name, row in rec.summary().items()}
         windows["other"] = total - sum(windows.values())
         line[name] = dict(s=total, windows=windows)
         plans[name] = plan

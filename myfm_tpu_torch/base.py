@@ -49,6 +49,7 @@ except Exception:  # pragma: no cover
 
 from .containers import FM, FMHyperParameters, LearningHistory
 from .relational import RelationBlock
+from .tracing import span
 
 REAL = np.float64
 
@@ -444,16 +445,17 @@ class MyFMBase(ABC):
                 getattr(callback, "allow_async_trace", False)
             )
 
-            self.predictor_, self.history_ = self._train_core(
-                self.rank,
-                self.init_stdev,
-                X,
-                X_rel,
-                self._process_y(y),
-                self.random_seed,
-                builder,
-                on_iteration,
-            )
+            with span("myfm.fit"):
+                self.predictor_, self.history_ = self._train_core(
+                    self.rank,
+                    self.init_stdev,
+                    X,
+                    X_rel,
+                    self._process_y(y),
+                    self.random_seed,
+                    builder,
+                    on_iteration,
+                )
 
     def _fetch_predictor(self):
         if self.predictor_ is None:

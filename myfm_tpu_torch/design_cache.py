@@ -35,6 +35,8 @@ import numpy as np
 import torch
 from scipy import sparse as sps
 
+from .tracing import span
+
 _CAPACITY = 4
 _CACHE: "OrderedDict[tuple, object]" = OrderedDict()
 
@@ -85,7 +87,8 @@ def get_or_build(
         _CACHE.move_to_end(key)
         get_or_build.hits += 1
         return _CACHE[key]
-    plan = build()
+    with span("myfm.plan.build"):
+        plan = build()
     if plan is not None:
         _CACHE[key] = plan
         while len(_CACHE) > _CAPACITY:

@@ -35,12 +35,13 @@ paths (ops/categorical.py, ops/categorical_vi.py) run such plans.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from scipy import sparse as sps
+
+from .tracing import span
 
 # The CUDA Gram kernel stages one tile's z rows [T, D] in shared memory;
 # this bound keeps that stage within the 48 KiB a block gets without an
@@ -733,25 +734,6 @@ def _upload_ids(a: np.ndarray, max_id: int, device) -> torch.Tensor:
         torch.int32)
 
 
-def _window_clock(timings: Optional[dict], device):
-    """A mark(name) that adds the seconds since the last mark to
-    ``timings[name]`` (after a synchronize on a CUDA device, so device
-    work lands in its own window); a no-op without ``timings``."""
-    if timings is None:
-        return lambda name: None
-    sync = torch.device(device).type == "cuda"
-    last = [time.perf_counter()]
-
-    def mark(name):
-        if sync:
-            torch.cuda.synchronize(device)
-        now = time.perf_counter()
-        timings[name] = timings.get(name, 0.0) + now - last[0]
-        last[0] = now
-
-    return mark
-
-
 def compile_categorical_table(
     ent: np.ndarray,
     n_entities: int,
@@ -764,7 +746,6 @@ def compile_categorical_table(
     fixed_ts: Optional[Tuple[int, int]] = None,
     gate_rank: Optional[int] = None,
     derive_src_on_device: Optional[bool] = None,
-    timings: Optional[dict] = None,
     rows: Optional[Tuple[int, int]] = None,
 ) -> Optional[CategoricalTable]:
     """Pack one table and put its layout on ``device``.
@@ -781,107 +762,110 @@ def compile_categorical_table(
     ``derive_src_on_device`` (default: True on a CUDA device) derives
     the src / slot layouts on the device from the uploaded entity ids
     and the counts-only metadata; False packs them on the host with the
-    native planner and uploads them.  ``timings`` (a dict) collects the
-    seconds of the windows "counts" (cardinalities and tiling), "pack"
-    (``_plan_tiles`` or the host pack), "upload", "derive" and
-    "finalize".
+    native planner and uploads them.  The build's windows are the spans
+    ``myfm.plan.counts`` (cardinalities and tiling), ``.pack``
+    (``_plan_tiles`` or the host pack), ``.upload``, ``.derive`` and
+    ``.finalize`` (tracing.py); while recording, each ends with a
+    synchronize, so that its device work lands in it.
 
     ``rows = (lo, hi)`` packs rows [lo, hi) alone, a shard of a sharded
     plan: the tiling is chosen and gated from the whole table's counts,
     so every shard takes the (T, S) one process takes and accepts the
     table exactly where one process does."""
-    mark = _window_clock(timings, device)
     device = torch.device(device)
-    ent = np.asarray(ent, dtype=np.int64)
-    real = ent < n_entities
-    counts = np.bincount(ent[real], minlength=n_entities)
-    if fixed_ts is not None:
-        T, S = fixed_ts
-    else:
-        itemsize = np.dtype(dtype).itemsize
-        T, S, inflation = choose_tiling(counts, rank, itemsize)
-        if max_inflation is not None:
-            gate = rank if gate_rank is None else gate_rank
-            if reference_tiling(counts, gate)[2] > max_inflation:
-                return None
-            if inflation > max_inflation:
-                T, S, _ = least_inflating_tiling(counts, rank, itemsize)
-    if rows is not None:
-        lo, hi = rows
-        ent, n_rows = ent[lo:hi], hi - lo
+    with span("myfm.plan.counts", sync=device):
+        ent = np.asarray(ent, dtype=np.int64)
         real = ent < n_entities
         counts = np.bincount(ent[real], minlength=n_entities)
-    mark("counts")
+        if fixed_ts is not None:
+            T, S = fixed_ts
+        else:
+            itemsize = np.dtype(dtype).itemsize
+            T, S, inflation = choose_tiling(counts, rank, itemsize)
+            if max_inflation is not None:
+                gate = rank if gate_rank is None else gate_rank
+                if reference_tiling(counts, gate)[2] > max_inflation:
+                    return None
+                if inflation > max_inflation:
+                    T, S, _ = least_inflating_tiling(counts, rank, itemsize)
+        if rows is not None:
+            lo, hi = rows
+            ent, n_rows = ent[lo:hi], hi - lo
+            real = ent < n_entities
+            counts = np.bincount(ent[real], minlength=n_entities)
     if derive_src_on_device is None:
         derive_src_on_device = device.type == "cuda"
-    if derive_src_on_device:
-        seg_starts, seg_shift, seg_slot, meta = _plan_tiles(counts, T, S)
-        (K, cont_in, cont_out, last_slot, ent_slots, final_part) = meta
-        nt = K * T
-    else:
-        from ._native import pack_tiles_native
+    with span("myfm.plan.pack", sync=device):
+        if derive_src_on_device:
+            seg_starts, seg_shift, seg_slot, meta = _plan_tiles(counts, T, S)
+            (K, cont_in, cont_out, last_slot, ent_slots, final_part) = meta
+            nt = K * T
+        else:
+            from ._native import pack_tiles_native
 
-        order = np.nonzero(real)[0][np.argsort(ent[real], kind="stable")]
-        (src, slot, _, cont_in, cont_out, last_slot, ent_slots,
-         final_part) = pack_tiles_native(order, counts, ent.shape[0], T, S)
-        nt = src.shape[0]
-        K = nt // T
-    mark("pack")
+            order = np.nonzero(real)[0][np.argsort(ent[real], kind="stable")]
+            (src, slot, _, cont_in, cont_out, last_slot, ent_slots,
+             final_part) = pack_tiles_native(order, counts, ent.shape[0], T,
+                                             S)
+            nt = src.shape[0]
+            K = nt // T
 
     def up(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
-    ent_main = _upload_ids(ent, n_entities, device)
-    if derive_src_on_device:
-        seg = [up(a) for a in (seg_starts, seg_shift, seg_slot)]
-    else:
-        src_d = up(src)
-        slot_d = _upload_ids(slot, S, device)
-    mark("upload")
-    if derive_src_on_device:
-        src_d, slot_d = _derive_src_slot_device(ent_main, *seg, nt, n_rows)
-    ent_pad = torch.cat([ent_main, ent_main.new_full((1,), n_entities)])
-    ent_tile = ent_pad[torch.clamp(src_d, max=n_rows).long()]
-    slot_f = torch.where(src_d < n_rows, slot_d, S).to(torch_dtype(dtype))
-    mark("derive")
+    with span("myfm.plan.upload", sync=device):
+        ent_main = _upload_ids(ent, n_entities, device)
+        if derive_src_on_device:
+            seg = [up(a) for a in (seg_starts, seg_shift, seg_slot)]
+        else:
+            src_d = up(src)
+            slot_d = _upload_ids(slot, S, device)
+    with span("myfm.plan.derive", sync=device):
+        if derive_src_on_device:
+            src_d, slot_d = _derive_src_slot_device(ent_main, *seg, nt,
+                                                    n_rows)
+        ent_pad = torch.cat([ent_main, ent_main.new_full((1,), n_entities)])
+        ent_tile = ent_pad[torch.clamp(src_d, max=n_rows).long()]
+        slot_f = torch.where(src_d < n_rows, slot_d, S).to(torch_dtype(dtype))
     D = rank + 2
-    chunk_tiles = max(
-        1,
-        min(
-            K,
-            CHUNK_ROWS // T,
-            CHUNK_FLAT_BYTES // max(S * D * D * 4, 1),
-        ),
-    )
-    fin_win, fin_idx, fin_mask, max_fin = _finalize_windows(
-        np.asarray(final_part, dtype=np.int64), counts, K, S,
-        chunk_tiles,
-    )
-    table = CategoricalTable(
-        src=src_d,
-        slot=slot_d,
-        slot_f=slot_f,
-        ent_of_tile_row=ent_tile,
-        cont_in=up(cont_in),
-        cont_out=up(cont_out),
-        last_slot=up(last_slot),
-        ent_slots=up(ent_slots),
-        final_part=up(final_part),
-        fin_win=fin_win,
-        fin_idx=up(fin_idx),
-        fin_mask=up(fin_mask),
-        cardinality=up(counts.astype(dtype)),
-        ent_main=ent_main,
-        noise_feat=up(col_offset + np.arange(n_entities, dtype=np.int64)),
-        col_offset=col_offset,
-        n_cols=n_entities,
-        n_tiles=K,
-        tile_rows=T,
-        tile_entities=S,
-        chunk_tiles=chunk_tiles,
-        max_fin=max_fin,
-    )
-    mark("finalize")
+    with span("myfm.plan.finalize", sync=device):
+        chunk_tiles = max(
+            1,
+            min(
+                K,
+                CHUNK_ROWS // T,
+                CHUNK_FLAT_BYTES // max(S * D * D * 4, 1),
+            ),
+        )
+        fin_win, fin_idx, fin_mask, max_fin = _finalize_windows(
+            np.asarray(final_part, dtype=np.int64), counts, K, S,
+            chunk_tiles,
+        )
+        table = CategoricalTable(
+            src=src_d,
+            slot=slot_d,
+            slot_f=slot_f,
+            ent_of_tile_row=ent_tile,
+            cont_in=up(cont_in),
+            cont_out=up(cont_out),
+            last_slot=up(last_slot),
+            ent_slots=up(ent_slots),
+            final_part=up(final_part),
+            fin_win=fin_win,
+            fin_idx=up(fin_idx),
+            fin_mask=up(fin_mask),
+            cardinality=up(counts.astype(dtype)),
+            ent_main=ent_main,
+            noise_feat=up(col_offset + np.arange(n_entities,
+                                                 dtype=np.int64)),
+            col_offset=col_offset,
+            n_cols=n_entities,
+            n_tiles=K,
+            tile_rows=T,
+            tile_entities=S,
+            chunk_tiles=chunk_tiles,
+            max_fin=max_fin,
+        )
     return table
 
 
@@ -1008,7 +992,6 @@ def try_compile_categorical(
     fixed_ts: Optional[Tuple[int, int]] = None,
     gate_rank: Optional[int] = None,
     derive_src_on_device: Optional[bool] = None,
-    timings: Optional[dict] = None,
     rows: Optional[Tuple[int, int]] = None,
 ) -> Optional[CategoricalPlan]:
     """Compile the fast-path plan onto ``device``, or None if any table
@@ -1019,7 +1002,7 @@ def try_compile_categorical(
     factor rank on the Gibbs path, 3R on the VI path); ``gate_rank``
     (default ``rank``) the width the TPU package gates at (4R for its
     entity+attribute VI plans).  ``fixed_ts`` pins every table's
-    (T, S).  ``derive_src_on_device``, ``timings`` and ``rows`` (the
+    (T, S).  ``derive_src_on_device`` and ``rows`` (the
     shard [lo, hi) of a sharded plan, which then records ``row_lo`` and
     the whole design's ``n_total``) are passed to every
     ``compile_categorical_table``."""
@@ -1051,7 +1034,7 @@ def try_compile_categorical(
             ent, B, off, n_total or n_rows, dtype, device, rank=rank,
             max_inflation=max_inflation, fixed_ts=fixed_ts,
             gate_rank=gate_rank, derive_src_on_device=derive_src_on_device,
-            timings=timings, rows=rows,
+            rows=rows,
         )
         if tab is None:
             return None
@@ -1066,7 +1049,7 @@ def try_compile_categorical(
             rank=rank,
             max_inflation=max_inflation, fixed_ts=fixed_ts,
             gate_rank=gate_rank, derive_src_on_device=derive_src_on_device,
-            timings=timings, rows=rows,
+            rows=rows,
         )
         if tab is None:
             return None

@@ -33,6 +33,7 @@ from .base import (
 from .containers import FM, FMHyperParameters, LearningHistory
 from .ops.gibbs import GibbsConfig
 from .relational import RelationBlock
+from .tracing import span
 
 
 def _encode_ordered_targets(cutpoint_groups, y: np.ndarray):
@@ -157,7 +158,8 @@ class MyFMGibbsBase(MyFMBase):
 
         # repeated fits on one design (sweeps, protocols, reruns) reuse
         # the compiled plan through the content-addressed cache
-        fp = design_fingerprint(X, X_rel, config.group_index)
+        with span("myfm.plan.fingerprint"):
+            fp = design_fingerprint(X, X_rel, config.group_index)
         if self._sharded:
             return self._train_core_sharded(
                 rank, init_stdev, X, X_rel, y, random_seed, config,

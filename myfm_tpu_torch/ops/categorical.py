@@ -45,6 +45,7 @@ import torch
 
 from ..design_categorical import CategoricalPlan, CategoricalTable
 from ..parallel.collectives import psum, psum_many
+from ..tracing import span
 from .gibbs import (
     GibbsConfig,
     GibbsState,
@@ -281,13 +282,15 @@ def table_gram_operands(
     tau = tau_tile.view(K, T)
     for k0 in range(0, K, t.chunk_tiles):
         k1 = min(K, k0 + t.chunk_tiles)
-        # the OTHER tables' gathered [w | V | qs] rows feed the kernel
-        # as they are; it sums their lin / Q / qs contributions itself
-        gths = [
-            src[m[k0 * T : k1 * T]].view(k1 - k0, T, D)
-            for src, m in others
-        ]
-        aux2 = torch.stack([slot_f[k0:k1], tau[k0:k1]], dim=1)
+        with span("myfm.sweep.gather"):
+            # the OTHER tables' gathered [w | V | qs] rows feed the
+            # kernel as they are; it sums their lin / Q / qs
+            # contributions itself
+            gths = [
+                src[m[k0 * T : k1 * T]].view(k1 - k0, T, D)
+                for src, m in others
+            ]
+            aux2 = torch.stack([slot_f[k0:k1], tau[k0:k1]], dim=1)
         yield (aux2, gths, wvsl[k0:k1], t.cont_in[k0:k1],
                t.cont_out[k0:k1], t.last_slot[k0:k1])
 
@@ -321,17 +324,19 @@ def _build_table_gram(
     carry = V.new_zeros(D, D)
     chunks = table_gram_operands(plan, ti, w, V, eff, own_rows, tau_tile)
     for c, (aux2, gths, wvsl, ci, co, ls) in enumerate(chunks):
-        flat, carry = gram(aux2, gths, wvsl, ci, co, ls, S, carry,
-                           fast_matmul=fast_matmul)
+        with span("myfm.sweep.kernel1"):
+            flat, carry = gram(aux2, gths, wvsl, ci, co, ls, S, carry,
+                               fast_matmul=fast_matmul)
         # consume this chunk's finalized entities into G over their
         # contiguous id window; the full [K*S, D, D] partial array
         # never exists
-        vals = flat[t.fin_idx[c]]  # [max_fin, D, D]
-        win = int(t.fin_win[c])
-        msk = (t.fin_mask[c] > 0)[:, None, None]
-        G[win : win + max_fin] = torch.where(
-            msk, vals, G[win : win + max_fin]
-        )
+        with span("myfm.sweep.finalize"):
+            vals = flat[t.fin_idx[c]]  # [max_fin, D, D]
+            win = int(t.fin_win[c])
+            msk = (t.fin_mask[c] > 0)[:, None, None]
+            G[win : win + max_fin] = torch.where(
+                msk, vals, G[win : win + max_fin]
+            )
     return G
 
 
@@ -384,11 +389,13 @@ def _table_pass(
         # an all-reduce of the [B, D, D] Gram
         Bw = B // axis.size
         win = slice(axis.index * Bw, (axis.index + 1) * Bw)
-        w_win, V_win, parts = _entity_draws(
-            axis.psum_scatter(G), w0, w_t[win], V_t[win], g_t[win], alpha,
-            lambda_w, mu_w, lambda_V, mu_V, nw_t[win], nV_t[win], cfg,
-            want_moments,
-        )
+        G_win = axis.psum_scatter(G)
+        with span("myfm.sweep.draws"):
+            w_win, V_win, parts = _entity_draws(
+                G_win, w0, w_t[win], V_t[win], g_t[win], alpha, lambda_w,
+                mu_w, lambda_V, mu_V, nw_t[win], nV_t[win], cfg,
+                want_moments,
+            )
         wv = axis.all_gather(torch.cat([w_win[:, None], V_win], dim=1))
         w_new, V_new = wv[:, 0], wv[:, 1:]
         if want_moments:
@@ -396,10 +403,12 @@ def _table_pass(
     else:
         # the rank's partial Grams sum to the whole design's; the draws
         # below are then the same on every rank
-        w_new, V_new, parts = _entity_draws(
-            psum(G, axis), w0, w_t, V_t, g_t, alpha, lambda_w, mu_w,
-            lambda_V, mu_V, nw_t, nV_t, cfg, want_moments,
-        )
+        G = psum(G, axis)
+        with span("myfm.sweep.draws"):
+            w_new, V_new, parts = _entity_draws(
+                G, w0, w_t, V_t, g_t, alpha, lambda_w, mu_w, lambda_V,
+                mu_V, nw_t, nV_t, cfg, want_moments,
+            )
     w = w.clone()
     V = V.clone()
     w[off : off + B] = w_new
@@ -607,8 +616,9 @@ def _ea_table_pass(
     ops = ea_scan_operands(si, w, V, lambda_w, mu_w, lambda_V, mu_V,
                            group_index, noise_w, noise_V)
     alpha_t = torch.as_tensor(alpha, dtype=V.dtype, device=V.device)
-    Gf, u_all = ea_color_scan(Gf, si.stack_xw, si.stack_segb, *ops,
-                              alpha_t, D, kernel=scan_kernel)
+    with span("myfm.sweep.draws"):
+        Gf, u_all = ea_color_scan(Gf, si.stack_xw, si.stack_segb, *ops,
+                                  alpha_t, D, kernel=scan_kernel)
     U = _scatter_rows(torch.cat([w[:, None], V], dim=1),
                       si.stack_feat.reshape(-1), u_all.reshape(-1, rank + 1))
     moments = None
@@ -665,8 +675,9 @@ def categorical_sweep(
     core = state.core
     v = variates
 
-    alpha, w0, lambda_w, mu_w, lambda_V, mu_V = sweep_hypers(
-        plan, state, v, cfg)
+    with span("myfm.sweep.hypers"):
+        alpha, w0, lambda_w, mu_w, lambda_V, mu_V = sweep_hypers(
+            plan, state, v, cfg)
     gi = plan.group_index
     tau_tiles = (y_tiles if cfg.task == TASK_REGRESSION
                  else make_y_tiles(plan, state.tau))
@@ -675,19 +686,22 @@ def categorical_sweep(
     n_tables = len(plan.tables)
     moments = None
     regression = cfg.task == TASK_REGRESSION
-    eff = eff_tables(plan, w, V)
+    with span("myfm.sweep.eff"):
+        eff = eff_tables(plan, w, V)
     for ti in range(n_tables):
         last = ti == n_tables - 1
         args = (plan, ti, w, V, w0, alpha, lambda_w, mu_w, lambda_V, mu_V,
                 gi, v.noise_w, v.noise_V, tau_tiles[ti], cfg, plain)
         if plan.side[ti] is None:
-            w, V, moments = _table_pass(
-                *args, want_moments=regression and last, eff=eff)
+            with span("myfm.sweep.table"):
+                w, V, moments = _table_pass(
+                    *args, want_moments=regression and last, eff=eff)
             continue
-        w, V, moments = _ea_table_pass(
-            *args, want_moments=regression and last, eff=eff,
-            scan_kernel=bool(cfg.joint_tail_kernel),
-        )
+        with span("myfm.sweep.table"):
+            w, V, moments = _ea_table_pass(
+                *args, want_moments=regression and last, eff=eff,
+                scan_kernel=bool(cfg.joint_tail_kernel),
+            )
         if not last:
             # this table's effective rows for the passes still to come
             eff = list(eff)

@@ -52,6 +52,7 @@ from .ops.oprobit import initialize_oprobit_core
 from .ops.special import uniform_open
 from .parallel.collectives import local_rows
 from .predictor import Predictor
+from .tracing import span
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -189,12 +190,13 @@ class _HostCopy:
         """The host arrays, once their copies are done (a copy still in
         flight counts as one of the loop's host syncs)."""
         if self._event is not None:
-            if not self._event.query():
-                _count_sync()
-                self._event.synchronize()
-            self._event = None
-            _HostCopy.pinned_bytes -= sum(h.nbytes for h in self._host)
-            self._host = tuple(h.numpy().copy() for h in self._host)
+            with span("myfm.loop.drain"):
+                if not self._event.query():
+                    _count_sync()
+                    self._event.synchronize()
+                self._event = None
+                _HostCopy.pinned_bytes -= sum(h.nbytes for h in self._host)
+                self._host = tuple(h.numpy().copy() for h in self._host)
         return self._host
 
 
@@ -307,7 +309,8 @@ class LazyPackedFM:
 def _read(t: torch.Tensor) -> np.ndarray:
     """One of the eager harvest's host reads (a host sync each)."""
     _count_sync()
-    return _host(t)
+    with span("myfm.loop.drain"):
+        return _host(t)
 
 
 def _eager_hyper(core: GibbsState) -> FMHyperParameters:
@@ -360,7 +363,8 @@ def run_mcmc_loop(
     from .checkpoint import load_checkpoint, save_checkpoint
 
     generators = (trainer.generator,)
-    state = trainer._initialize()
+    with span("myfm.loop.init"):
+        state = trainer._initialize()
     start_it = 0
     # a sharded chain's checkpoint holds every rank's rows (checkpoint.py)
     axis, plan = trainer.cfg.axis, trainer.plan
@@ -380,43 +384,55 @@ def run_mcmc_loop(
     cut_groups = trainer.cfg.cutpoint_group_classes
     drain = _AsyncDrain() if callback_allows_async(callback) else None
     for it in range(start_it, n_iter):
-        state = trainer._sweep_call(state)
-        core = core_of(state)
-        view = LazyFMView(core, cut_groups)
-        keep = it + n_kept_samples >= n_iter
-        if drain is not None:
-            fields = [core.alpha, core.mu_w, core.lambda_w, core.mu_V,
-                      core.lambda_V]
-            if ordered:
-                fields.append(core.n_mh_accept)
-            hyper = LazyHyper(_HostCopy(fields), has_accept=ordered)
-            drain.push(hyper, it)
-            if ordered:
-                history.n_mh_accept_trace.append(_LazyAccept(hyper))
-            if keep:
-                fields = [core.w0, core.w, core.V]
-                if core.cutpoints is not None:
-                    fields.append(core.cutpoints)
-                sample = LazyPackedFM(_HostCopy(fields), cut_groups)
-                predictor.samples.append(sample)
-                drain.push(sample, it)
-        else:
-            if keep:
-                predictor.samples.append(_eager_sample(core, cut_groups))
-            hyper = _eager_hyper(core)
-            if ordered:
-                # cumulative accept count per cutpoint group, every sweep
-                history.n_mh_accept_trace.append(
-                    _read(core.n_mh_accept).tolist())
-        history.hypers.append(hyper)
-        if callback is not None and callback(it, view, hyper, history):
-            break
-        if checkpoint_path and checkpoint_every and (
-                (it + 1) % checkpoint_every == 0):
-            save_checkpoint(checkpoint_path, state, it + 1, generators,
-                            axis=axis, n_total=plan.n_real)
+        with span("myfm.loop.iter", sweep=it):
+            with span("myfm.sweep"):
+                state = trainer._sweep_call(state)
+            core = core_of(state)
+            view = LazyFMView(core, cut_groups)
+            keep = it + n_kept_samples >= n_iter
+            with span("myfm.loop.harvest"):
+                if drain is not None:
+                    fields = [core.alpha, core.mu_w, core.lambda_w,
+                              core.mu_V, core.lambda_V]
+                    if ordered:
+                        fields.append(core.n_mh_accept)
+                    hyper = LazyHyper(_HostCopy(fields), has_accept=ordered)
+                    drain.push(hyper, it)
+                    if ordered:
+                        history.n_mh_accept_trace.append(
+                            _LazyAccept(hyper))
+                    if keep:
+                        fields = [core.w0, core.w, core.V]
+                        if core.cutpoints is not None:
+                            fields.append(core.cutpoints)
+                        sample = LazyPackedFM(_HostCopy(fields), cut_groups)
+                        predictor.samples.append(sample)
+                        drain.push(sample, it)
+                else:
+                    if keep:
+                        predictor.samples.append(
+                            _eager_sample(core, cut_groups))
+                    hyper = _eager_hyper(core)
+                    if ordered:
+                        # cumulative accept count per cutpoint group,
+                        # every sweep
+                        history.n_mh_accept_trace.append(
+                            _read(core.n_mh_accept).tolist())
+            history.hypers.append(hyper)
+            if callback is not None:
+                with span("myfm.loop.callback"):
+                    stop = callback(it, view, hyper, history)
+                if stop:
+                    break
+            if checkpoint_path and checkpoint_every and (
+                    (it + 1) % checkpoint_every == 0):
+                with span("myfm.loop.checkpoint"):
+                    save_checkpoint(checkpoint_path, state, it + 1,
+                                    generators, axis=axis,
+                                    n_total=plan.n_real)
     if drain is not None:
-        drain.drain()
+        with span("myfm.loop.harvest"):
+            drain.drain()
         history.hypers = [h.materialize() for h in history.hypers]
         history.n_mh_accept_trace = [
             a.materialize() for a in history.n_mh_accept_trace]
@@ -562,10 +578,11 @@ class GibbsTrainer:
         return "joint" if self.cfg.joint_rows else "colored"
 
     def _sweep_call(self, state: GibbsState) -> GibbsState:
-        variates = draw_gibbs_variates(
-            self.plan, self.cfg, self.rank, self.generator, self._tdtype,
-            self.device,
-        )
+        with span("myfm.sweep.variates"):
+            variates = draw_gibbs_variates(
+                self.plan, self.cfg, self.rank, self.generator,
+                self._tdtype, self.device,
+            )
         return gibbs_sweep(self.plan, state, self.y, variates, self.cfg)
 
     def _initialize(self) -> GibbsState:
@@ -647,10 +664,11 @@ class CategoricalGibbsTrainer:
         return "fastpath"
 
     def _sweep_call(self, state):
-        variates = draw_sweep_variates(
-            self.plan, self.cfg, self.rank, self.generator, self._tdtype,
-            self.device,
-        )
+        with span("myfm.sweep.variates"):
+            variates = draw_sweep_variates(
+                self.plan, self.cfg, self.rank, self.generator,
+                self._tdtype, self.device,
+            )
         return categorical_sweep(
             self.plan, state, self.y, self.y_tiles, variates, self.cfg
         )

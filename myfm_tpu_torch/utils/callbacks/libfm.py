@@ -33,6 +33,7 @@ from ...base import REAL, check_data_consistency
 from ...design import compile_design
 from ...ops.forward import predict_score
 from ...relational import RelationBlock
+from ...tracing import span
 
 _BURN_IN = 5  # iterations excluded from the *_all_but_5 running mean
 
@@ -89,10 +90,13 @@ class LibFMLikeCallbackBase(ABC):
         raise NotImplementedError  # pragma: no cover
 
     def __call__(self, i, fm, hyper, history) -> Tuple[bool, Optional[str]]:
-        description, trace_result = self._measure_score(i, fm, hyper)
-        self.result_trace.append(trace_result)
-        if self.trace_path is not None:
-            _write_trace(self.trace_path, self.result_trace)
+        # the host metrics: the span's own time, less the test score's
+        # myfm.eval.score / .wait inside it
+        with span("myfm.eval.metrics"):
+            description, trace_result = self._measure_score(i, fm, hyper)
+            self.result_trace.append(trace_result)
+            if self.trace_path is not None:
+                _write_trace(self.trace_path, self.result_trace)
         return False, description
 
     # the compiled test design, built at the first device score
@@ -112,8 +116,12 @@ class LibFMLikeCallbackBase(ABC):
                 for_training=False,
                 device=state.w.device,
             )
-        score = predict_score(self._device_plan, state.w0, state.w, state.V)
-        return score.cpu().numpy().astype(np.float64)
+        with span("myfm.eval.score"):
+            score = predict_score(self._device_plan, state.w0, state.w,
+                                  state.V)
+        with span("myfm.eval.wait"):
+            score = score.cpu()
+        return score.numpy().astype(np.float64)
 
     def _test_score(self, fm) -> np.ndarray:
         score = self._score_on_device(fm)

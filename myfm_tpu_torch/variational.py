@@ -30,6 +30,7 @@ from .base import (
     check_data_consistency,
 )
 from .relational import RelationBlock
+from .tracing import span
 
 
 def compile_vi_fast_plan(X, X_rel, grouping, dtype, device, rank: int,
@@ -141,7 +142,8 @@ class MyFMVariationalBase(MyFMBase):
         )
         from .design_cache import design_fingerprint, get_or_build
 
-        fp = design_fingerprint(X, X_rel, config.group_index)
+        with span("myfm.plan.fingerprint"):
+            fp = design_fingerprint(X, X_rel, config.group_index)
         grouping = np.asarray(config.group_index, dtype=np.int32)
         if self._sharded:
             # multi-device CAVI (n_devices=N / mesh=): the fast path

@@ -12,6 +12,8 @@ tail's float32 results are held to the float64 result instead (see
 ``test_joint_tail_kernel_matches_plain``).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import scipy.sparse as sps
@@ -142,6 +144,47 @@ def test_fit_on_card_goes_through_the_kernel():
     assert gram.fused_tile_gram_cross.launches > before
     pred = fm.predict(None, blocks)
     assert float(np.sqrt(np.mean((pred - y) ** 2))) < 0.45
+
+
+@pytest.mark.cuda
+def test_recorded_fit_on_card_counts_kernel1_and_repeats_the_chain():
+    """Per sweep one kernel-1 span per launch, and the same chain with
+    recording on and off."""
+    from myfm_tpu_torch import RelationBlock, clear_plan_cache, tracing
+
+    device = _cuda()
+    rng = np.random.RandomState(1)
+    n, n_u, n_i, n_iter = 3000, 60, 40, 6
+    u = rng.randint(0, n_u, n)
+    i = rng.randint(0, n_i, n)
+    y = 3.0 + rng.normal(size=n_u)[u] + rng.normal(size=n_i)[i]
+    blocks = [RelationBlock(u, sps.identity(n_u, format="csr")),
+              RelationBlock(i, sps.identity(n_i, format="csr"))]
+    fits = []
+    for record in (False, True):
+        clear_plan_cache()
+        before = gram.fused_tile_gram_cross.launches
+        fm = MyFMGibbsRegressor(rank=4, random_seed=3, device=device)
+        with (tracing.recording() if record
+              else contextlib.nullcontext()) as rec:
+            fm.fit(None, y, X_rel=blocks, n_iter=n_iter,
+                   n_kept_samples=n_iter, group_shapes=[n_u, n_i])
+        fits.append((fm, gram.fused_tile_gram_cross.launches - before, rec))
+    (off, launches, _), (on, launches_on, rec) = fits
+    assert launches == launches_on and launches % n_iter == 0
+    per_sweep = [0] * n_iter
+    for s in rec.spans:
+        if s.name == "myfm.sweep.kernel1":
+            per_sweep[s.sweep] += 1
+    assert per_sweep == [launches // n_iter] * n_iter
+    # each sweep's two harvests (hyperparameters, sample) are waited on
+    # inside myfm.loop.drain
+    assert rec.summary()["myfm.loop.drain"]["calls"] == 2 * n_iter
+    for a, b in zip(off.predictor_.samples, on.predictor_.samples):
+        assert a.w0 == b.w0
+        np.testing.assert_array_equal(a.V, b.V)
+    assert [h.alpha for h in off.history_.hypers] == [
+        h.alpha for h in on.history_.hypers]
 
 
 # ---------------------------------------------------------------------------

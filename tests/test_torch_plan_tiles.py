@@ -19,7 +19,7 @@ import jax.numpy as jnp
 
 from myfm_tpu import design as jdesign
 from myfm_tpu import design_categorical as jdc
-from myfm_tpu_torch import _native
+from myfm_tpu_torch import _native, tracing
 from myfm_tpu_torch import design as tdesign
 from myfm_tpu_torch import design_categorical as tdc
 
@@ -71,12 +71,13 @@ def test_device_derivation_equals_jax_and_the_host_pack(T, S, seed, masked):
     host = tdc.compile_categorical_table(
         ent, B, 0, N, np.float32, "cpu", fixed_ts=(T, S),
         derive_src_on_device=False)
-    timings = {}
-    dev = tdc.compile_categorical_table(
-        ent, B, 0, N, np.float32, "cpu", fixed_ts=(T, S),
-        derive_src_on_device=True, timings=timings)
-    assert set(timings) == {"counts", "pack", "upload", "derive",
-                            "finalize"}
+    with tracing.recording() as rec:
+        dev = tdc.compile_categorical_table(
+            ent, B, 0, N, np.float32, "cpu", fixed_ts=(T, S),
+            derive_src_on_device=True)
+    assert [s.name for s in rec.spans] == [
+        f"myfm.plan.{w}" for w in ("counts", "pack", "upload", "derive",
+                                   "finalize")]
     for f in dataclasses.fields(host):
         a, b = getattr(host, f.name), getattr(dev, f.name)
         if isinstance(a, torch.Tensor):
@@ -100,11 +101,10 @@ def test_device_derivation_equals_jax_and_the_host_pack(T, S, seed, masked):
 def test_derivation_is_the_default_on_cuda_only():
     ent, B = _entities(1, False)
     tab = tdc.compile_categorical_table(ent, B, 0, ent.shape[0],
-                                        np.float64, "cpu", fixed_ts=(64, 4),
-                                        timings={})
+                                        np.float64, "cpu", fixed_ts=(64, 4))
     assert tab.src.device.type == "cpu"
-    # on the CPU the default is the host pack: its "pack" window holds
-    # the native pack, and the plan equals the derivation's
+    # on the CPU the default is the host pack: its myfm.plan.pack span
+    # holds the native pack, and the plan equals the derivation's
     dev = tdc.compile_categorical_table(ent, B, 0, ent.shape[0],
                                         np.float64, "cpu", fixed_ts=(64, 4),
                                         derive_src_on_device=True)
