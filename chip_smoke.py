@@ -71,6 +71,12 @@ Phases, one line each:
             within the self-check's gate)
   sweep     one categorical_sweep through the kernel vs one through
             the plain version, same state and variates, in each mode
+  draws     the entity-draws kernel (csrc/entity_draws.cu) vs its plain
+            version on each table's whole Gram from the sweep's own
+            state, variates and hyperparameters (fp32, within
+            DRAWS_TOL): event and device ms, the plain version's ms and
+            the bytes bound; each fast-path fit below must launch it
+            once per table and sweep
   egram     tile_gram (kernel 3) on the z rows of each table's first
             chunk: kernel vs plain (fp32 + fp64) and vs kernel 1's Gram
             of the same tiles; then entity_grams over every tile of each
@@ -157,6 +163,7 @@ Phases, one line each:
             ms of pass 1 and of the carry walk apart, the Gram pass that
             ran ("wgmma" in both reduced modes) and two launches
             bit-equal (every kernel-1/2 comparison reports the last two)
+  r128draws the draws phase at rank 128
   r128fit   the trainer on that plan with gram_fast_matmul=False for
             R128_IEEE_ITER sweeps (the IEEE sweep time), then
             MyFMGibbsRegressor(rank=128) through "auto": "fastpath",
@@ -349,6 +356,14 @@ ALL_MODES = ("highest",) + REDUCED_MODES
 SWEEP_WEIGHT_TOL = 5e-4
 SWEEP_MOMENT_TOL = 1e-4
 
+# the entity draws, kernel vs plain on the sweep's own fp32 Grams: max
+# |Δw|, |ΔV| over the draws' scale (max |plain|, at least 1); the kernel
+# adds each factor's correction in factor order, the plain version 8
+# factors at a time
+DRAWS_TOL = 1e-4
+DRAWS_SOURCE = "myfm_tpu_torch/csrc/entity_draws.cu"
+DRAWS_REPLACES = ("none: the loop of myfm_tpu/ops/categorical.py:487, "
+                  "one XLA program")
 GRAM_REPLACES = "myfm_tpu/ops/pallas_gram.py:602"
 GRAM_SOURCE = "myfm_tpu_torch/csrc/fused_gram_cross.cu"
 ROWS_REPLACES = "myfm_tpu/ops/pallas_gram.py:100"
@@ -662,6 +677,97 @@ def sweep_phase(torch, plan, trainer, state):
         out[mode] = res
         del a, b
     return out
+
+
+def draws_phase(torch, plan, trainer, state, phase):
+    """The entity-draws kernel vs its plain version on each table's whole
+    Gram, built from ``state`` with one sweep's variates and
+    hyperparameters, the last table with the sweep's moments: the rows of
+    the kernels line."""
+    from myfm_tpu_torch.ops import categorical as cat
+    from myfm_tpu_torch.ops.entity_draws import entity_draws
+    from myfm_tpu_torch.tools.vi_gram import device_ms
+
+    cfg = trainer.cfg
+    w, V = state.core.w, state.core.V
+    R = V.shape[1]
+    v = cat.draw_sweep_variates(plan, cfg, R, trainer.generator, V.dtype,
+                                trainer.device)
+    alpha, w0, lam_w, mu_w, lam_V, mu_V = cat.sweep_hypers(plan, state, v,
+                                                           cfg)
+    eff = cat.eff_tables(plan, w, V)
+    es = V.element_size()
+    rows = []
+    for ti, t in enumerate(plan.tables):
+        off, B = t.col_offset, t.n_cols
+        G = cat._build_table_gram(plan, ti, w, V, eff,
+                                  own_rows(torch, w, V, t),
+                                  trainer.y_tiles[ti], False,
+                                  cfg.gram_fast_matmul or False)
+        ops = (G, w0, w[off:off + B], V[off:off + B],
+               plan.group_index[off:off + B], alpha, lam_w, mu_w, lam_V,
+               mu_V, v.noise_w[t.noise_feat], v.noise_V[t.noise_feat])
+
+        last = ti == len(plan.tables) - 1  # the sweep's moments
+
+        def kernel():
+            return entity_draws(*ops, cfg, last)
+
+        def plain():
+            return cat._entity_draws(*ops, cfg, last)
+
+        got, want = kernel(), plain()
+        scale = max(float(x.abs().max()) for x in want[:2] + (torch.ones(1),))
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(got[:2], want[:2]))
+        if not err <= DRAWS_TOL * scale:
+            fail(f"{phase}: table {ti} max |kernel - plain| {err:.3e} over "
+                 f"scale {scale:.3e}")
+        moments = {}
+        if last:
+            # the sweep phase's limits on the moments
+            e2 = float(want[2][1])
+            moments = dict(dsum_e=abs(float(got[2][0] - want[2][0])),
+                           dsum_e2=abs(float(got[2][1] - want[2][1])))
+            if (moments["dsum_e"] > SWEEP_MOMENT_TOL
+                    * (plan.n_rows * e2) ** 0.5
+                    or moments["dsum_e2"] > SWEEP_MOMENT_TOL * e2):
+                fail(f"{phase}: table {ti} moments {moments} against sum_e2 "
+                     f"{e2:.6e}")
+        # read once: the Gram's upper triangle from the diagonal and rows
+        # 0 and 1; w, V and their noises; the group ids; written: w, V and
+        # the last table's moments
+        moved = (B * (R * (R + 1) // 2 + 2 * R + 2) * es
+                 + 3 * B * (R + 1) * es + 8 * B + (2 * B * es if last else 0))
+        # the draws' fp32 operations: two a correction, ~12 a draw
+        flops = B * (R * (R - 1) + 12 * (R + 1))
+        b_ms, b_by = bound(moved, flops)
+        row = dict(table=ti, B=B, R=R, err_float32=err,
+                   rel_float32=err / scale, **moments,
+                   ms=cuda_ms(torch, kernel, 10), bound_ms=b_ms,
+                   bound_by=b_by)
+        try:
+            split = device_ms(kernel, reps=10,
+                              kinds=(("draws", "entity_draws_kernel"),))
+            row.update(device_ms=split["draws_ms"],
+                       captured=split["captured"])
+        except RuntimeError as exc:
+            row.update(device_ms=None, device_ms_error=str(exc))
+        row["plain_ms"] = cuda_ms(torch, plain, 3)
+        say(phase, json.dumps(row))
+        rows.append(row)
+        del G, ops, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def draws_check(phase, n_tables, launches, sweeps):
+    """The fit's entity-draws launches: one per table and sweep."""
+    want = n_tables * sweeps
+    if launches != want:
+        fail(f"{phase}: {launches} entity-draws launches, not one per table "
+             f"and sweep ({want})")
+    return launches
 
 
 def own_rows(torch, w, V, t):
@@ -1899,13 +2005,16 @@ def r128_phases(torch, train, test, grouping, timer, stamps):
     R128_IEEE_ITER sweeps on that plan, then MyFMGibbsRegressor(rank=128)
     through "auto", which must take the fast path in "bf16" and launch
     kernel 1 in bf16 alone: one warm-up sweep and R128_N_ITER - 1 timed)
-    and r128predict (held-out RMSE below std(y_test)).  Returns (kernel
-    rows, bf16 launches in r128fit, IEEE launches beside it)."""
+    and r128predict (held-out RMSE below std(y_test)), with r128draws
+    after r128kernel.  Returns (kernel rows, bf16 launches in r128fit,
+    IEEE launches beside it, draws rows, entity-draws launches in
+    r128fit)."""
     import dataclasses
 
     from myfm_tpu_torch import MyFMGibbsRegressor
     from myfm_tpu_torch.design_categorical import try_compile_categorical
     from myfm_tpu_torch.ops import gram
+    from myfm_tpu_torch.ops.entity_draws import entity_draws
     from myfm_tpu_torch.ops.gibbs import GibbsConfig
     from myfm_tpu_torch.trainer import CategoricalGibbsTrainer
 
@@ -1946,6 +2055,7 @@ def r128_phases(torch, train, test, grouping, timer, stamps):
         say("r128kernel", json.dumps(row))
         krows.append(row)
         del ops
+    drows = draws_phase(torch, plan, trainer, state, "r128draws")
     del state
     torch.cuda.empty_cache()
 
@@ -1965,18 +2075,22 @@ def r128_phases(torch, train, test, grouping, timer, stamps):
                      s_per_sweep=(stamps[-1] - stamps[0])
                      / max(len(stamps) - 1, 1),
                      launches_by_mode=ieee_modes)
+    n_tables = len(plan.tables)
     del plan, trainer, ieee, ih
     torch.cuda.empty_cache()
 
     stamps.clear()
     torch.cuda.reset_peak_memory_stats()
     reset_gram_counts(gram)
+    d0 = entity_draws.launches
     t_fit = time.perf_counter()
     fm = MyFMGibbsRegressor(rank=R, random_seed=SEED, device="cuda").fit(
         X_tr, y_tr, X_rel=b_tr, n_iter=R128_N_ITER, n_kept_samples=N_KEPT,
         grouping=grouping, callback=timer)
     torch.cuda.synchronize()
     t_fit_end = time.perf_counter()
+    draws_launches = draws_check("r128fit", n_tables,
+                                 entity_draws.launches - d0, len(stamps))
     counts = mode_check("r128fit", fm.history_,
                         gram.fused_tile_gram_cross.mode_launches["gibbs"],
                         "bf16")
@@ -1991,7 +2105,7 @@ def r128_phases(torch, train, test, grouping, timer, stamps):
         engine=fm.history_.engine, gram_mode=fm.history_.gram_fast_matmul,
         sweeps=len(stamps), time_to_first_sweep_s=ttfs, sweeps_per_s=rate,
         fit_s=t_fit_end - t_fit, launches_by_mode=counts,
-        launches_by_pass=passes,
+        launches_by_pass=passes, entity_draws_launches=draws_launches,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
         plan_cache_gib=cache_gib(),
         ieee=ieee_line)))
@@ -2007,7 +2121,8 @@ def r128_phases(torch, train, test, grouping, timer, stamps):
         rows=int(y_te.size), predict_s=t_pred, rmse=rmse, std_y_test=std)))
     del fm
     torch.cuda.empty_cache()
-    return krows, counts["bf16"], ieee_modes["highest"]
+    return (krows, counts["bf16"], ieee_modes["highest"], drows,
+            draws_launches)
 
 
 def reset_gram_counts(gram):
@@ -2557,6 +2672,7 @@ def main():
     try:
         import myfm_tpu_torch  # noqa: F401 — the package beside this file
         from myfm_tpu_torch.ops import _build, gram, joint_tail
+        from myfm_tpu_torch.ops.entity_draws import entity_draws
     except ImportError as exc:
         fail(f"the myfm_tpu_torch package is missing: {exc}")
     t_start = time.perf_counter()
@@ -2617,6 +2733,7 @@ def main():
         say("kernel", json.dumps(r))
     res = sweep_phase(torch, plan, trainer, state)
     say("sweep", json.dumps(res))
+    drows = draws_phase(torch, plan, trainer, state, "draws")
     erows, epath, e_launches = egram_phase(torch, plan, state,
                                            trainer.y_tiles)
     for r in erows:
@@ -2642,12 +2759,15 @@ def main():
     reset_gram_counts(gram)
     clear_plan_cache()
     hits = get_or_build.hits
+    d0 = entity_draws.launches
     t_fit = time.perf_counter()
     fm = MyFMGibbsRegressor(rank=RANK, random_seed=SEED, device="cuda").fit(
         X_tr, y_tr, X_rel=blocks_tr, n_iter=N_ITER, n_kept_samples=N_KEPT,
         grouping=grouping, callback=timer,
     )
     fit_cached = get_or_build.hits > hits
+    draws_launches = draws_check("fit", len(tiling),
+                                 entity_draws.launches - d0, len(stamps))
     pred = fm.predict(X_te, blocks_te)
     torch.cuda.synchronize()
     launches = gram.fused_tile_gram_cross.launches
@@ -2666,7 +2786,8 @@ def main():
                f"plan from the cache {fit_cached}, "
                f"time to first sweep {ttfs:.2f} s, {sweeps_per_s:.3f} "
                f"sweeps/s, kernel launches {launches} (by mode "
-               f"{fit_modes}), peak device memory {peak / 2**30:.2f} GiB "
+               f"{fit_modes}), entity-draws launches {draws_launches}, "
+               f"peak device memory {peak / 2**30:.2f} GiB "
                f"(plan cache {cache_gib():.3f} GiB)")
 
     rmse = float(np.sqrt(np.mean((pred - y_te) ** 2)))
@@ -2761,7 +2882,8 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- rank 128 on the ML-10M design: kernel 1 in bf16 ----
-    r128rows, r128_launches, r128_ieee_launches = r128_phases(
+    (r128rows, r128_launches, r128_ieee_launches, r128drows,
+     r128_draws_launches) = r128_phases(
         torch, (X_tr, blocks_tr, y_tr), (X_te, blocks_te, y_te), grouping,
         timer, stamps)
     say("r128predict", f"so far {time.perf_counter() - t_start:.1f} s")
@@ -3152,6 +3274,10 @@ def main():
         entry("fused_tile_gram_cross[r128 highest]", GRAM_SOURCE,
               GRAM_REPLACES, r128_ieee_launches, r128rows, "highest",
               {"highest": r128_ieee_launches}),
+        entry("entity_draws", DRAWS_SOURCE, DRAWS_REPLACES, draws_launches,
+              drows),
+        entry("entity_draws[r128]", DRAWS_SOURCE, DRAWS_REPLACES,
+              r128_draws_launches, r128drows),
         entry("joint_tail_pass", TAIL_SOURCE, TAIL_REPLACES, jlaunches,
               jrows, sharded=s2_launches("joint", "joint_tail")),
         entry("joint_tail_pass[lists]", TAIL_SOURCE, TAIL_REPLACES,

@@ -24,7 +24,9 @@ from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "myfm_tpu_torch"
-SOURCES = ("fused_gram_cross", "joint_tail", "gram_sections")
+SOURCES = (
+    "fused_gram_cross", "joint_tail", "gram_sections", "entity_draws",
+)
 # library name -> (source, extra nvcc flags); built only when asked for
 VARIANTS = {
     "joint_tail_timed": ("joint_tail", ("-DMYFM_JOINT_TAIL_TIMED",)),

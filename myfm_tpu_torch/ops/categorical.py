@@ -61,6 +61,7 @@ from .gibbs import (
     std_gamma,
     std_normal,
 )
+from .entity_draws import entity_draws
 from .forward import matmul_fp32, take
 from .gram import fused_tile_gram_cross, fused_tile_gram_cross_reference
 from .joint import _scatter_rows
@@ -363,7 +364,10 @@ def _table_pass(
     """One table's w draw + factor scan; returns new (w, V, moments).
 
     ``moments`` (when requested — the sweep's last table) is the exact
-    post-draw (Σe, Σe²), computed purely from Gram statistics."""
+    post-draw (Σe, Σe²), computed purely from Gram statistics.  On CUDA
+    tensors the draws are one launch of the entity-draws kernel
+    (``ops/entity_draws``); ``plain`` or CPU tensors run its plain
+    version ``_entity_draws``."""
     t = plan.tables[ti]
     off, B = t.col_offset, t.n_cols
 
@@ -391,10 +395,10 @@ def _table_pass(
         win = slice(axis.index * Bw, (axis.index + 1) * Bw)
         G_win = axis.psum_scatter(G)
         with span("myfm.sweep.draws"):
-            w_win, V_win, parts = _entity_draws(
+            w_win, V_win, parts = _draws(
                 G_win, w0, w_t[win], V_t[win], g_t[win], alpha, lambda_w,
                 mu_w, lambda_V, mu_V, nw_t[win], nV_t[win], cfg,
-                want_moments,
+                want_moments, plain,
             )
         wv = axis.all_gather(torch.cat([w_win[:, None], V_win], dim=1))
         w_new, V_new = wv[:, 0], wv[:, 1:]
@@ -405,9 +409,9 @@ def _table_pass(
         # below are then the same on every rank
         G = psum(G, axis)
         with span("myfm.sweep.draws"):
-            w_new, V_new, parts = _entity_draws(
+            w_new, V_new, parts = _draws(
                 G, w0, w_t, V_t, g_t, alpha, lambda_w, mu_w, lambda_V,
-                mu_V, nw_t, nV_t, cfg, want_moments,
+                mu_V, nw_t, nV_t, cfg, want_moments, plain,
             )
     w = w.clone()
     V = V.clone()
@@ -510,6 +514,16 @@ def _entity_draws(G, w0, w_t, V_t, g_t, alpha, lambda_w, mu_w,
         parts = (sum_e, sum_e2)
 
     return w_new, V_new, parts
+
+
+def _draws(G, w0, w_t, V_t, g_t, alpha, lambda_w, mu_w, lambda_V, mu_V,
+           noise_w_t, noise_V_t, cfg, want_moments, plain):
+    """``_entity_draws``: in one launch of the entity-draws kernel for
+    CUDA tensors, else (``plain``, CPU tensors) its plain version."""
+    draws = (_entity_draws if plain or not G.is_cuda
+             else entity_draws)
+    return draws(G, w0, w_t, V_t, g_t, alpha, lambda_w, mu_w, lambda_V, mu_V,
+                 noise_w_t, noise_V_t, cfg, want_moments)
 
 
 def ea_flat_gram(G: torch.Tensor, w0, own: torch.Tensor) -> torch.Tensor:
