@@ -1,13 +1,15 @@
 """One run of a benchmark cell.
 
-Set-up makes the ratings from the seed, builds the design, runs a cold
+Set-up makes the ratings from the seed, has the configuration's
+reference module build the design of both splits (``design``), runs a cold
 fit of a few sweeps (it builds the plan, warms every shape and fills the
 plan cache) and starts the measured fit, a refit whose chain runs until
 the window ends.  The window opens once the measured fit's first sweep
 is done and closes at a synchronize after the sweep at which its time is
 up; the fit then stops through its callback, which keeps the trainer's
 pipelined harvest.  A traced run (``trace``) profiles a slice of sweeps
-inside the window.
+inside the window, with the program's spans recorded from before the
+cold fit (``myfm_tpu_torch.tracing.recording``).
 
 Correctness: a wrapper around the trainer's sweep call keeps, for the
 measured fit's first sweep and one sweep of the window drawn from the
@@ -23,6 +25,7 @@ and the callback's held-out scores and RMSE.
 from __future__ import annotations
 
 import contextlib
+import copy
 import importlib
 import math
 import sys
@@ -33,6 +36,7 @@ import torch
 
 from . import data as data_mod
 from . import registry, roofline
+from . import spans as spans_mod
 from . import trace as trace_mod
 
 # an n_iter no window reaches: the window's callback stops the chain
@@ -40,8 +44,11 @@ UNREACHED_SWEEPS = 10 ** 7
 # the cold fit's sweeps: past the harvest's lag of 3, so every shape and
 # buffer of the measured fit's steady state is warm
 COLD_FIT_SWEEPS = 4
-# the checked window sweep is drawn from the first CHECK_WITHIN, which
-# every cell reaches in a few seconds
+# the checked window sweep is drawn from sweeps 2 .. CHECK_WITHIN, which
+# every cell reaches in a few seconds; from 2 on, the sweep before it is
+# a window sweep too, so every seed keeps the same two sweeps' records
+# on the card (with sweep 1 checked, sweep 0's went to the host and the
+# peak read one sweep's state and variates less)
 CHECK_WITHIN = 16
 # the traced slice: SLICE_SWEEPS sweeps after the window's SLICE_AFTER-th
 SLICE_AFTER, SLICE_SWEEPS = 4, 12
@@ -53,9 +60,10 @@ HYPERS = ("alpha", "mu_w", "lambda_w", "mu_V", "lambda_V")
 
 
 def seeds(seed: int, check_within: int):
-    """(data seed, fit seed, checked window sweep) from ``--seed``."""
+    """(data seed, fit seed, checked window sweep in 2 .. check_within)
+    from ``--seed``."""
     a, b, c = np.random.SeedSequence(seed % (1 << 64)).generate_state(3)
-    return int(a), int(b) % (1 << 31), 1 + int(c) % check_within
+    return int(a), int(b) % (1 << 31), 2 + int(c) % (check_within - 1)
 
 
 def forbidden_modules():
@@ -90,31 +98,13 @@ class Device:
         return torch.cuda.max_memory_allocated() if self.cuda else 0
 
 
-def one_hot_design(split, config: dict):
-    """(X, X_rel, grouping) of the configuration's one-hot tables, listed
-    in feature order (the ``main`` ones first, as the columns of X, then
-    each ``block`` table as a RelationBlock of an identity matrix); one
-    group per table."""
-    import scipy.sparse as sps
-
+def _program_design(part):
+    """The program's (X, X_rel, grouping) from a reference module's
+    design of one split, whose blocks are (mapper, matrix) pairs."""
     from myfm_tpu_torch import RelationBlock
 
-    n = len(split)
-    shape = config["dataset"]
-    main = [t for t in config["tables"] if t["layout"] == "main"]
-    widths = [shape[t["entities"]] for t in main]
-    cols = np.stack([getattr(split, t["column"]) + off for t, off in
-                     zip(main, np.cumsum([0] + widths[:-1]))], axis=1)
-    X = sps.csr_matrix(
-        (np.ones(cols.size), cols.reshape(-1),
-         np.arange(0, cols.size + 1, len(main))),
-        shape=(n, sum(widths)))
-    blocks = [RelationBlock(getattr(split, t["column"]),
-                            sps.identity(shape[t["entities"]], format="csr"))
-              for t in config["tables"] if t["layout"] == "block"]
-    grouping = [g for g, t in enumerate(config["tables"])
-                for _ in range(shape[t["entities"]])]
-    return X, blocks, grouping
+    X, blocks, grouping = part
+    return X, [RelationBlock(m, d) for m, d in blocks], grouping
 
 
 def _fields(obj, names, host: bool):
@@ -300,8 +290,21 @@ def warm_profiler():
         torch.cuda.synchronize()
 
 
-def _counters(device_type: str):
-    """The program's counters the window reads at its open and close."""
+def read_counter(path: str):
+    """A copy of the program counter at ``path``, "<module>:<attribute
+    path>" (``myfm_tpu_torch.ops.entity_draws:entity_draws.launches``)."""
+    module, _, attributes = path.partition(":")
+    value = importlib.import_module(module)
+    for name in attributes.split("."):
+        value = getattr(value, name)
+    return copy.deepcopy(value)
+
+
+def _counters(device_type: str, declared: dict):
+    """The program's counters the window reads at its open and close:
+    the loop's host syncs, kernel 1's launches by mode, the plan cache's
+    bytes, and under ``declared`` those the cell's metric readers
+    declare ({key: path})."""
     from myfm_tpu_torch.design_cache import plan_cache_bytes
     from myfm_tpu_torch.ops import gram
     from myfm_tpu_torch.trainer import run_mcmc_loop
@@ -310,6 +313,7 @@ def _counters(device_type: str):
         host_syncs=run_mcmc_loop.host_syncs,
         kernel1=dict(gram.fused_tile_gram_cross.mode_launches["gibbs"]),
         plan_cache_bytes=plan_cache_bytes(device_type),
+        declared={k: read_counter(p) for k, p in declared.items()},
     )
 
 
@@ -357,7 +361,16 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
              bench_dir=registry.BENCH_DIR, overrides=None, force_gram=None,
              control: bool = False) -> dict:
     """One run; returns the result object (and ``observed``, the raw
-    readings the per-layer readers take their metrics from).
+    readings the per-layer readers take their metrics from: among them
+    ``design``, the reference module's sizes of the design; ``counters``,
+    {key: (at the window's open, at its close)} of the counters the
+    readers declare; in a traced run ``trace``, the slice's device
+    readings with the device ms of every operation by kernel name
+    (``kernel_ms``) and by the innermost program span that launched it
+    (``span_device_ms``), and ``spans``: the recorded spans
+    (``records``), the measured fit (``fit``), its window sweeps outside
+    the slice (``sweeps``) and their host ms per sweep by span name,
+    [total, own] (``host_ms``)).
     ``overrides`` replaces keys of the configuration, the sizes of its
     ``dataset`` one by one (the CPU tests at a small size),
     ``force_gram`` fixes the program's Gram mode and ``control`` puts
@@ -365,7 +378,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     program's place in the comparison (the control: its checks are
     judged, and ``observed["program_checks"]`` holds the program's).
     """
-    from myfm_tpu_torch import clear_plan_cache, trainer
+    from myfm_tpu_torch import clear_plan_cache, tracing, trainer
     from myfm_tpu_torch.design_cache import get_or_build
     from myfm_tpu_torch.ops import categorical
 
@@ -375,14 +388,16 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     for key, value in (overrides or {}).items():
         config[key] = (dict(config[key], **value) if key == "dataset"
                        else value)
+    ref = registry.reference(config, bench_dir)
     dev = Device(device)
     data_seed, fit_seed, checked = seeds(seed, CHECK_WITHIN)
 
     stamps = [("imports_and_card", time.perf_counter())]
     train, test = data_mod.make_ratings(config["dataset"], data_seed, device)
     stamps.append(("data", time.perf_counter()))
-    X, blocks, grouping = one_hot_design(train, config)
-    X_test, blocks_test, _ = one_hot_design(test, config)
+    design = ref.design(config, train, test)
+    X, blocks, grouping = _program_design(design["program"]["train"])
+    X_test, blocks_test, _ = _program_design(design["program"]["test"])
     stamps.append(("design", time.perf_counter()))
     keep_all = traffic["n_kept"] == "all"
     Estimator = getattr(importlib.import_module("myfm_tpu_torch"),
@@ -399,7 +414,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
 
     if trace and dev.cuda:
         warm_profiler()
-    with _forced_gram(force_gram):
+    # a traced run records the program's spans; an untraced one records
+    # none, so its end-to-end numbers carry no span's cost
+    with _forced_gram(force_gram), (
+            tracing.recording() if trace
+            else contextlib.nullcontext()) as recorded:
         clear_plan_cache()
         cold = FirstSweep(dev, _callback(traffic, (X_test, blocks_test, None),
                                          test.y))
@@ -416,7 +435,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         kernel1 = Kernel1Bounds(categorical.fused_tile_gram_cross)
         slice_at = (SLICE_AFTER, SLICE_SWEEPS) if trace else None
         window = Window(dev, seconds, inner,
-                        lambda: _counters(torch.device(device).type),
+                        lambda: _counters(torch.device(device).type,
+                                          cell["counters"]),
                         score_at=checked if inner is not None else None,
                         slice_at=slice_at, kernel1=kernel1,
                         min_sweeps=checked)
@@ -462,19 +482,28 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         sweep_ms=[dev.gap_ms(window.marks[i], window.marks[i + 1])
                   for i in range(n) if i not in skip],
         callback_s=window.callback_s if inner is not None else None,
-        sweep_flops=roofline.sweep_flops(
-            len(train), sum(config["dataset"][t["entities"]]
-                            for t in config["tables"]),
-            len(config["tables"]), config["rank"],
-            len(test) if inner is not None else 0),
+        sweep_flops=ref.sweep_flops(config, design,
+                                    len(test) if inner is not None else 0),
+        design=design["shape"],
+        counters={k: (window.at_open["declared"][k],
+                      window.at_close["declared"][k])
+                  for k in cell["counters"]},
     )
     if trace:
-        summary = trace_mod.summarize(window.prof.events())
         if window.slice_sweeps < 1:
             raise RuntimeError("the window closed before its traced slice")
-        summary.update(sweeps=window.slice_sweeps,
-                       kernel1_bound_ms=kernel1.bounds_ms)
+        events = window.prof.events()
+        summary = trace_mod.summarize(events)
+        summary.update(
+            sweeps=window.slice_sweeps, kernel1_bound_ms=kernel1.bounds_ms,
+            span_device_ms=spans_mod.device_split(events)["span_device_ms"])
         observed["trace"] = summary
+        fit, sweeps = spans_mod.measured_sweeps(
+            recorded.spans, n, SLICE_AFTER, window.slice_sweeps)
+        observed["spans"] = dict(
+            records=recorded.spans, fit=fit, sweeps=sweeps,
+            host_ms=spans_mod.host_ms_by_name(recorded.spans, fit, sweeps))
+        del events
     peak = window.peak
 
     answers = _answers(fm, capture, checked, keep_all)
@@ -484,9 +513,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     clear_plan_cache()
     if dev.cuda:
         torch.cuda.empty_cache()
-    checks, program_checks = check(config, train, test, answers,
-                                   window.score, callback_rmse, device,
-                                   cell["limits"], control)
+    checks, program_checks = check(ref, config, design["reference"], test.y,
+                                   answers, window.score, callback_rmse,
+                                   device, cell["limits"], control)
 
     result = dict(
         correct=all(c["value"] <= c["limit"] for c in checks.values()),
@@ -544,39 +573,41 @@ def _answers(fm, capture, checked, keep_all) -> dict:
     return out
 
 
-def check(config, train, test, answers, cb_score, cb_rmse, device, limits,
-          control=False) -> tuple:
+def _to(device, obj):
+    """``obj`` with every tensor in it (through dicts, lists and tuples)
+    on ``device``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: _to(device, v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to(device, v) for v in obj)
+    return obj
+
+
+def check(ref, config, designs, y_test, answers, cb_score, cb_rmse, device,
+          limits, control=False) -> tuple:
     """The compared numbers, each with its limit: the widest gap of the
-    checked sweeps' draws from the reference's, in conditional standard
-    deviations, over the weights (w, V) and over the hyperparameters (α,
-    w0, λ, μ); the carried state's largest difference (exact); and in
-    a mix with a held-out callback the widest gap of its scores and of
-    its RMSE from the reference forward's.  With ``control`` the plain
-    reference computed one precision below the configuration's is put in
-    the program's place: the weights drawn from Gram operands rounded to
+    checked sweeps' draws from the reference's (``ref``, the
+    configuration's reference module, on its own ``designs`` of the two
+    splits), in conditional standard deviations, over the weights (w,
+    V) and over the hyperparameters (α, w0, λ, μ); the carried state's
+    largest difference (exact); and in a mix with a held-out callback
+    the widest gap of its scores and of its RMSE against ``y_test`` from
+    the reference forward's.  With ``control`` the plain reference
+    computed one precision below the configuration's is put in the
+    program's place: the weights drawn from Gram operands rounded to
     ``precision.control_gram``, the hyperparameters from statistics and
     the held-out scores from a forward in ``precision.control_float``;
     the checks returned are then the control's, and the second dict the
     program's own."""
-    ref = registry.reference(config)
-    sizes = [config["dataset"][t["entities"]] for t in config["tables"]]
     precision = config["precision"]
     lowered = dict(
         weight_gap_sd=dict(gram_dtype=getattr(torch, precision[
             "control_gram"])),
         hyper_gap_sd=dict(stat_dtype=getattr(torch, precision[
             "control_float"])))
-
-    def tables(split):
-        return ref.tables_of(
-            [torch.as_tensor(getattr(split, t["column"]), device=device)
-             for t in config["tables"]], sizes)
-
-    group_index = torch.repeat_interleave(
-        torch.arange(len(sizes), device=device),
-        torch.as_tensor(sizes, device=device))
-    design = dict(tables=tables(train), sizes=sizes, group_index=group_index,
-                  y=torch.as_tensor(train.y, device=device))
+    design = _to(device, designs["train"])
     groups = dict(weight_gap_sd=ref.WEIGHTS, hyper_gap_sd=ref.HYPERS)
     judged = ("program", "control") if control else ("program",)
     worst = {side: {k: (0.0, "") for k in groups} for side in judged}
@@ -605,12 +636,13 @@ def check(config, train, test, answers, cb_score, cb_rmse, device, limits,
         checks[side]["carry_diff"] = dict(value=answers["carry_diff"],
                                           limit=0.0)
     if cb_score is not None:
+        del design
         last = max(k for k in answers if isinstance(k, int))
         out = answers[last]["program"]
-        args = (tables(test), out["w0"].to(device), out["w"].to(device),
-                out["V"].to(device), len(test))
+        args = (_to(device, designs["test"]), out["w0"].to(device),
+                out["w"].to(device), out["V"].to(device))
         score = ref.forward(*args)
-        y_test = torch.as_tensor(test.y, device=device)
+        y_test = torch.as_tensor(y_test, device=device)
         rmse = ref.rmse(score, y_test)
         scored = dict(program=(torch.as_tensor(cb_score, device=device),
                                cb_rmse))

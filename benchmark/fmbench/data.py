@@ -14,6 +14,12 @@ drawn once from a fixed structural seed and the days' even, and
 which item on which day, the latent factors and the ratings.  So two
 seeds give the kernels the same tile counts in another order, and their
 runs differ by the data, not by the size of the work.
+
+A configuration may state its own degree model in its ``dataset``:
+``user_pareto`` and ``item_pareto`` ([shape, offset] of the Lomax
+weights, by default [1.5, 0.5] and [1.2, 0.1]) and ``min_user_ratings``
+(the least number of training rows of each user, by default 0).  Without
+those keys the draws are the ones above, bit for bit.
 """
 
 from __future__ import annotations
@@ -68,30 +74,42 @@ def _seed_generator(seed: int, device) -> torch.Generator:
 
 def make_ratings(shape: dict, seed: int, device) -> tuple:
     """(train, test) ``Ratings`` for ``shape`` (keys ``rows``, ``users``,
-    ``items``, ``days``, ``test_share``) from ``seed``: ``int(rows *
-    test_share)`` rows held out, each split's rows in random order."""
+    ``items``, ``days``, ``test_share``, and the degree model's optional
+    ``user_pareto``, ``item_pareto``, ``min_user_ratings``) from
+    ``seed``: ``int(rows * test_share)`` rows held out, each split's
+    rows in random order."""
     n, n_users, n_items = shape["rows"], shape["users"], shape["items"]
     n_days = shape["days"]
     n_test = int(n * shape["test_share"])
+    (a_user, off_user), (a_item, off_item) = (
+        shape.get("user_pareto", (1.5, 0.5)),
+        shape.get("item_pareto", (1.2, 0.1)))
+    least = shape.get("min_user_ratings", 0)
+    if least * n_users > n - n_test:
+        raise ValueError("min_user_ratings exceeds the training rows")
     structure = _seed_generator(STRUCTURE_SEED, device)
     weights = dict(
-        user=(_pareto(1.5, n_users, structure, device) + 0.5),
-        item=(_pareto(1.2, n_items, structure, device) + 0.1),
+        user=(_pareto(a_user, n_users, structure, device) + off_user),
+        item=(_pareto(a_item, n_items, structure, device) + off_item),
         day=torch.ones(n_days, dtype=torch.float64, device=device))
 
     gen = _seed_generator(seed, device)
 
-    def ids(weight):
+    def ids(weight, least=0):
         """One column, the held-out rows first: each split's degree
-        sequence is fixed, the seed picks the ids that carry each degree
-        and the rows' order."""
+        sequence is fixed (``least`` rows of each id in the training
+        split, the rest in proportion to ``weight``), the seed picks the
+        ids that carry each degree and the rows' order."""
         owner = torch.randperm(len(weight), generator=gen, device=device)
         return torch.cat([
-            torch.repeat_interleave(owner, degree_counts(rows, weight))[
+            torch.repeat_interleave(
+                owner, floor + degree_counts(rows - floor * len(weight),
+                                             weight))[
                 torch.randperm(rows, generator=gen, device=device)]
-            for rows in (n_test, n - n_test)])
+            for rows, floor in ((n_test, 0), (n - n_test, least))])
 
-    user, item, day = (ids(weights[k]) for k in ("user", "item", "day"))
+    user = ids(weights["user"], least)
+    item, day = (ids(weights[k]) for k in ("item", "day"))
 
     def normal(*size):
         return torch.randn(*size, generator=gen, dtype=torch.float64,

@@ -3,10 +3,13 @@
 A workload names a configuration and a traffic mix; each lives in a file
 of its own (``configs/<name>.json``, ``traffic/<name>.json``), each
 per-layer metric has a reader ``metrics/<name>.py`` with a function
-``read(observed)``, each cell's comparison limits sit in
+``read(observed)`` (and, where it reads program counters, a
+module-level ``COUNTERS``), each cell's comparison limits sit in
 ``limits/<workload>.json``, and a configuration names its plain
-reference, a module ``configs/<reference>.py``.  Adding a cell, a mix or
-a metric adds files and entries; no file here changes.
+reference, a module ``configs/<reference>.py`` that also builds the
+configuration's design (``design``, ``sweep``, ``forward``,
+``sweep_flops``).  Adding a cell, a mix, a metric or a configuration
+adds files and entries; no file here changes.
 """
 
 from __future__ import annotations
@@ -40,7 +43,9 @@ def _module(path: Path, name: str):
 def cell(workload: str, spec: dict, bench_dir: Path = BENCH_DIR) -> dict:
     """Everything a run of ``workload`` reads: its BENCHMARK.json entry,
     configuration, traffic mix, limits, the end-to-end metrics it
-    reports and the per-layer readers that list it (or list no cell)."""
+    reports, the per-layer readers that list it (or list no cell) and
+    the program counters those readers declare (a reader's module-level
+    ``COUNTERS``, {key: "<module>:<attribute path>"})."""
     entry = next((w for w in spec["workloads"] if w["name"] == workload),
                  None)
     if entry is None:
@@ -57,12 +62,15 @@ def cell(workload: str, spec: dict, bench_dir: Path = BENCH_DIR) -> dict:
                            f"fmbench_metric_{i}")
         for i, m in enumerate(spec["per_layer"]) if reports(m)
     }
+    counters = {}
+    for reader in readers.values():
+        counters.update(getattr(reader, "COUNTERS", {}))
     return dict(
         entry=entry, config=config, traffic=traffic,
         limits=_json(bench_dir / "limits" / f"{workload}.json"),
         end_to_end=end_to_end,
         per_layer=[m for m in spec["per_layer"] if reports(m)],
-        readers=readers,
+        readers=readers, counters=counters,
     )
 
 

@@ -14,43 +14,23 @@ the spans:
   card's idle gaps are named by the innermost program or ``bench.*``
   span holding their start, else ``loop``.
 
-``report`` gathers both; ``python3 benchmark/spans.py`` prints it.
+A traced run of ``cell.run_cell`` keeps the host readings by span
+(``host_ms_by_name``) and the device ms by span (``device_split``) in
+what its per-layer readers read; ``report`` gathers every reading and
+its cross-checks, and ``python3 benchmark/spans.py`` prints it.
 """
 
 from __future__ import annotations
 
-import bisect
 import re
 from collections import defaultdict
 
 from . import trace
 
-PROGRAM = "myfm."
+PROGRAM = trace.PROGRAM
 UNATTRIBUTED = "unattributed"
 # the CUDA runtime and driver calls that enqueue device work
 RUNTIME = re.compile(r"^cu(da)?[A-Z]")
-
-
-class Nest:
-    """The innermost of a set of nested host intervals holding a point."""
-
-    def __init__(self, spans):
-        self.spans = sorted(spans, key=lambda s: (s[0], -s[1]))
-        self.starts = [s[0] for s in self.spans]
-        self.parent, stack = [], []
-        for i, (start, _, _) in enumerate(self.spans):
-            while stack and self.spans[stack[-1]][1] <= start:
-                stack.pop()
-            self.parent.append(stack[-1] if stack else None)
-            stack.append(i)
-
-    def at(self, x, default):
-        i = bisect.bisect_right(self.starts, x) - 1
-        while i is not None and i >= 0:
-            if x < self.spans[i][1]:
-                return self.spans[i][2]
-            i = self.parent[i]
-        return default
 
 
 def _is_device(e) -> bool:
@@ -79,8 +59,8 @@ def device_split(events, top: int = 10) -> dict:
     hosts = [(e.time_range.start, e.time_range.end, e.name)
              for e in events if not _is_device(e)
              and (e.name.startswith(PROGRAM) or e.name in trace.HOST_SPANS)]
-    program = Nest([h for h in hosts if h[2].startswith(PROGRAM)])
-    doing = Nest(hosts)
+    program = trace.Nest([h for h in hosts if h[2].startswith(PROGRAM)])
+    doing = trace.Nest(hosts)
     launched = {e.id: e.time_range.start for e in events
                 if not _is_device(e) and RUNTIME.match(e.name)}
     by_span = defaultdict(float)
@@ -163,6 +143,31 @@ def host_ms(spans, fit, sweeps, names, own: bool = False):
     return total / 1e6 / len(want) if found else None
 
 
+def host_ms_by_name(spans, fit, sweeps) -> dict:
+    """{name: [total, own]} host ms per sweep of ``sweeps`` for every span
+    name the fit's sweeps hold: ``host_ms(spans, fit, sweeps, (name,))``
+    and the same with ``own``, in one pass."""
+    want = set(sweeps)
+    inner = defaultdict(int)
+    for s in spans:
+        if s.parent is not None and s.t1_ns is not None:
+            inner[s.parent] += s.t1_ns - s.t0_ns
+    out = {}
+    for i, s in enumerate(spans):
+        if s.fit != fit or s.sweep not in want or s.t1_ns is None:
+            continue
+        p = s.parent
+        while p is not None and spans[p].name != s.name:
+            p = spans[p].parent
+        if p is not None:
+            continue
+        row = out.setdefault(s.name, [0, 0])
+        row[0] += s.t1_ns - s.t0_ns
+        row[1] += s.t1_ns - s.t0_ns - inner[i]
+    return {name: [total / 1e6 / len(want), own / 1e6 / len(want)]
+            for name, (total, own) in sorted(out.items())}
+
+
 def spans_per_sweep(spans, fit, sweeps) -> float:
     want = set(sweeps)
     return sum(1 for s in spans if s.fit == fit
@@ -220,12 +225,7 @@ def report(spans, events, observed, slice_after: int) -> dict:
     split = device_split(events)
     fit, sweeps = measured_sweeps(spans, observed["window_sweeps"],
                                   slice_after, n)
-    host = {}
-    for name in sorted({s.name for s in spans}):
-        total = host_ms(spans, fit, sweeps, (name,))
-        if total is not None:
-            host[name] = [total, host_ms(spans, fit, sweeps, (name,),
-                                         own=True)]
+    host = host_ms_by_name(spans, fit, sweeps)
     device_ms = split["span_device_ms"]
     k1_span = device_ms.get("myfm.sweep.kernel1", 0.0)
     return dict(

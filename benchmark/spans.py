@@ -5,17 +5,19 @@
     python3 benchmark/spans.py --workload ml10m_r32.chain --seed 1 \\
         --seconds 15 --overhead 6
 
-The first form runs the cell as ``run.py --trace 1`` does, inside
-``myfm_tpu_torch.tracing.recording()``, keeps the profiler's events of
-the traced slice and prints one JSON line (``fmbench.spans.report``):
-the span metrics, host ms per sweep by span, device ms per sweep by the
-span that launched it, the idle gaps named by span, and the
-cross-checks.  With ``--overhead N`` it instead runs the cell untraced
-N times in one process on the one seed, recording and not in turns
+The first form runs the cell as ``run.py --trace 1`` does (which
+records the spans under ``myfm_tpu_torch.tracing.recording()``), keeps
+the profiler's events of the traced slice and prints one JSON line
+(``fmbench.spans.report``): the span metrics, host ms per sweep by span,
+device ms per sweep by the span that launched it, the idle gaps named by
+span, and the cross-checks, with the run's own per-layer metrics
+(``run_metrics``, as ``run.py --trace 1`` prints them) beside them.
+With ``--overhead N`` it instead runs the cell untraced N times in one
+process on the one seed, recording and not in turns
 (on, off, off, on, ...), and prints each run's sweeps per second and
 the time the garbage collector took, then the host cost of a span, off
-and recording, in µs.  The benchmark's runs
-never run this; ``run.py`` records no span.
+and recording, in µs.  The benchmark's runs never run this; ``run.py``
+records the spans in its traced runs only.
 """
 
 import time
@@ -105,12 +107,11 @@ def main(argv=None) -> int:
         return summarize(kept["events"], top)
 
     trace_mod.summarize = keep_events
-    with tracing.recording() as rec:
-        result, observed = cell.run_cell(args.workload, args.seed,
-                                         args.seconds, True, T_START)
-    out = spans.report(rec.spans, kept.pop("events"), observed,
+    result, observed = cell.run_cell(args.workload, args.seed, args.seconds,
+                                     True, T_START)
+    recorded, fit = observed["spans"]["records"], observed["spans"]["fit"]
+    out = spans.report(recorded, kept.pop("events"), observed,
                        cell.SLICE_AFTER)
-    fit = max(s.fit for s in rec.spans if s.fit is not None)
     out.update(workload=args.workload, seed=args.seed,
                correct=result["correct"], card=card,
                sweeps_per_s=observed["sweeps_per_s"],
@@ -119,13 +120,15 @@ def main(argv=None) -> int:
                kernel1_launches_per_sweep=observed["kernel1_launches"]
                / observed["window_sweeps"],
                kernel1_spans_per_sweep=sum(
-                   1 for s in rec.spans if s.name == "myfm.sweep.kernel1"
+                   1 for s in recorded if s.name == "myfm.sweep.kernel1"
                    and s.fit == fit and 1 <= s.sweep
                    <= observed["window_sweeps"])
                / observed["window_sweeps"],
                eval_callback_ms=(1e3 * sum(observed["callback_s"])
                                  / len(observed["callback_s"])
-                                 if observed["callback_s"] else None))
+                                 if observed["callback_s"] else None),
+               run_metrics={k: m["value"]
+                            for k, m in result["metrics"].items()})
     print(json.dumps(out), flush=True)
     return 0
 

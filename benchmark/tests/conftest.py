@@ -2,6 +2,7 @@
 root of the repository (the CPU; the tests marked ``cuda`` skip there
 and run on the card)."""
 
+import os
 import sys
 from pathlib import Path
 
@@ -20,6 +21,13 @@ TINY = dict(rank=8, sweep_strategy="categorical",
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs a CUDA card; skips without one")
+    workers = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
+    if workers:
+        # test workers share the cores: a thread pool the size of the
+        # machine in each makes their small operations wait on each other
+        import torch
+
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(workers)))
 
 
 @pytest.fixture

@@ -17,17 +17,19 @@ def run(workload):
     return result
 
 
-def test_a_sweep_that_returns_its_state_unchanged(monkeypatch):
+@pytest.mark.parametrize("workload", ["ml10m_r128.chain", "ml10m_r32.libfm"])
+def test_a_sweep_that_returns_its_state_unchanged(monkeypatch, workload):
     from myfm_tpu_torch import trainer
 
     monkeypatch.setattr(trainer, "categorical_sweep",
                         lambda plan, state, *a, **k: state)
-    result = run("ml10m_r128.chain")
+    result = run(workload)
     assert not result["correct"]
     assert result["checks"]["weight_gap_sd"]["value"] > 1
 
 
-def test_half_the_rows_left_out_and_the_rest_doubled(monkeypatch):
+@pytest.mark.parametrize("workload", ["ml10m_r128.chain", "ml10m_r32.libfm"])
+def test_half_the_rows_left_out_and_the_rest_doubled(monkeypatch, workload):
     from myfm_tpu_torch.ops import categorical
 
     inner = categorical.fused_tile_gram_cross
@@ -40,13 +42,13 @@ def test_half_the_rows_left_out_and_the_rest_doubled(monkeypatch):
         return 2 * flat, 2 * carry_out
 
     monkeypatch.setattr(categorical, "fused_tile_gram_cross", half)
-    result = run("ml10m_r128.chain")
+    result = run(workload)
     assert not result["correct"]
     assert result["checks"]["weight_gap_sd"]["value"] > 1
 
 
 @pytest.mark.parametrize("workload", ["ml10m_r128.chain",
-                                      "ml10m_r128.libfm"])
+                                      "ml10m_r128.libfm", "ml10m_r32.libfm"])
 def test_one_drawn_factor_altered_where_it_is_drawn(monkeypatch, workload):
     from myfm_tpu_torch.ops import categorical
 
@@ -64,7 +66,9 @@ def test_one_drawn_factor_altered_where_it_is_drawn(monkeypatch, workload):
     assert result["checks"]["weight_gap_sd"]["at"].startswith("V")
 
 
-def test_one_held_out_score_altered_where_it_is_scored(monkeypatch):
+@pytest.mark.parametrize("workload", ["ml10m_r128.libfm", "ml10m_r32.libfm"])
+def test_one_held_out_score_altered_where_it_is_scored(monkeypatch,
+                                                       workload):
     from myfm_tpu_torch.utils.callbacks import libfm
 
     inner = libfm.predict_score
@@ -75,7 +79,7 @@ def test_one_held_out_score_altered_where_it_is_scored(monkeypatch):
         return score
 
     monkeypatch.setattr(libfm, "predict_score", altered)
-    result = run("ml10m_r128.libfm")
+    result = run(workload)
     assert not result["correct"]
     assert result["checks"]["score_gap"]["value"] >= 1e-2 * 0.99
     assert torch.isfinite(torch.tensor(result["checks"]["rmse_gap"]["value"]))

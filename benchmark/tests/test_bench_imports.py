@@ -6,6 +6,7 @@ import json
 import subprocess
 import sys
 
+import pytest
 from fmbench import registry
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "myfm_tpu")
@@ -35,11 +36,23 @@ def test_harness_and_program_load_no_jax():
     assert not top & set(FORBIDDEN)
 
 
-def test_reference_loads_nothing_of_the_program():
+@pytest.mark.parametrize("reference", ["fm_gibbs", "fm_gibbs_side"])
+def test_reference_loads_nothing_of_the_program(reference):
+    """Loading a reference module and building its design of both
+    splits (what set-up does) load nothing of the program."""
+    config = ("registry.cell('ml10m_r32.chain', registry.load_spec())"
+              "['config']" if reference == "fm_gibbs" else
+              f"json.load(open({str(registry.BENCH_DIR / 'tests')!r} + "
+              "'/ml100k_tsvdpp_r8.json'))")
     top = loaded_after(
-        "from fmbench import registry\n"
-        "for name in ('ml10m_r128', 'ml10m_r32'):\n"
-        "    registry.reference({'reference': 'fm_gibbs'})\n")
+        "import json\n"
+        "from fmbench import data, registry\n"
+        f"config = {config}\n"
+        "config['dataset'].update(rows=3000, users=40, items=30, days=7,"
+        " min_user_ratings=0)\n"
+        "ref = registry.reference(config)\n"
+        "train, test = data.make_ratings(config['dataset'], 1, 'cpu')\n"
+        "ref.design(config, train, test)\n")
     assert not top & {"myfm_tpu_torch", *FORBIDDEN}
 
 

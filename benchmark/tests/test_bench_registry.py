@@ -25,7 +25,12 @@ def test_cell_pieces_found_by_name(workload):
     for reader in cell["readers"].values():
         assert callable(reader.read)
     assert {"weight_gap_sd", "hyper_gap_sd"} <= set(cell["limits"])
-    assert hasattr(registry.reference(cell["config"]), "sweep")
+    reference = registry.reference(cell["config"])
+    for name in ("design", "sweep", "forward", "sweep_flops", "WEIGHTS",
+                 "HYPERS", "widest_gap_sd", "rmse"):
+        assert hasattr(reference, name), name
+    for key, path in cell["counters"].items():
+        assert NAME.match(key) and ":" in path
 
 
 def test_a_metric_listing_cells_is_read_only_there():

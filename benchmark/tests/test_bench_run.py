@@ -7,7 +7,7 @@ import time
 
 import pytest
 from conftest import TINY
-from fmbench import cell
+from fmbench import cell, registry
 
 
 def run(workload, **kw):
@@ -64,7 +64,7 @@ def test_seeds_take_large_numbers_and_repeat():
     big = 2 ** 31 + 12345
     assert cell.seeds(big, 16) == cell.seeds(big, 16)
     assert cell.seeds(big, 16) != cell.seeds(big + 1, 16)
-    assert all(1 <= cell.seeds(s, 16)[2] <= 16 for s in range(50))
+    assert {cell.seeds(s, 16)[2] for s in range(200)} == set(range(2, 17))
 
 
 def test_same_seed_same_ratings_and_same_degrees():
@@ -117,3 +117,37 @@ def test_traced_slice_is_left_out_of_the_sweep_gaps():
     assert window.slice_sweeps == 3 and window.profiled() == {2, 3, 4, 5}
     assert 0.0 < window.slice_s() < time.perf_counter() - window.t_open
     assert not window.kernel1.active
+
+
+def test_declared_counter_is_read_at_the_windows_open_and_close(tmp_path):
+    """A metric reader's COUNTERS: the window reads each at its open
+    (after sweep 0) and its close (after sweep n); the probe counts the
+    sweeps the harness's capture saw."""
+    bench = registry.BENCH_DIR
+    for sub in ("configs", "traffic", "limits"):
+        (tmp_path / sub).symlink_to(bench / sub)
+    (tmp_path / "metrics").mkdir()
+    (tmp_path / "metrics" / "probe.sweeps.py").write_text(
+        'COUNTERS = {"sweeps": '
+        '"myfm_tpu_torch.trainer:categorical_sweep.calls"}\n\n\n'
+        "def read(observed):\n    return None\n")
+    spec = dict(registry.load_spec(), per_layer=[dict(
+        name="probe.sweeps", unit="sweeps", better="lower",
+        source="program_counter", layer="loop", moves="sweeps_per_s")])
+    assert registry.cell("ml10m_r32.chain", spec, tmp_path)["counters"] == {
+        "sweeps": "myfm_tpu_torch.trainer:categorical_sweep.calls"}
+    result, observed = cell.run_cell(
+        "ml10m_r32.chain", 2 ** 31 + 7, 0.5, False, time.perf_counter(),
+        device="cpu", spec=spec, bench_dir=tmp_path, overrides=TINY)
+    n = observed["window_sweeps"]
+    assert observed["counters"] == {"sweeps": (1, n + 1)}
+    assert result["correct"]
+
+
+def test_read_counter_copies_the_value():
+    from myfm_tpu_torch.ops import gram
+
+    path = "myfm_tpu_torch.ops.gram:fused_tile_gram_cross.mode_launches"
+    value = cell.read_counter(path)
+    assert value == gram.fused_tile_gram_cross.mode_launches
+    assert value is not gram.fused_tile_gram_cross.mode_launches

@@ -89,7 +89,7 @@ def test_idle_gaps_take_the_innermost_span():
 
 
 def test_nest_walks_up_to_the_span_holding_the_point():
-    nest = spans.Nest([(0, 100, "a"), (10, 20, "b"), (12, 14, "c"),
+    nest = trace.Nest([(0, 100, "a"), (10, 20, "b"), (12, 14, "c"),
                        (30, 90, "d")])
     assert nest.at(13, "-") == "c"
     assert nest.at(16, "-") == "b"
@@ -185,3 +185,88 @@ def test_a_recorded_cpu_run_gives_the_host_metrics(workload):
     # the cold fit built the plan, the measured fit found it
     builds = [s.fit for s in rec.spans if s.name == "myfm.plan.build"]
     assert builds == [0]
+
+
+def reader(name):
+    import importlib.util
+
+    from fmbench import registry
+
+    path = registry.BENCH_DIR / "metrics" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"reader_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_span_metrics_give_none_when_nothing_was_recorded():
+    harvest = reader("loop.harvest_ms")
+    gather = reader("sweep.gather_device_ms")
+    # an untraced run's readings: no recording, no trace
+    assert harvest.read(dict(window_sweeps=5)) is None
+    assert gather.read(dict(window_sweeps=5)) is None
+    # a recording without the measured fit's sweeps, a slice without
+    # the span
+    assert harvest.read(dict(spans=dict(records=[], fit=None,
+                                        sweeps=[]))) is None
+    assert gather.read(dict(trace=dict(span_device_ms={}, sweeps=2))) is None
+
+
+def test_span_metrics_read_what_the_span_tool_reads():
+    rec = recording()
+    fit, sweeps = spans.measured_sweeps(rec, 5, 2, 2)
+    split = dict(span_device_ms={"myfm.sweep.gather": 12.0})
+    want = spans.metrics(rec, split, 5, 2, 2)
+    observed = dict(spans=dict(records=rec, fit=fit, sweeps=sweeps),
+                    trace=dict(span_device_ms=split["span_device_ms"],
+                               sweeps=2))
+    assert reader("loop.harvest_ms").read(observed) == want["loop.harvest_ms"]
+    assert reader("sweep.gather_device_ms").read(observed) == \
+        want["sweep.gather_device_ms"]
+
+
+def test_host_ms_by_name_is_host_ms_of_each_name():
+    rec = recording()
+    fit, sweeps = spans.measured_sweeps(rec, 5, 2, 2)
+    by_name = spans.host_ms_by_name(rec, fit, sweeps)
+    assert set(by_name) == {s.name for s in rec if s.fit == fit
+                            and s.sweep in sweeps}
+    for name, (total, own) in by_name.items():
+        assert total == spans.host_ms(rec, fit, sweeps, (name,))
+        assert own == spans.host_ms(rec, fit, sweeps, (name,), own=True)
+
+
+def test_a_traced_cpu_run_records_spans_for_the_readers(monkeypatch):
+    """A traced run (its device readings stubbed: the CPU's trace holds no
+    device operation) records the spans from before the cold fit, keeps
+    the measured fit's host ms by span, reads the declared counters and
+    gives the span and counter metrics; an untraced run records none."""
+    from myfm_tpu_torch import tracing
+
+    monkeypatch.setattr(trace, "summarize", lambda events, top=10: dict(
+        window_s=1.0, busy_s=0.5, device_s=0.5, kernel_ms={}, device_ops=[],
+        idle_gaps=[], kernel1_device_ms=0.0, kernel1_passes=0,
+        kernel1_carries=0))
+    monkeypatch.setattr(spans, "device_split", lambda events: dict(
+        span_device_ms={"myfm.sweep.gather": 3.0}))
+    result, observed = cell.run_cell(
+        "ml10m_r128.libfm", 2 ** 31 + 5, 4.0, True, time.perf_counter(),
+        device="cpu", overrides=TINY)
+    assert result["correct"]
+    recorded = observed["spans"]
+    assert recorded["fit"] == 1 and recorded["sweeps"]
+    assert min(s.fit for s in recorded["records"] if s.fit is not None) == 0
+    for name in ("myfm.sweep", "myfm.loop.harvest", "myfm.eval.metrics"):
+        total, own = recorded["host_ms"][name]
+        assert total >= own > 0, name
+    assert observed["counters"] == {"entity_draws.launches": (0, 0)}
+    metrics = result["metrics"]
+    assert metrics["draws.launches_per_sweep"]["value"] == 0.0
+    assert metrics["sweep.gather_device_ms"]["value"] == \
+        3.0 / observed["trace"]["sweeps"]
+    assert metrics["loop.harvest_ms"]["value"] > 0
+    assert tracing._recording is None
+    _, untraced = cell.run_cell(
+        "ml10m_r128.libfm", 2 ** 31 + 5, 0.5, False, time.perf_counter(),
+        device="cpu", overrides=TINY)
+    assert "spans" not in untraced and "trace" not in untraced

@@ -54,3 +54,28 @@ def test_kernel1_roofline_takes_the_bounds_of_the_passes_held():
     assert abs(reader.read(dict(trace=t)) - 40.0) < 1e-9
     t.update(kernel1_passes=0)
     assert reader.read(dict(trace=t)) is None
+
+
+def test_program_spans_are_no_operations_and_name_the_gaps():
+    events = [
+        ev(trace.SLICE, 0, 100),
+        ev("bench.sweep", 0, 40), ev("myfm.sweep", 1, 39),
+        ev("myfm.sweep.gather", 2, 12),
+        # the spans' device-side annotations are not operations
+        ev("myfm.sweep.gather", 5, 30, device=True),
+        ev("myfm.sweep", 5, 60, device=True),
+        ev("gather", 5, 20, device=True),
+        ev("copy", 30, 60, device=True),
+        ev("gather", 70, 72, device=True),
+        ev("myfm.loop.harvest", 65, 80),
+    ]
+    s = trace.summarize(events)
+    assert s["busy_s"] == 47e-6 and abs(s["device_s"] - 47e-6) < 1e-15
+    # every operation by name, not only the top ones
+    assert s["kernel_ms"] == {"gather": 0.017, "copy": 0.030}
+    assert trace.summarize(events, top=1)["kernel_ms"] == s["kernel_ms"]
+    # gaps: 72-100 (it opens in the harvest), 60-70 (no span holds 60:
+    # the loop), 20-30 (inside myfm.sweep, past its gather), 0-5 (in
+    # bench.sweep alone)
+    assert s["idle_gaps"] == [["myfm.loop.harvest", 28e-6], ["loop", 10e-6],
+                              ["myfm.sweep", 10e-6], ["bench.sweep", 5e-6]]
